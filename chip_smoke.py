@@ -8,9 +8,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 It drives the port's main path — the noise-marginalised GLS refit of a
 68-pulsar timing array (~670k TOAs, NANOGrav-15yr-like ragged counts)
 through ``PTAFleet(toa_bucket="plan").fit(method="gls", maxiter=2,
-precision="mixed")`` — and checks it, in these phases:
+precision="mixed")`` — then the GW detection stage on the fitted fleet,
+and checks both, in these phases:
 
-1. build the hand-written CUDA kernels from ``pint_tpu_torch/csrc``;
+1. build the hand-written CUDA kernels from ``pint_tpu_torch/csrc``
+   (``gram.cu`` and ``paircorr.cu``, one nvcc each, started together);
 2. host prep: 68 pulsars of zero-residual geocentric TOAs (the bench
    par template: EFAC/EQUAD/ECORR, power-law red noise with 30
    harmonics, 4 TOAs per epoch at 800/1400 MHz), then the fleet's host
@@ -23,12 +25,35 @@ precision="mixed")`` — and checks it, in these phases:
    kernels launched, no refinement failure (max relres <= 1e-8, no f64
    refit taken), |x_mixed - x_f64| <= 1e-6 sigma, |x_fit - x_true| <=
    0.01 sigma for all 68 pulsars, finite chi2;
-5. the kernel phase: each kernel on the inputs the main path gave it
-   (recorded in one more mixed fit), held against its plain f32 version
-   (max |G_kernel - G_plain| <= 1e-5 max|G| over the entries the fit
-   reads) and against the f64 plain version; CUDA-event times of the
-   kernel, the plain version and one ``torch.bmm`` in f32 (TF32 off) as
-   the library yardstick, beside the least time the card could take.
+5. the kernel phase: each GLS kernel on the inputs the main path gave
+   it (recorded in one more mixed fit), held against its plain f32
+   version (max |G_kernel - G_plain| <= 1e-5 max|G| over the entries the
+   fit reads) and against the f64 plain version; CUDA-event times of
+   the kernel, the plain version and one ``torch.bmm`` in f32 (TF32
+   off) as the library yardstick, beside the least time the card could
+   take;
+6. ``[gw] fleet``: the GW stage on the main path's fleet at its warm
+   mixed-fit vectors: assemble and regrid at 30 days (timed), then the
+   optimal statistic with the pair products in mixed (the K3 kernel;
+   its count set to 0 just before and read just after) and in f64.
+   Checks: K3 launched in mixed and not in f64, 2,278 pairs, finite
+   amp2 / snr / sigma_amp2, |snr_mixed - snr_f64| <= 1e-3 and
+   |amp2_mixed - amp2_f64| <= 1e-3 sigma_amp2. The main path's TOAs are
+   zero-residual, so this S/N checks the plumbing at full scale and is
+   not a science number;
+7. ``[gw] injected``: bench.py's fixture (68 pulsars x 128 cells, an
+   HD background of amplitude 0.5, seed 0) in mixed: the amplitude is
+   recovered within a factor 2, HD S/N > 5 and beats the monopole and
+   dipole templates, and a 100-draw sky-scramble null runs;
+8. ``[gw] sweep``: the pair sweep at 3,000 pulsars x 512 cells in
+   256-pulsar tiles (78 K3 launches per mixed sweep) with a no-op fold,
+   warm, best of 3, in mixed and f64, then once through the HD optimal
+   statistic's host fold;
+9. ``[kernel] pair_products``: K3 at the fleet's shape, at one 256 x 256
+   x 512 sweep tile and at the whole 3000 x 3000 x 512 product, held
+   against its plain f32 version (1e-5 of max|.| of each product) and
+   timed beside the plain version, two ``torch.matmul`` calls in f32
+   and the bound.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -56,6 +81,11 @@ TOL_RELRES = 1e-8  # refinement contraction (fitter.relres_failed)
 TOL_MIXED = 1e-6  # |x_mixed - x_f64| / sigma
 TOL_RECOVER = 0.01  # |x_fit - x_true| / sigma
 START_OFFSET_SIGMA = 3.0
+TOL_GW_SNR = 1e-3  # |snr_mixed - snr_f64| on the fleet, S/N units
+TOL_GW_AMP2 = 1e-3  # |amp2_mixed - amp2_f64| / sigma_amp2 on the fleet
+GW_LATTICE_DAYS = 30.0  # PTAFleet.gw_stage's default lattice
+SWEEP_PSR, SWEEP_CELLS, SWEEP_BLOCK = 3000, 512, 256
+INJ_PSR, INJ_CELLS, INJ_AMP, INJ_DRAWS = 68, 128, 0.5, 100
 
 
 def log(msg):
@@ -260,6 +290,216 @@ def capture_inputs(fleet, torch):
     return seen
 
 
+def check(phase, checks):
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase} checks failed: {failed}")
+
+
+def gw_fleet(fleet, xs):
+    """The GW stage on the fitted main-path fleet: assemble, regrid, and
+    the optimal statistic in mixed (K3 counted) and in f64. Returns the
+    lattice and K3's launches in the mixed run."""
+    from pint_tpu_torch import gw
+    from pint_tpu_torch.kernels.paircorr import pair_products_cuda
+
+    t0 = time.perf_counter()
+    inputs = gw.assemble(fleet, xs)
+    asm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lat = gw.regrid(inputs, lattice_days=GW_LATTICE_DAYS)
+    regrid_s = time.perf_counter() - t0
+    runs = {}
+    for precision in ("mixed", "f64"):
+        pair_products_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = gw.optimal_statistic(lat, precision=precision)
+        runs[precision] = (out, pair_products_cuda.launches,
+                           time.perf_counter() - t0)
+    (om, k3_mixed, _), (o64, k3_f64, _) = runs["mixed"], runs["f64"]
+    log(f"[gw] fleet: P {lat.n_pulsars}, M {lat.n_cells} cells of "
+        f"{GW_LATTICE_DAYS:g} d, pairs kept {om['n_pairs']} of "
+        f"{om['sweep']['n_pairs']}; assemble {asm_s:.3f} s, regrid "
+        f"{regrid_s:.3f} s (host clock)")
+    for name, (o, k3, wall) in runs.items():
+        s = o["sweep"]
+        log(f"[gw] fleet {name}: optimal statistic {wall:.4f} s, sweep "
+            f"{s['wall_s']:.4f} s ({s['pairs_per_s']:.0f} pairs/s), K3 "
+            f"launches {k3}; amp2 {o['amp2']!r}, sigma_amp2 "
+            f"{o['sigma_amp2']!r}, snr {o['snr']!r}")
+    log("[gw] fleet: the main path's TOAs are zero-residual, so this S/N "
+        "checks the plumbing at full scale; it is not a science number")
+    finite = all(o[k] is not None and np.isfinite(o[k])
+                 for o in (om, o64) for k in ("amp2", "snr", "sigma_amp2"))
+    check("[gw] fleet", {
+        "K3 launched in the mixed run": k3_mixed > 0,
+        "K3 not launched in the f64 run": k3_f64 == 0,
+        "2278 pairs swept": om["sweep"]["n_pairs"] == 2278,
+        "finite amp2 / snr / sigma_amp2": finite,
+        "|snr_mixed - snr_f64| <= 1e-3":
+            finite and abs(om["snr"] - o64["snr"]) <= TOL_GW_SNR,
+        "|amp2_mixed - amp2_f64| <= 1e-3 sigma_amp2":
+            finite and abs(om["amp2"] - o64["amp2"])
+            <= TOL_GW_AMP2 * o64["sigma_amp2"],
+    })
+    return lat, k3_mixed
+
+
+def gw_injected():
+    """bench.py's injected-GWB fixture through the mixed sweep."""
+    from pint_tpu_torch import gw
+
+    lat = gw.inject_gwb(gw.isotropic_positions(INJ_PSR, seed=0), INJ_CELLS,
+                        INJ_AMP, seed=0)
+    t0 = time.perf_counter()
+    os_ = {orf: gw.optimal_statistic(lat, orf=orf, precision="mixed")
+           for orf in ("hd", "monopole", "dipole")}
+    t1 = time.perf_counter()
+    null = gw.scramble_null(lat, n_draws=INJ_DRAWS, seed=0, mode="sky",
+                            precision="mixed", snr_obs=os_["hd"]["snr"])
+    t2 = time.perf_counter()
+    hd = os_["hd"]
+    ratio = (float(np.sqrt(hd["amp2"]) / INJ_AMP)
+             if hd["amp2"] is not None and hd["amp2"] > 0 else float("nan"))
+    log(f"[gw] injected: {INJ_PSR} pulsars x {INJ_CELLS} cells, amplitude "
+        f"{INJ_AMP}: sqrt(amp2)/A {ratio:.4f}, S/N hd {hd['snr']:.3f} "
+        f"monopole {os_['monopole']['snr']:.3f} dipole "
+        f"{os_['dipole']['snr']:.3f} ({t1 - t0:.3f} s for the three); "
+        f"{INJ_DRAWS}-draw sky-scramble null p = {null['p_value']!r} "
+        f"(max |S/N| {np.max(np.abs(null['snr_null'])):.3f}, "
+        f"{t2 - t1:.3f} s)")
+    check("[gw] injected", {
+        "0.5 < sqrt(amp2)/A < 2": 0.5 < ratio < 2.0,
+        "HD S/N > 5": hd["snr"] > 5.0,
+        "HD S/N beats monopole and dipole":
+            hd["snr"] > abs(os_["monopole"]["snr"])
+            and hd["snr"] > abs(os_["dipole"]["snr"]),
+        "null ran its draws": null["n_draws"] == INJ_DRAWS
+            and null["p_value"] is not None,
+    })
+
+
+def gw_sweep():
+    """The 3,000-pulsar pair sweep with a no-op fold, warm, best of 3,
+    in mixed and f64. Returns the lattice and K3's launches per mixed
+    sweep."""
+    from pint_tpu_torch import gw
+    from pint_tpu_torch.kernels.paircorr import pair_products_cuda
+
+    t0 = time.perf_counter()
+    lat = gw.inject_gwb(gw.isotropic_positions(SWEEP_PSR, seed=1),
+                        SWEEP_CELLS, 0.0, seed=1)
+    log(f"[gw] sweep: {SWEEP_PSR} pulsars x {SWEEP_CELLS} cells made in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    launches = {}
+    for precision in ("mixed", "f64"):
+        gw.correlation_sweep(lat.z, lat.w, lambda *a: None,
+                             block=SWEEP_BLOCK, precision=precision)
+        walls = []
+        for _ in range(3):
+            pair_products_cuda.launches = 0
+            s = gw.correlation_sweep(lat.z, lat.w, lambda *a: None,
+                                     block=SWEEP_BLOCK, precision=precision)
+            walls.append(s["wall_s"])
+            launches[precision] = pair_products_cuda.launches
+        best = min(walls)
+        log(f"[gw] sweep {precision}: {s['n_pairs']} pairs in "
+            f"{s['n_blocks']} tiles of {SWEEP_BLOCK}; best of 3 {best:.4f} s "
+            f"({s['n_pairs'] / best:.0f} pairs/s), runs "
+            f"{', '.join(f'{w:.4f}' for w in walls)} s; K3 launches per "
+            f"sweep {launches[precision]}")
+        # the same sweep through the HD optimal statistic's host fold
+        # (hd_curve on every pair): how much of a real sweep the fold is
+        hd = gw.optimal_statistic(lat, precision=precision,
+                                  block=SWEEP_BLOCK)["sweep"]["wall_s"]
+        log(f"[gw] sweep {precision}: with the HD optimal-statistic fold "
+            f"{hd:.4f} s ({hd - best:.4f} s, {100 * (hd - best) / hd:.1f}% "
+            f"of it, beyond the no-op sweep)")
+    n_tiles = s["n_blocks"]
+    check("[gw] sweep", {
+        "K3 launched once per tile in mixed": launches["mixed"] == n_tiles,
+        "K3 not launched in f64": launches["f64"] == 0,
+    })
+    return lat, launches["mixed"]
+
+
+def pair_record(torch, fleet_lat, sweep_lat, launches, sweep_launches):
+    """K3 against its plain f32 version (and the f64 reference) at the
+    fleet's shape, one 256 x 256 sweep tile and the whole 3000 x 3000
+    product; CUDA-event times of each. Returns the JSON entry, at the
+    whole shape, with the other two shapes as fields."""
+    from pint_tpu_torch.kernels.paircorr import (pair_products_cuda,
+                                                 pair_products_plain,
+                                                 pair_products_ref)
+
+    def upload(lat, dtype):
+        u = torch.as_tensor(lat.w * lat.z, device="cuda").to(dtype)
+        return u, torch.as_tensor(lat.w, device="cuda").to(dtype)
+
+    fu, fw = upload(fleet_lat, torch.float32)
+    fu64, fw64 = upload(fleet_lat, torch.float64)
+    su, sw = upload(sweep_lat, torch.float32)
+    su64, sw64 = upload(sweep_lat, torch.float64)
+    a, b = slice(0, SWEEP_BLOCK), slice(SWEEP_BLOCK, 2 * SWEEP_BLOCK)
+    shapes = {
+        "fleet": ((fu, fw, fu, fw), (fu64, fw64, fu64, fw64)),
+        "tile": ((su[a], sw[a], su[b], sw[b]),
+                 (su64[a], sw64[a], su64[b], sw64[b])),
+        "whole": ((su, sw, su, sw), (su64, sw64, su64, sw64)),
+    }
+    rec = {}
+    for label, (ins, ins64) in shapes.items():
+        ins = tuple(t.contiguous() for t in ins)
+        out = pair_products_cuda(*ins)
+        torch.cuda.synchronize()
+        ref32 = pair_products_plain(*ins)
+        ref64 = pair_products_ref(*ins64)
+        d32, rel32, rel64 = [], [], []
+        for o, r32, r64 in zip(out, ref32, ref64):
+            d = (o - r32).abs().max().item()
+            scale = r32.abs().max().item()
+            d32.append(d)
+            rel32.append(d / scale if scale else d)
+            scale64 = r64.abs().max().item()
+            d64 = (o.double() - r64).abs().max().item()
+            rel64.append(d64 / scale64 if scale64 else d64)
+        ba, m = ins[0].shape
+        bb = ins[2].shape[0]
+        ua, wa, ub, wb = ins
+        ms = cuda_ms(torch, lambda: pair_products_cuda(*ins))
+        plain_ms = cuda_ms(torch, lambda: pair_products_plain(*ins))
+        library_ms = cuda_ms(torch, lambda: (torch.matmul(ua, ub.mT),
+                                             torch.matmul(wa, wb.mT)))
+        nbytes = 4.0 * (2 * (ba + bb) * m + 2 * ba * bb)
+        flops = 4.0 * ba * bb * m
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_F32_FLOP_S * 1e3
+        log(f"[kernel] pair_products {label} ({ba}, {m}) x ({bb}, {m}) f32: "
+            f"vs plain f32 max|d| num {d32[0]:.3e} den {d32[1]:.3e} "
+            f"({rel32[0]:.3e}, {rel32[1]:.3e} of max|.|), vs f64 "
+            f"{rel64[0]:.3e}, {rel64[1]:.3e} of max|.|")
+        log(f"[kernel] pair_products {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, 2x torch.matmul {library_ms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.4f} GFLOP)")
+        if not max(rel32) <= TOL_KERNEL:
+            raise AssertionError(f"pair_products disagrees with its plain "
+                                 f"version at the {label} shape: "
+                                 f"{max(rel32):.3e} > {TOL_KERNEL}")
+        rec[label] = {"shape": [ba, bb, m], "max_abs_err": max(d32),
+                      "max_rel_err": max(rel32), "ms": ms,
+                      "plain_ms": plain_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "library_ms": library_ms}
+    whole = rec.pop("whole")
+    return {"name": "pair_products", "route": "cuda",
+            "source": "pint_tpu_torch/csrc/paircorr.cu",
+            "replaces": "pint_tpu/kernels/paircorr.py:65",
+            "launches": int(launches), **whole, "tile": rec["tile"],
+            "fleet": rec["fleet"], "sweep_launches": int(sweep_launches)}
+
+
 def run():
     import torch
 
@@ -281,13 +521,15 @@ def run():
         f"{torch.backends.cuda.matmul.allow_tf32}")
 
     t0 = time.perf_counter()
-    build.load("gram")
-    log(f"[build] csrc/gram.cu built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc "
-        f"{build.BUILD_INFO['gram']['seconds']:.2f} s)")
-    for line in build.BUILD_INFO["gram"]["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    build.load_all(["gram", "paircorr"])
+    log(f"[build] csrc/gram.cu and csrc/paircorr.cu built (one nvcc each, "
+        f"started together) and loaded in {time.perf_counter() - t0:.2f} s")
+    for name, tag in (("gram", "[build]"), ("paircorr", "[gw] build")):
+        info = build.BUILD_INFO[name]
+        log(f"{tag} csrc/{name}.cu: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"{tag} {line.strip()}")
 
     counts = ragged_counts()
     t0 = time.perf_counter()
@@ -354,9 +596,7 @@ def run():
             np.max(np.abs(xm2 - xm) / sig_m) <= TOL_MIXED,
         "finite chi2": bool(np.all(np.isfinite(cm)) and np.all(np.isfinite(c64))),
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"main path checks failed: {failed}")
+    check("main path", checks)
 
     profile_fit(fleet, torch)
     seen = capture_inputs(fleet, torch)
@@ -370,6 +610,12 @@ def run():
                       block_grams_cuda, block_grams_plain, *seen["K2"],
                       False, launches["K2"]),
     ]
+
+    fleet_lat, k3_launches = gw_fleet(fleet, xm2)
+    gw_injected()
+    sweep_lat, sweep_launches = gw_sweep()
+    entries.append(pair_record(torch, fleet_lat, sweep_lat, k3_launches,
+                               sweep_launches))
     log(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
-"""Kernels of the GLS slice: hand-written CUDA for Hopper beside their
-plain PyTorch versions (see fusedgls.py and seggram.py)."""
+"""Kernels of the port: hand-written CUDA for Hopper beside their plain
+PyTorch versions (see fusedgls.py, seggram.py and paircorr.py)."""
 
 from .fusedgls import (fused_block_gls_cuda, fused_block_gls_f32,
                        fused_block_gls_plain, fused_segment_gls)
+from .paircorr import (pair_products, pair_products_cuda,
+                       pair_products_plain, pair_products_ref)
 from .seggram import (block_grams_cuda, block_grams_f32, block_grams_plain,
                       segment_gram)
 
 __all__ = ["fused_block_gls_cuda", "fused_block_gls_f32",
            "fused_block_gls_plain", "fused_segment_gls",
+           "pair_products", "pair_products_cuda", "pair_products_plain",
+           "pair_products_ref",
            "block_grams_cuda", "block_grams_f32", "block_grams_plain",
            "segment_gram"]

@@ -5,7 +5,9 @@ Each ``csrc/*.cu`` source has a plain C interface; it is compiled with
 with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
 library lands in ``csrc/build/`` under a name keyed by the source's
 hash, so an edited source rebuilds and an unchanged one loads as is.
-Nothing is compiled or loaded at import time.
+:func:`load_all` starts one ``nvcc`` per missing library, all at once,
+so several sources build in the time of the slowest. Nothing is
+compiled or loaded at import time.
 """
 
 from __future__ import annotations
@@ -39,31 +41,61 @@ def _nvcc():
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def _library_path(name):
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def load_all(names) -> list:
+    """The loaded libraries of ``csrc/<name>.cu`` for every name, each
+    built on first use; the missing ones build concurrently."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as fh:
-            digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-        info = {"seconds": 0.0, "log": ""}
-        if not os.path.exists(so):
+        todo = [n for n in dict.fromkeys(names) if n not in _LIBS]
+        started = {}
+        for name in todo:
+            src, so = _library_path(name)
+            if os.path.exists(so):
+                started[name] = (so, None)
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                 capture_output=True, text=True)
-            info = {"seconds": time.perf_counter() - t0,
-                    "log": res.stdout + res.stderr}
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{info['log']}")
-            os.replace(tmp, so)  # atomic: concurrent builders agree
-        lib = ctypes.CDLL(so)
-        BUILD_INFO[name] = info
-        _LIBS[name] = lib
-        return lib
+            # nvcc's output goes to a file: two builds writing to pipes
+            # that are read one after the other could block each other
+            log = open(f"{tmp}.log", "w+")
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=log, stderr=subprocess.STDOUT)
+            started[name] = (so, (proc, tmp, log, src, time.perf_counter()))
+        try:
+            for name in todo:
+                so, build = started[name]
+                info = {"seconds": 0.0, "log": ""}
+                if build is not None:
+                    proc, tmp, log, src, t0 = build
+                    proc.wait()
+                    log.seek(0)
+                    info = {"seconds": time.perf_counter() - t0,
+                            "log": log.read()}
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"nvcc failed on {src}:\n"
+                                           f"{info['log']}")
+                    os.replace(tmp, so)  # atomic: concurrent builders agree
+                _LIBS[name] = ctypes.CDLL(so)
+                BUILD_INFO[name] = info
+        finally:
+            for so, build in started.values():
+                if build is not None:
+                    proc, tmp, log = build[:3]
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                    log.close()
+                    os.remove(log.name)
+        return [_LIBS[n] for n in names]
 
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    return load_all([name])[0]

@@ -19,6 +19,11 @@ Two GLS programs, as in the JAX package:
   ``ecorr_mode="auto"``: analytically marginalised sparse ECORR (with
   the noise hoist), or no ECORR. The dense-ECORR solve is not ported.
 
+:meth:`PTAFleet.gw_stage` runs the GW detection stage (``gw/``) on the
+fitted fleet: :meth:`PTABatch.gw_arrays` evaluates post-fit residuals
+in both layouts, the packed one through the packed fit's own slot
+machinery (:meth:`PTABatch._slots`).
+
 The WLS program, the pipelined executor, compile caches, the pack store
 and the observability hooks of the JAX package are not ported yet.
 """
@@ -28,11 +33,12 @@ from __future__ import annotations
 import math
 import time
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from .. import DTYPE, resolve_device
+from .. import DTYPE, gw, resolve_device
 from ..fitter import (_mtv, _mv, check_precision, gls_eigh_refine,
                       gls_eigh_solve, gls_fused_normal, gls_gram, gls_whiten,
                       relres_failed, seg_gls_eigh_refine, seg_gls_norm,
@@ -459,14 +465,15 @@ class PTABatch:
             self._x0_cache = torch.stack(vals, dim=-1)
         return self._x0_cache
 
-    def set_start_vector(self, x):
-        """Override the starting parameter vectors for the next fit
-        (shape (n_psr, n_free), the layout of the fit results)."""
+    def _pulsar_vectors(self, x):
+        """Per-pulsar vectors (n_psr, n_free) in original order as a
+        device tensor in the fit's layout: (B, k), or scattered into
+        the (R, S, k) packed start vectors for a packed batch."""
         x = torch.as_tensor(np.asarray(x, np.float64), dtype=DTYPE,
                             device=self.device)
         k = len(self.free_map())
         if tuple(x.shape) != (self.n_pulsars, k):
-            raise ValueError(f"start vector shape {tuple(x.shape)} != "
+            raise ValueError(f"parameter vector shape {tuple(x.shape)} != "
                              f"({self.n_pulsars}, {k})")
         if self._pack:
             base = self._x0().clone()
@@ -474,7 +481,18 @@ class PTABatch:
             so = torch.as_tensor(self._pack["slot_of"], device=self.device)
             base[ro, so] = x
             x = base
-        self._x0_cache = x
+        return x
+
+    def set_start_vector(self, x):
+        """Override the starting parameter vectors for the next fit
+        (shape (n_psr, n_free), the layout of the fit results)."""
+        self._x0_cache = self._pulsar_vectors(x)
+
+    def _pulsar_labels(self):
+        """Per-pulsar display labels in original batch order: the PSR
+        name when the model has one, the batch index otherwise."""
+        return [getattr(m, "PSR", None) and m.PSR.value or f"#{i}"
+                for i, m in enumerate(self.models)]
 
     def _overlay(self, params, x):
         return _overlay_params(x, params, tuple(self.free_map()))
@@ -484,6 +502,85 @@ class PTABatch:
 
     def _sigma_fn(self):
         return pure_sigma_fn(self.template, self.static)
+
+    def _resid_fn(self):
+        """p -> (residual seconds, sigma us), each (B, n): every
+        pulsar's phase residual with its weighted mean removed, over F0
+        — the JAX package's ``_resid_fn`` with the pulsar axis written
+        out. Unpacked layout only (see :meth:`_slots` for the packed)."""
+        vmap = torch.func.vmap
+        phase_fn = self._phase_fn()
+        sigma_fn = self._sigma_fn()
+        batch, prep = self.batch, _tensor_tree(self.prep)
+
+        def resid(p):
+            ph = vmap(phase_fn)(p, batch, prep)
+            frac = ph - torch.floor(ph + 0.5)
+            sig = vmap(sigma_fn)(p, batch, prep)
+            w = 1.0 / torch.square(sig)
+            frac = frac - (torch.sum(frac * w, -1) / torch.sum(w, -1))[:, None]
+            return frac / p["F"][:, 0, None], sig
+
+        return resid
+
+    def _slots(self):
+        """The packed layout's slot machinery, shared by the packed GLS
+        program and the GW residuals (:meth:`_gw_eval_packed`): global
+        segment ids ``row * S + slot`` per Q-block (``bseg``) and per
+        TOA (``gown``), per-segment sums (``osum``), one slot's params
+        and prep over every row (``slot_env``), the owner-masked merge
+        of per-slot (R, W, ...) evaluations (``combine``) and the
+        residual seconds of merged phases (``resid``)."""
+        pack = self._pack
+        S = int(pack["n_slots"])
+        Q = int(pack["quantum"])
+        slot_keys = frozenset(pack["slot_keys"])
+        params = self.params
+        prep = _tensor_tree(self.prep)
+        R, W = self.batch.tdb_sec.shape
+        RS = R * S
+        rows = torch.arange(R, device=self.device)[:, None]
+        block_slot = prep["_pack_block_slot"]  # (R, W/Q)
+        owner = torch.repeat_interleave(block_slot, Q, dim=1)  # (R, W)
+        bseg = (rows * S + block_slot).reshape(-1)  # global block segment
+        gown = (rows * S + owner).reshape(-1)  # global per-TOA segment
+        shared = {k: v for k, v in prep.items()
+                  if k not in slot_keys and not k.startswith("_pack_")}
+
+        def osum(v):
+            # per-TOA values (R*W, ...) -> per-segment sums (R*S, ...)
+            return block_segment_sum(v, bseg, RS, Q)
+
+        def slot_env(s):
+            ps = {k: v[:, s] for k, v in params.items()}
+            full = dict(shared)
+            for k in slot_keys:
+                full[k] = prep[k][:, s]
+            return ps, full
+
+        def combine(parts):
+            # slot-major list of (R, W, ...) -> row combination by owner
+            out = parts[0]
+            for s in range(1, S):
+                m = (owner == s).reshape(owner.shape
+                                         + (1,) * (parts[s].ndim - 2))
+                out = torch.where(m, parts[s], out)
+            return out
+
+        def resid(ph, sig, F0):
+            # merged (R, W) phase and sigma, (R, S) F0 -> flat (R*W,)
+            # residual seconds and sigma, per-segment weighted phase mean
+            # removed
+            frac = (ph - torch.floor(ph + 0.5)).reshape(-1)
+            sig = sig.reshape(-1)
+            wts = 1.0 / torch.square(sig)
+            frac = frac - (osum(frac * wts) / osum(wts))[gown]
+            return frac / F0.reshape(-1)[gown], sig
+
+        return SimpleNamespace(S=S, Q=Q, R=R, W=W, RS=RS, rows=rows,
+                               bseg=bseg, gown=gown, osum=osum,
+                               slot_env=slot_env, combine=combine,
+                               resid=resid)
 
     def _noise_bw_fn(self, exclude_ecorr=False):
         """Pure (params, prep) -> (B, w_us2) of one pulsar, stacking
@@ -564,14 +661,7 @@ class PTABatch:
         static = self.static
         Bn_ = batch.tdb_sec.shape[0]
         dev = self.device
-
-        def resid(p):
-            ph = vmap(phase_fn)(p, batch, prep)
-            frac = ph - torch.floor(ph + 0.5)
-            sig = vmap(sigma_fn)(p, batch, prep)
-            w = 1.0 / torch.square(sig)
-            frac = frac - (torch.sum(frac * w, -1) / torch.sum(w, -1))[:, None]
-            return frac / p["F"][:, 0, None], sig
+        resid = self._resid_fn()
 
         def design(x, p):
             def phase_of(xv, ps, b, pr):
@@ -765,44 +855,14 @@ class PTABatch:
         vmap = torch.func.vmap
         phase_fn = self._phase_fn()
         sigma_fn = self._sigma_fn()
-        pack = self._pack
-        S = int(pack["n_slots"])
-        Q = int(pack["quantum"])
-        Qe = int(pack["e_quantum"])
-        slot_keys = frozenset(pack["slot_keys"])
-        params, batch = self.params, self.batch
+        sl = self._slots()
+        S, Q, R, W, RS = sl.S, sl.Q, sl.R, sl.W, sl.RS
+        rows, bseg, gown = sl.rows, sl.bseg, sl.gown
+        osum, slot_env, combine = sl.osum, sl.slot_env, sl.combine
+        Qe = int(self._pack["e_quantum"])
+        batch = self.batch
         prep = _tensor_tree(self.prep)
         static = self.static
-        R, W = batch.tdb_sec.shape
-        dev = self.device
-        RS = R * S
-        rows = torch.arange(R, device=dev)[:, None]
-        block_slot = prep["_pack_block_slot"]  # (R, W/Q)
-        owner = torch.repeat_interleave(block_slot, Q, dim=1)  # (R, W)
-        bseg = (rows * S + block_slot).reshape(-1)  # global block segment
-        gown = (rows * S + owner).reshape(-1)  # global per-TOA segment
-        shared = {k: v for k, v in prep.items()
-                  if k not in slot_keys and not k.startswith("_pack_")}
-
-        def osum(v):
-            # per-TOA values (R*W, ...) -> per-segment sums (R*S, ...)
-            return block_segment_sum(v, bseg, RS, Q)
-
-        def slot_env(s):
-            ps = {k: v[:, s] for k, v in params.items()}
-            full = dict(shared)
-            for k in slot_keys:
-                full[k] = prep[k][:, s]
-            return ps, full
-
-        def combine(parts):
-            # slot-major list of (R, W, ...) -> row combination by owner
-            out = parts[0]
-            for s in range(1, S):
-                m = (owner == s).reshape(owner.shape
-                                         + (1,) * (parts[s].ndim - 2))
-                out = torch.where(m, parts[s], out)
-            return out
 
         def combine_noise(x):
             sigs, Bs, spis = [], [], []
@@ -852,12 +912,7 @@ class PTABatch:
             Mfull = Mfull.reshape(R * W, K)
             spi = torch.cat([spiB.new_zeros((R, S, nparam)), spiB],
                             dim=-1).reshape(RS, K)
-            # per-segment weighted phase mean
-            frac = (ph - torch.floor(ph + 0.5)).reshape(-1)
-            sig = sig.reshape(-1)
-            wts = 1.0 / torch.square(sig)
-            frac = frac - (osum(frac * wts) / osum(wts))[gown]
-            r = frac / F0.reshape(-1)[gown]
+            r, sig = sl.resid(ph, sig, F0)
             sigma_s = sig * 1e-6
             if fused:
                 winv = 1.0 / sigma_s
@@ -1006,14 +1061,91 @@ class PTABatch:
         bad = ~np.isfinite(chi2) | ~np.isfinite(x).all(axis=1)
         self.diverged = np.flatnonzero(bad)
         if bad.any():
-            names = [getattr(m, "PSR", None) and m.PSR.value or f"#{i}"
-                     for i, m in enumerate(self.models)]
+            names = self._pulsar_labels()
             warnings.warn(
                 f"PTA batch: {bad.sum()}/{len(bad)} pulsars diverged "
                 f"({[names[i] for i in self.diverged]}); their parameter "
                 "vectors were restored to the pre-fit values")
             x[bad] = np.asarray(x0, np.float64)[bad]
         return x, chi2
+
+    # -- GW detection inputs --
+
+    def time_residuals(self):
+        """(n_psr, n_toa_max) residual seconds at the batch's params, and
+        the (numpy) validity mask. Unpacked batches only, as in the JAX
+        package."""
+        if self._pack:
+            raise RuntimeError("time_residuals is not supported on packed "
+                               "plan batches")
+        with torch.no_grad():
+            r, _ = self._resid_fn()(self.params)
+        mask = np.arange(r.shape[1])[None, :] < np.asarray(self.n_toas)[:, None]
+        return r, mask
+
+    def _gw_eval_packed(self, x):
+        """Packed-plan half of :meth:`gw_arrays`: scatter the per-pulsar
+        fitted vectors x (n_psr, n_free) into the (R, S, k) packed
+        layout, then evaluate residual seconds and sigma over every row
+        with the packed fit's slot machinery (:meth:`_slots`): per-slot
+        evaluation, owner-masked merge, per-segment weighted phase mean.
+        Dummy slots own no TOA, so their NaN segment means are never
+        read. Returns (R, W) tensors."""
+        sl = self._slots()
+        vmap = torch.func.vmap
+        phase_fn = self._phase_fn()
+        sigma_fn = self._sigma_fn()
+        xp = self._pulsar_vectors(x)
+        phs, sigs, f0s = [], [], []
+        for s in range(sl.S):
+            ps, full = sl.slot_env(s)
+            p = self._overlay(ps, xp[:, s])
+            phs.append(vmap(phase_fn)(p, self.batch, full))
+            sigs.append(vmap(sigma_fn)(p, self.batch, full))
+            f0s.append(p["F"][:, 0])
+        r, sig = sl.resid(sl.combine(phs), sl.combine(sigs),
+                          torch.stack(f0s, 1))
+        return r.reshape(sl.R, sl.W), sig.reshape(sl.R, sl.W)
+
+    def gw_arrays(self, x):
+        """Post-fit per-pulsar arrays for the GW detection stage
+        (``gw/``): residual seconds evaluated at the FITTED parameter
+        vectors ``x`` (n_psr, n_free), per-TOA sigma (us), TDB MJDs and
+        the validity mask — all (n_psr, n_toa_max) host numpy in
+        original pulsar order, for unpacked and segment-packed batches
+        alike (each pulsar's contiguous span is gathered back out of its
+        packed row)."""
+        n_toas = np.asarray(self.n_toas).reshape(-1)
+        mjd = _np(self.batch.tdb_day) + _np(self.batch.tdb_sec) / 86400.0
+        with torch.no_grad():
+            if self._pack:
+                r, sig = self._gw_eval_packed(x)
+            else:
+                xp = self._pulsar_vectors(x)
+                r, sig = self._resid_fn()(self._overlay(self.params, xp))
+        r, sig = _np(r), _np(sig)
+        if not self._pack:
+            mask = np.arange(r.shape[1])[None, :] < n_toas[:, None]
+            return {"resid": r, "sigma_us": sig, "mjd": mjd, "mask": mask}
+        Q = int(self._pack["quantum"])
+        bs = _np(self.prep["_pack_block_slot"])
+        P = len(n_toas)
+        n_max = int(n_toas.max())
+        out_r = np.zeros((P, n_max))
+        out_s = np.ones((P, n_max))
+        out_t = np.zeros((P, n_max))
+        mask = np.arange(n_max)[None, :] < n_toas[:, None]
+        for i, (r0, s0) in enumerate(zip(self._pack["row_of"],
+                                         self._pack["slot_of"])):
+            # segments are contiguous Q-quantum spans in the row
+            start = int(np.flatnonzero(bs[r0] == s0)[0]) * Q
+            n = int(n_toas[i])
+            sl = slice(start, start + n)
+            out_r[i, :n] = r[r0, sl]
+            out_s[i, :n] = sig[r0, sl]
+            out_t[i, :n] = mjd[r0, sl]
+        return {"resid": out_r, "sigma_us": out_s, "mjd": out_t,
+                "mask": mask}
 
     @staticmethod
     def structure_key(model):
@@ -1132,3 +1264,40 @@ class PTAFleet:
             self.diverged.extend(idxs[j] for j in batch.diverged)
             self.fit_metrics[key] = batch.metrics
         return xs, chi2s, covs
+
+    def gw_stage(self, xs=None, method="auto", maxiter=3,
+                 lattice_days=30.0, orf="hd", n_scrambles=0,
+                 scramble_mode="sky", seed=0, precision="f64",
+                 block=256, positions=None, lattice=None, **kw):
+        """End-to-end GW detection stage over this fleet (the ``gw/``
+        pipeline), on the fleet's device: fit every bucket (skipped when
+        the fitted per-pulsar vectors ``xs`` are supplied; ``method``,
+        ``maxiter`` and ``**kw`` go to :meth:`fit`), assemble post-fit
+        residual/weight arrays and sky positions, regrid onto a common
+        ``lattice_days`` epoch lattice, and run the Hellings–Downs
+        optimal statistic over all pulsar pairs, its pair products in
+        ``precision``. ``n_scrambles > 0`` additionally calibrates
+        significance with that many seeded ``scramble_mode`` null draws
+        ("sky" or "phase"). ``positions`` (n, 3) overrides model
+        astrometry. ``lattice`` (a caller-held GWLattice, e.g. kept
+        current by ``gw.regrid_append``) skips the fit/assemble/regrid
+        front half. Returns the optimal-statistic dict (amp2 / snr /
+        pair sweep stats) plus lattice shape and, when scrambling, the
+        ``null`` block with its p-value."""
+        if lattice is not None:
+            lat = lattice
+        else:
+            if xs is None:
+                xs, _, _ = self.fit(method=method, maxiter=maxiter, **kw)
+            inputs = gw.assemble(self, xs, positions=positions)
+            lat = gw.regrid(inputs, lattice_days=lattice_days)
+        out = gw.optimal_statistic(lat, orf=orf, precision=precision,
+                                   block=block, device=self.device)
+        out["n_pulsars"] = lat.n_pulsars
+        out["n_cells"] = lat.n_cells
+        if n_scrambles:
+            out["null"] = gw.scramble_null(
+                lat, n_draws=n_scrambles, seed=seed, mode=scramble_mode,
+                orf=orf, precision=precision, block=block,
+                snr_obs=out["snr"], device=self.device)
+        return out

@@ -1,6 +1,8 @@
 """The port's Gram kernels (pint_tpu_torch/kernels) against the JAX
 package's: the fused whiten+Gram kernel (K1, kernels/fusedgls.py) and
-the block-Gram kernel (K2, kernels/seggram.py).
+the block-Gram kernel (K2, kernels/seggram.py); on a card also the GW
+pair-products kernel (K3, kernels/paircorr.py, whose CPU parity tests
+are in test_torch_gw.py) against its plain version.
 
 On the CPU the JAX Pallas kernels run in interpret mode (as
 tests/test_kernels.py runs them) and the port's wrappers take their
@@ -169,3 +171,32 @@ def test_kernels_on_card_match_plain(n, k, block):
         ref = plain(inp, block)
         assert kern.launches == before + 1
         assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# K3 (B_a, B_b, M): a single entry, ragged edges in every dimension of
+# the kernel's 64 x 64 output tiles and 32-cell lattice chunks, and the
+# GW sweep's full 256 x 256 tile at the throughput lattice
+PAIR_CASES = [(1, 1, 1), (13, 21, 37), (256, 256, 512), (300, 70, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ba,bb,m", PAIR_CASES)
+def test_pair_products_on_card_match_plain(ba, bb, m):
+    """K3 on the card against its plain f32 version on the same inputs:
+    1e-5 of max|.| of each product, one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from pint_tpu_torch.kernels.paircorr import (pair_products_cuda,
+                                                 pair_products_plain)
+
+    rng = np.random.default_rng(16)
+    ins = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+           for a in (rng.normal(size=(ba, m)), rng.uniform(0.5, 2, (ba, m)),
+                     rng.normal(size=(bb, m)), rng.uniform(0.5, 2, (bb, m)))]
+    before = pair_products_cuda.launches
+    out = pair_products_cuda(*ins)
+    torch.cuda.synchronize()
+    assert pair_products_cuda.launches == before + 1
+    for got, ref in zip(out, pair_products_plain(*ins)):
+        assert got.shape == (ba, bb)
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()

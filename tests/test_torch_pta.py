@@ -54,13 +54,12 @@ def port_toas(jt):
         planet_pos=dict(jt.planet_pos))
 
 
-def make_fleets(**par_kw):
-    """(JAX fleet, port fleet, pars) from the same noisy TOAs."""
+def make_toas(iterations=0, **par_kw):
+    """(pars, JAX models, JAX TOAs): noisy TOAs of the COUNTS pulsars.
+    ``iterations`` is the simulator's: with 0 the TOAs are built in one
+    pass and the post-fit residuals keep a ~ms systematic."""
     from pint_tpu.models import get_model as jax_model
-    from pint_tpu.parallel import PTAFleet as JaxFleet
     from pint_tpu.simulation import make_fake_toas_fromMJDs
-    from pint_tpu_torch.models import get_model
-    from pint_tpu_torch.parallel.pta import PTAFleet
 
     rng = np.random.default_rng(3)
     pars, jms, jts = [], [], []
@@ -75,12 +74,22 @@ def make_fleets(**par_kw):
             jt = make_fake_toas_fromMJDs(mjds, jm, error_us=1.0,
                                          freq_mhz=freqs, obs="gbt",
                                          add_noise=True, seed=i,
-                                         iterations=0)
+                                         iterations=iterations)
         for f in jt.flags:
             f["f"] = "L-wide"
         pars.append(p)
         jms.append(jm)
         jts.append(jt)
+    return pars, jms, jts
+
+
+def make_fleets(**par_kw):
+    """(JAX fleet, port fleet, pars) from the same noisy TOAs."""
+    from pint_tpu.parallel import PTAFleet as JaxFleet
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel.pta import PTAFleet
+
+    pars, jms, jts = make_toas(**par_kw)
     jf = JaxFleet(jms, jts, **PLAN)
     tf = PTAFleet([get_model(p) for p in pars], [port_toas(t) for t in jts],
                   device="cpu", **PLAN)
