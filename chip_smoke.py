@@ -53,7 +53,34 @@ and checks both, in these phases:
    x 512 sweep tile and at the whole 3000 x 3000 x 512 product, held
    against its plain f32 version (1e-5 of max|.| of each product) and
    timed beside the plain version, two ``torch.matmul`` calls in f32
-   and the bound.
+   and the bound;
+10. ``[stream] lanes``: the streaming append path
+   (``serve.StreamingRefitter.register`` / ``.append``) over 68 lanes,
+   one per pulsar of the main path's TOAs (669,488 base TOAs), each
+   model ``par_text(i)`` without ECORR and red noise (F0/F1/DM free,
+   K+2 = 6), every append in mixed with a delta store in a temporary
+   directory: 4 rounds of one 64-TOA chunk per lane (272 appends, K1′'s
+   count set to 0 before registration and read after the last round).
+   Prints the registration and append walls and where an append's time
+   goes; checks K1′ launched once per append, finite results, no
+   escalation, relres <= 1e-12 on chol_update solves, and on the two
+   smallest and two largest lanes |x_mixed - x_f64| <= 1e-6 sigma over
+   the same appends in f64;
+11. ``[stream] restart``, ``escalation``, ``correlated``: a second
+   refitter over the same delta store replays those 4 lanes' chains
+   (16 links) to bitwise the first one's x and chi2; one lane's fifth
+   append under an injected ``solver_diverge`` escalates to bitwise a
+   fresh registration on the merged TOAs, and its next append chains
+   onto the re-rooted chain; a main-path model (ECORR + red noise)
+   gets a full refit per append;
+12. ``[stream] kernel``: bench.py's kernel scenario (670,000 base rows
+   on the card, K = 10, 64 appended rows, seed 42): scratch refit vs
+   clone + append + solve, best of 3, in f64 (parity <= 1e-15 floored
+   relative) and mixed (K1′ once per append, its delta Gram within
+   1e-5 of the f64 one), and chol_update on the host vs eager on the
+   card; then ``[kernel] delta_gram``: K1′ at the lane shape (64 x 6)
+   and the scenario's (64 x 12) against its plain version, timed beside
+   one f32 ``torch.mm`` and the bound.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -67,6 +94,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -86,6 +114,11 @@ TOL_GW_AMP2 = 1e-3  # |amp2_mixed - amp2_f64| / sigma_amp2 on the fleet
 GW_LATTICE_DAYS = 30.0  # PTAFleet.gw_stage's default lattice
 SWEEP_PSR, SWEEP_CELLS, SWEEP_BLOCK = 3000, 512, 256
 INJ_PSR, INJ_CELLS, INJ_AMP, INJ_DRAWS = 68, 128, 0.5, 100
+# streaming: appends of 64 TOAs (serve/streaming.py APPEND_PAD), 4
+# rounds over every lane; 2 more on the escalation lane
+STREAM_ROUNDS, STREAM_CHUNK, STREAM_EXTRA = 4, 64, 2
+TOL_RELRES_CHOL = 1e-12  # kernels/incremental.py's factored-solve gate
+TOL_PARITY = 1e-15  # incremental vs scratch, floored relative (f64)
 
 
 def log(msg):
@@ -500,6 +533,406 @@ def pair_record(torch, fleet_lat, sweep_lat, launches, sweep_launches):
             "fleet": rec["fleet"], "sweep_launches": int(sweep_launches)}
 
 
+def lane_par_text(i):
+    """par_text(i) without its correlated noise (ECORR and red noise):
+    EFAC/EQUAD kept, F0/F1/DM free — a model that gets an incremental
+    streaming lane."""
+    return "".join(line + "\n" for line in par_text(i).splitlines()
+                   if not line.startswith(("ECORR", "RN", "TNRED")))
+
+
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def stream_traffic(models, device, extra_lane, seed=11):
+    """Each lane's append chunks: STREAM_ROUNDS chunks of 64 TOAs (16
+    epochs x 4 TOAs 0.5 s apart, alternating 800/1400 MHz, flagged -f
+    L-wide, epochs uniform after MJD 57000, white noise at the lane
+    model's EFAC/EQUAD-scaled 1 us errors), and STREAM_EXTRA more for
+    ``extra_lane``. One simulation per lane, cut into chunks."""
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    out = []
+    for i, m in enumerate(models):
+        n = STREAM_ROUNDS + (STREAM_EXTRA if i == extra_lane else 0)
+        rng = np.random.default_rng([seed, i])
+        days = np.sort(rng.uniform(57000, 57000 + 30 * n, 16 * n))
+        mjds = (days[:, None] + np.arange(4) * 0.5 / 86400.0).reshape(-1)
+        freqs = np.where(np.arange(len(mjds)) % 2, 1400.0, 800.0)
+        t = make_fake_toas_fromMJDs(mjds, m, error_us=1.0, freq_mhz=freqs,
+                                    flags={"f": "L-wide"}, add_noise=True,
+                                    seed=seed * 1000 + i, iterations=2,
+                                    device=device)
+        which = np.arange(len(t)) // STREAM_CHUNK
+        out.append([t.mask(which == k) for k in range(n)])
+    return out
+
+
+class Timers:
+    """Host-clock time per labelled call, each call closed by a device
+    synchronize: where an append's time goes. ``patch`` wraps
+    ``owner.attr`` (a module function, a class method or an instance's
+    bound method); ``restore`` puts every original back."""
+
+    def __init__(self):
+        self.total = {}
+        self.calls = {}
+        self._orig = []
+
+    def patch(self, owner, attr, label):
+        fn = getattr(owner, attr)
+        self._orig.append((owner, attr, owner.__dict__.get(attr, fn)))
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            self.total[label] = self.total.get(label, 0.0) \
+                + time.perf_counter() - t0
+            self.calls[label] = self.calls.get(label, 0) + 1
+            return out
+
+        setattr(owner, attr, timed)
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._orig):
+            setattr(owner, attr, fn)
+        self._orig = []
+
+
+def lane_sigma(lane):
+    """Un-normalized parameter sigmas of a lane from its (ridged) normal
+    matrix, offset dropped."""
+    covn = np.linalg.inv(lane.state.A.numpy())
+    return (np.sqrt(np.diag(covn)) / lane.norm)[1:]
+
+
+def stream_lanes(main_models, toas, tmp, device="cuda"):
+    """The streaming slice over the main path's TOAs: ``[stream] lanes``,
+    ``restart``, ``escalation`` and ``correlated``. Returns K1′'s
+    launches in the lanes' run and a lane's persisted chunk arrays (the
+    input K1′ got there)."""
+    from pint_tpu_torch.kernels import incremental as inc
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.resilience import faultinject
+    from pint_tpu_torch.serve import StreamingRefitter
+    from pint_tpu_torch.store import DeltaStore
+    from pint_tpu_torch.toa import merge_TOAs
+
+    n_lanes = len(toas)
+    models = [get_model(lane_par_text(i)) for i in range(n_lanes)]
+    order = list(np.argsort([len(t) for t in toas], kind="stable"))
+    pick = [order[0], order[1], order[-2], order[-1]]
+    esc, cor = order[2], order[0]
+    t0 = time.perf_counter()
+    traffic = stream_traffic(models, device, extra_lane=esc)
+    log(f"[stream] traffic: {n_lanes} lanes x {STREAM_ROUNDS} chunks of "
+        f"{STREAM_CHUNK} TOAs made in {time.perf_counter() - t0:.2f} s "
+        f"(host)")
+
+    # -- [stream] lanes: the streaming main path, K1′ counted --
+    sr = StreamingRefitter(deltas=DeltaStore(tmp), device=device)
+    inc.delta_gram_cuda.launches = 0
+    reg = []
+    for m, t in zip(models, toas):
+        sync()
+        t0 = time.perf_counter()
+        sr.register(m, t, precision="mixed")
+        sync()
+        reg.append(time.perf_counter() - t0)
+    timers = Timers()
+    timers.patch(sr, "_chunk_arrays", "rows (batch build + device eval)")
+    timers.patch(sr.deltas, "append", "delta store write (fsync)")
+    timers.patch(inc.IncrementalNormal, "append", "state append")
+    timers.patch(inc, "delta_gram", "  of which delta Gram (K1')")
+    timers.patch(inc, "chol_update", "  of which chol_update (host)")
+    timers.patch(sr, "_solve", "solve (host)")
+    walls, res = [], {i: [] for i in range(n_lanes)}
+    try:
+        for k in range(STREAM_ROUNDS):
+            for i, m in enumerate(models):
+                sync()
+                t0 = time.perf_counter()
+                res[i].append(sr.append(m, traffic[i][k], rid=f"{i}-{k}"))
+                sync()
+                walls.append(time.perf_counter() - t0)
+    finally:
+        timers.restore()
+    launches = inc.delta_gram_cuda.launches
+    outs = [o for i in res for o in res[i]]
+    solvers = {}
+    for o in outs:
+        solvers[o["solver"]] = solvers.get(o["solver"], 0) + 1
+    relres = max(o["relres"] for o in outs if o["solver"] == "chol_update")
+    n_app = n_lanes * STREAM_ROUNDS
+    wall_ms = np.array(walls) * 1e3
+    log(f"[stream] lanes: {n_lanes} lanes over {sum(len(t) for t in toas)} "
+        f"base TOAs registered in {sum(reg):.3f} s (slowest lane "
+        f"{max(reg):.3f} s, {len(toas[int(np.argmax(reg))])} TOAs; host "
+        f"clock)")
+    log(f"[stream] lanes: {n_app} mixed appends of {STREAM_CHUNK} TOAs: "
+        f"append wall p50 {np.percentile(wall_ms, 50):.3f} ms, p99 "
+        f"{np.percentile(wall_ms, 99):.3f} ms, max {wall_ms.max():.3f} ms, "
+        f"total {wall_ms.sum() / 1e3:.3f} s (host clock after synchronize); "
+        f"K1' launches {launches}; solvers {solvers}, max chol_update "
+        f"relres {relres:.3e}; escalations {sr.counters()['escalated']}")
+    for label, tot in timers.total.items():
+        log(f"[stream]   {label}: {1e3 * tot / timers.calls[label]:.3f} ms "
+            f"per call x {timers.calls[label]} ({100 * tot / (wall_ms.sum() / 1e3):.1f}% "
+            f"of the append wall)")
+    check("[stream] lanes", {
+        "K1' launched once per append": launches == n_app,
+        "every x and chi2 finite": all(
+            np.all(np.isfinite(o["x"])) and np.isfinite(o["chi2"])
+            for o in outs),
+        "no escalation": sr.counters()["escalated"] == 0
+            and not any(o["escalated"] for o in outs),
+        "relres <= 1e-12 on chol_update solves": relres <= TOL_RELRES_CHOL,
+    })
+
+    # mixed vs f64 on the two smallest and the two largest lanes
+    sr64 = StreamingRefitter(device=device)
+    gap = {}
+    for i in pick:
+        sr64.register(models[i], toas[i], precision="f64")
+        lane64 = sr64.lane(models[i])
+        for k in range(STREAM_ROUNDS):
+            o64 = sr64.append(models[i], traffic[i][k], rid=f"{i}-{k}")
+            gap[i] = max(gap.get(i, 0.0), float(np.max(
+                np.abs(res[i][k]["x"] - o64["x"]) / lane_sigma(lane64))))
+    worst = max(gap.values())
+    log(f"[stream] lanes: mixed vs f64, {STREAM_ROUNDS} appends on each of "
+        f"the lanes of {[len(toas[i]) for i in pick]} TOAs: max "
+        f"|x_mixed - x_f64|/sigma {[f'{gap[i]:.3e}' for i in pick]}")
+    check("[stream] lanes mixed vs f64", {
+        "|x_mixed - x_f64| <= 1e-6 sigma": worst <= TOL_MIXED})
+
+    # -- [stream] restart: a second process over the same delta store --
+    sr2 = StreamingRefitter(deltas=DeltaStore(tmp), device=device)
+    gaps = []
+    t0 = time.perf_counter()
+    for i in pick:
+        sr2.register(models[i], toas[i], precision="mixed")
+        x2, chi2_2, _ = sr2._solve(sr2.lane(models[i]))
+        last = res[i][-1]
+        gaps.append((float(np.max(np.abs(x2 - last["x"]))),
+                     abs(chi2_2 - last["chi2"])))
+    log(f"[stream] restart: 4 lanes re-registered in "
+        f"{time.perf_counter() - t0:.3f} s, {sr2.counters()['replayed']} "
+        f"links replayed; max |x - x_first|, |chi2 - chi2_first| "
+        f"{max(g[0] for g in gaps)!r}, {max(g[1] for g in gaps)!r}")
+    check("[stream] restart", {
+        "16 links replayed": sr2.counters()["replayed"] == 4 * STREAM_ROUNDS,
+        "x and chi2 bitwise the first process's":
+            all(g == (0.0, 0.0) for g in gaps),
+    })
+
+    # -- [stream] escalation: a fifth append diverges --
+    m = models[esc]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with faultinject.inject("solver_diverge"):
+            t0 = time.perf_counter()
+            out5 = sr.append(m, traffic[esc][STREAM_ROUNDS], rid="esc-5")
+            esc_s = time.perf_counter() - t0
+    fresh = StreamingRefitter(device=device)
+    fresh.register(m, merge_TOAs([toas[esc]]
+                                 + traffic[esc][:STREAM_ROUNDS + 1]),
+                   precision="mixed")
+    x_f, chi2_f, _ = fresh._solve(fresh.lane(m))
+    out6 = sr.append(m, traffic[esc][STREAM_ROUNDS + 1], rid="esc-6")
+    lane = sr.lane(m)
+    chain = sr.deltas.load_chain(lane.key, lane.base_signature)
+    dx = float(np.max(np.abs(out5["x"] - x_f)))
+    log(f"[stream] escalation: lane of {len(toas[esc])} TOAs, 5th append "
+        f"under solver_diverge escalated ({out5.get('escalation_reason')}) "
+        f"in {esc_s:.3f} s; vs a fresh registration on the merged TOAs "
+        f"max |dx| {dx!r}, |dchi2| {abs(out5['chi2'] - chi2_f)!r}; next "
+        f"append escalated={out6['escalated']}, chain links {len(chain)}")
+    check("[stream] escalation", {
+        "escalated on solver_diverge": out5["escalated"]
+            and out5["escalation_reason"] == "solver_diverge",
+        "bitwise a fresh registration": dx == 0.0 and out5["chi2"] == chi2_f,
+        "chain re-rooted, next append on it": not out6["escalated"]
+            and [c for c, _ in chain] == [out6["chain"]],
+    })
+
+    # -- [stream] correlated: a main-path model (ECORR + red noise) --
+    src = StreamingRefitter(device=device)
+    src.register(main_models[cor], toas[cor], precision="mixed")
+    t0 = time.perf_counter()
+    oc = src.append(main_models[cor], traffic[cor][0], rid="cor-0")
+    log(f"[stream] correlated: lane of {len(toas[cor])} TOAs with ECORR + "
+        f"red noise: append -> {oc['solver']} "
+        f"({oc.get('escalation_reason')}) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    check("[stream] correlated", {
+        "full refit for correlated noise":
+            oc["escalated"] and oc["escalation_reason"] == "correlated_noise",
+        "finite x": bool(np.all(np.isfinite(oc["x"]))),
+    })
+    arrays = sr.deltas.load_chain(sr.lane(models[pick[-1]]).key,
+                                  sr.lane(models[pick[-1]]).base_signature)
+    return launches, arrays[-1][1]
+
+
+def chol_update_eager(torch, L, V):
+    """The JAX package's rank-r update as eager torch ops on L's device
+    (a yardstick for the host placement in kernels/incremental.py)."""
+    K = L.shape[0]
+    idx = torch.arange(K, device=L.device)
+    L = L.clone()
+    for v in V.mT:
+        for j in range(K):
+            ljj, vj = L[j, j], v[j]
+            rad = torch.sqrt(ljj * ljj + vj * vj)
+            c, s = rad / ljj, vj / ljj
+            below = idx > j
+            newcol = torch.where(below, (L[:, j] + s * v) / c, L[:, j])
+            newcol[j] = rad
+            L[:, j] = newcol
+            v = torch.where(below, c * v - s * newcol, v)
+    return L
+
+
+def best_of(n, fn):
+    walls = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return min(walls), out
+
+
+def stream_kernel(torch, device="cuda", n_base=670_000):
+    """``[stream] kernel``: bench.py's kernel scenario (670,000 base rows
+    resident on the card, K = 10, 64 appended rows from the host, seed
+    42): the scratch refit and clone + append + solve, best of 3, in f64
+    and mixed; parity; the placement of chol_update. Returns the
+    appended rows."""
+    from pint_tpu_torch.kernels import incremental as inc
+
+    rng = np.random.default_rng(42)
+    n_app, K = 64, 10
+    Xb = rng.standard_normal((n_base, K))
+    rb = rng.standard_normal(n_base) * 1e-6
+    wb = rng.uniform(0.5, 2.0, n_base) * 1e6
+    Xa = rng.standard_normal((n_app, K))
+    ra = rng.standard_normal(n_app) * 1e-6
+    wa = rng.uniform(0.5, 2.0, n_app) * 1e6
+    q = np.full(K, 1e-6)
+    base_dev = tuple(torch.as_tensor(a, device=device) for a in (Xb, rb, wb))
+    chunks = [base_dev, (Xa, ra, wa)]
+    base = inc.build_normal(*base_dev, q=q, device=device)
+    scratch_s, (dx_sc, _, _, info_sc) = best_of(
+        3, lambda: inc.scratch_refit(chunks, q=q, device=device))
+    times, dxs, k1p = {}, {}, {}
+    for precision in ("f64", "mixed"):
+        def clone_append_solve():
+            st = inc.IncrementalNormal(base.A0, base.b, base.rNr, q=base.q,
+                                       device=device)
+            st.append(Xa, ra, wa, precision=precision)
+            return st.solve()
+
+        inc.delta_gram_cuda.launches = 0
+        times[precision], (dxs[precision], _, info) = best_of(
+            3, clone_append_solve)
+        k1p[precision] = inc.delta_gram_cuda.launches
+        log(f"[stream] kernel {precision}: clone + append + solve best of 3 "
+            f"{1e3 * times[precision]:.3f} ms ({info['solver']}), scratch "
+            f"refit {1e3 * scratch_s:.3f} ms ({info_sc['solver']}): "
+            f"{scratch_s / times[precision]:.1f}x; K1' launches "
+            f"{k1p[precision]}")
+    ref = dx_sc.numpy()
+    den = np.maximum(np.abs(ref),
+                     np.finfo(np.float64).eps * np.abs(ref).max())
+    parity = float(np.max(np.abs(dxs["f64"].numpy() - ref) / den))
+    g64 = inc.delta_gram(Xa, ra, wa, precision="f64").numpy()
+    rows = [torch.as_tensor(a, device=device) for a in (Xa, ra, wa)]
+    gmx = inc.delta_gram(*rows, precision="mixed").cpu().numpy()
+    used = slice(0, K + 1)
+    dg = float(np.abs(gmx - g64)[used, used].max()
+               / np.abs(g64)[used, used].max())
+    # where chol_update runs: host numpy (the port) vs eager torch on the
+    # card, on this scenario's factor (K = 10) and rows
+    V = torch.as_tensor(Xa * wa[:, None]).mT.contiguous()
+    host_s, Lh = best_of(3, lambda: inc.chol_update(base.L, V))
+    Ld, Vd = base.L.to(device), V.to(device)
+    dev_s, Lc = best_of(3, lambda: chol_update_eager(torch, Ld, Vd))
+    lgap = float((Lc.cpu() - Lh).abs().max() / Lh.abs().max())
+    log(f"[stream] kernel: f64 parity vs scratch {parity:.3e} "
+        f"(floored relative); mixed delta Gram vs f64 {dg:.3e} of max|dG| "
+        f"over the entries read; chol_update (K={K}, r={n_app}) host "
+        f"{1e3 * host_s:.3f} ms vs eager on the card {1e3 * dev_s:.3f} ms "
+        f"(gap {lgap:.1e})")
+    check("[stream] kernel", {
+        "f64 parity <= 1e-15": parity <= TOL_PARITY,
+        "K1' launched once per mixed append": k1p["mixed"] == 3,
+        "mixed delta Gram within 1e-5 of f64": dg <= TOL_KERNEL,
+    })
+    return Xa, ra, wa
+
+
+def delta_record(torch, lane_arrays, scenario_rows, launches):
+    """K1′ at the lane shape (a lane's persisted 64-row chunk, Ka = 6)
+    and at the kernel scenario's (64 x 12), held against its plain f32
+    version and f64, timed beside one f32 ``torch.mm`` and the bound.
+    Returns the JSON entry at the lane shape, the other as a field."""
+    from pint_tpu_torch.kernels import incremental as inc
+    from pint_tpu_torch.kernels.fusedgls import augment
+
+    rec = {}
+    for label, (X, r, winv) in (("lane", (lane_arrays["X"],
+                                          lane_arrays["r"],
+                                          lane_arrays["winv"])),
+                                ("scenario", scenario_rows)):
+        rows = [torch.as_tensor(np.array(a), device="cuda")
+                for a in (X, r, winv)]
+        aug64 = augment(*inc.pad_append_rows(*rows))
+        aug = aug64.float().contiguous()
+        n, ka = aug.shape
+        out = inc.delta_gram_cuda(aug)
+        sync()
+        ref32 = inc.delta_gram_plain(aug)
+        ref64 = inc.delta_gram_plain(aug64)
+        u = ka - 1  # the winv row/column is never read
+        d32 = (out - ref32)[:u, :u].abs().max().item()
+        rel32 = d32 / ref32[:u, :u].abs().max().item()
+        rel64 = ((out.double() - ref64)[:u, :u].abs().max().item()
+                 / ref64[:u, :u].abs().max().item())
+        xw = aug * aug[:, -1:]
+        ms = cuda_ms(torch, lambda: inc.delta_gram_cuda(aug))
+        plain_ms = cuda_ms(torch, lambda: inc.delta_gram_plain(aug))
+        library_ms = cuda_ms(torch, lambda: torch.mm(xw.mT, xw))
+        nbytes = 4.0 * (n * ka + ka * ka)
+        flops = n * ka * (ka + 1) + n * ka
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_F32_FLOP_S * 1e3
+        log(f"[kernel] delta_gram {label} ({n}, {ka}) f32: vs plain f32 "
+            f"max|d| {d32:.3e} ({rel32:.3e} of max|G|), vs f64 {rel64:.3e}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mm "
+            f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.7f} ms "
+            f"({nbytes:.0f} B, {flops:.0f} FLOP)")
+        if not rel32 <= TOL_KERNEL:
+            raise AssertionError(f"delta_gram disagrees with its plain "
+                                 f"version at the {label} shape: "
+                                 f"{rel32:.3e} > {TOL_KERNEL}")
+        rec[label] = {"shape": [n, ka], "max_abs_err": d32, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "library_ms": library_ms}
+    lane = rec.pop("lane")
+    return {"name": "delta_gram", "route": "cuda",
+            "source": "pint_tpu_torch/csrc/gram.cu",
+            "replaces": "pint_tpu/kernels/incremental.py:109",
+            "launches": int(launches), **lane, "scenario": rec["scenario"]}
+
+
 def run():
     import torch
 
@@ -616,6 +1049,15 @@ def run():
     sweep_lat, sweep_launches = gw_sweep()
     entries.append(pair_record(torch, fleet_lat, sweep_lat, k3_launches,
                                sweep_launches))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        k1p_launches, lane_arrays = stream_lanes(models, toas, tmp)
+        log(f"[stream] lanes, restart, escalation and correlated phases "
+            f"took {time.perf_counter() - t0:.2f} s")
+    scenario_rows = stream_kernel(torch)
+    entries.append(delta_record(torch, lane_arrays, scenario_rows,
+                                k1p_launches))
     log(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

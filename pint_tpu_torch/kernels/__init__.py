@@ -1,5 +1,6 @@
 """Kernels of the port: hand-written CUDA for Hopper beside their plain
-PyTorch versions (see fusedgls.py, seggram.py and paircorr.py)."""
+PyTorch versions (see fusedgls.py, seggram.py, paircorr.py and
+incremental.py)."""
 
 from .fusedgls import (fused_block_gls_cuda, fused_block_gls_f32,
                        fused_block_gls_plain, fused_segment_gls)

@@ -155,6 +155,20 @@ class TimingModel:
     def prepare(self, toas, device="cuda") -> "PreparedTiming":
         return PreparedTiming(self, toas, device=device)
 
+    def as_parfile(self) -> str:
+        """Serialize the model in ``pint`` format (reference:
+        TimingModel.as_parfile with format="pint"): the top-level
+        lines, then every delay and phase component's parameters, then
+        the noise components' (EFAC/EQUAD/ECORR/red noise are model
+        state too). The tempo/tempo2 spellings are not ported."""
+        lines = [self._top[p].as_parfile_line() for p in self.top_params]
+        ordered = list(self.delay_components()) + list(self.phase_components())
+        ordered += [c for c in self.components.values() if c not in ordered]
+        for comp in ordered:
+            lines.extend(getattr(comp, p).as_parfile_line()
+                         for p in comp.params)
+        return "".join(lines)
+
 
 def _delay_impl(model, params, batch, prep):
     d = torch.zeros_like(batch.tdb_sec)

@@ -31,11 +31,20 @@ from dataclasses import dataclass, field
 __all__ = [
     "Segment", "PlanRow", "PlanBucket", "ShapePlan",
     "align_up", "ladder_width", "plan_shapes", "pow2_width",
+    "PACK_GEOMETRY_VERSION",
 ]
 
 DEFAULT_QUANTUM = 256
 DEFAULT_MAX_PACK = 8
 DEFAULT_COMPILE_BUDGET = 4
+# Version of the PACKED-BATCH GEOMETRY itself, the JAX package's value:
+# bumped whenever the layout a ShapePlan produces for the SAME inputs
+# changes. On-disk artifacts derived from packed state stamp it into
+# their identity (store/packstore.py::store_identity) so a geometry
+# change invalidates them visibly. v3 marks the append-capable store
+# revision: base entries may carry delta segments chained beside them
+# (store/deltas.py).
+PACK_GEOMETRY_VERSION = 3
 # below this, vector lanes go idle and per-program overhead dominates
 DEFAULT_MIN_WIDTH = 1024
 # candidate-pool size for the ladder search: subsets of <= budget

@@ -118,6 +118,11 @@ class TOAs:
     def get_mjds(self) -> np.ndarray:
         return Epochs(self.day, self.sec, "utc").mjd_float()
 
+    def mask(self, condition) -> "TOAs":
+        """A new table of the TOAs where ``condition`` (bool array) is
+        true, every column carried (reference: toa.py::TOAs.mask)."""
+        return _concat([(self, np.asarray(condition, dtype=bool))])
+
     def to_batch(self, device="cuda") -> TOABatch:
         """Pack into a TOABatch of float64 tensors on ``device``."""
         dev = resolve_device(device)
@@ -140,3 +145,47 @@ class TOAs:
             obs_sun_ls=t(self.obs_sun.pos / ls),
             planet_pos_ls=t(planet),
             pulse_number=t(self.get_pulse_numbers()))
+
+
+def _concat(parts) -> TOAs:
+    """One table of the rows ``index`` of each ``(toas, index)`` part,
+    in order; a derived column (tdb, posvels, planets) is carried when
+    every part has it."""
+    tabs = [t for t, _ in parts]
+
+    def cat(get):
+        return np.concatenate([np.asarray(get(t))[i] for t, i in parts])
+
+    def posvel(name):
+        if any(getattr(t, name) is None for t in tabs):
+            return None
+        return PosVel(cat(lambda t: getattr(t, name).pos),
+                      cat(lambda t: getattr(t, name).vel))
+
+    tdb = None
+    if all(t.tdb is not None for t in tabs):
+        tdb = Epochs(cat(lambda t: t.tdb.day), cat(lambda t: t.tdb.sec),
+                     "tdb", cat(lambda t: t.tdb.lo))
+    planet_pos = {}
+    if all(t.planet_pos for t in tabs):
+        planet_pos = {p: cat(lambda t: t.planet_pos[p])
+                      for p in tabs[0].planet_pos}
+    out = TOAs.from_arrays(
+        cat(lambda t: t.day), cat(lambda t: t.sec),
+        error_us=cat(lambda t: t.error_us),
+        freq_mhz=cat(lambda t: t.freq_mhz), obs=cat(lambda t: t.obs),
+        flags=[dict(f) for t, i in parts
+               for f in np.asarray(t.flags, dtype=object)[i]],
+        tdb=tdb, ssb_obs=posvel("ssb_obs"), obs_sun=posvel("obs_sun"),
+        planet_pos=planet_pos)
+    out.planets = tabs[0].planets
+    return out
+
+
+def merge_TOAs(toas_list) -> TOAs:
+    """One table of every TOA of ``toas_list``, in order (reference:
+    toa.py::merge_TOAs, for the port's barycentred tables: the TDB
+    epochs keep their compensation term and the Sun's velocity is
+    carried, where the JAX package drops the one and zeroes the other;
+    no device computation reads either)."""
+    return _concat([(t, slice(None)) for t in toas_list])

@@ -2,7 +2,9 @@
 package's: the fused whiten+Gram kernel (K1, kernels/fusedgls.py) and
 the block-Gram kernel (K2, kernels/seggram.py); on a card also the GW
 pair-products kernel (K3, kernels/paircorr.py, whose CPU parity tests
-are in test_torch_gw.py) against its plain version.
+are in test_torch_gw.py) and the appended-rows Gram (K1′,
+kernels/incremental.py, CPU parity tests in test_torch_incremental.py)
+against their plain versions.
 
 On the CPU the JAX Pallas kernels run in interpret mode (as
 tests/test_kernels.py runs them) and the port's wrappers take their
@@ -132,16 +134,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernel entry points take CUDA tensors only; a CPU call never
     counts as a launch."""
     from pint_tpu_torch.kernels.fusedgls import fused_block_gls_cuda
+    from pint_tpu_torch.kernels.incremental import delta_gram_cuda
     from pint_tpu_torch.kernels.seggram import block_grams_cuda
 
-    before = (fused_block_gls_cuda.launches, block_grams_cuda.launches)
+    kernels = (fused_block_gls_cuda, block_grams_cuda, delta_gram_cuda)
+    before = [k.launches for k in kernels]
     x = torch.zeros((64, 5), dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_block_gls_cuda(x, 32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         block_grams_cuda(x, 32)
-    assert (fused_block_gls_cuda.launches,
-            block_grams_cuda.launches) == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        delta_gram_cuda(x)
+    assert [k.launches for k in kernels] == before
 
 
 # K = 120: the output is too wide for one band of shared memory and its
@@ -200,3 +205,41 @@ def test_pair_products_on_card_match_plain(ba, bb, m):
     for got, ref in zip(out, pair_products_plain(*ins)):
         assert got.shape == (ba, bb)
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# K1′ (rows, Ka): the streaming lanes' 64-row chunks at Ka = 6 (offset,
+# F0, F1, DM + r, winv) and bench.py's kernel scenario at Ka = 12; 8 and
+# 24 rows are partial 64-row staging chunks, Ka = 6 a ragged 4x4 tile
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ka", [(n, ka) for n in (8, 24, 64)
+                                  for ka in (6, 12)])
+def test_delta_gram_on_card_matches_plain(n, ka):
+    """K1′ on the card against its plain f32 version on the same padded
+    rows: 1e-5 of max|G| over the entries a lane reads, one K1′ launch
+    and no K1 launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from pint_tpu_torch.kernels.fusedgls import fused_block_gls_cuda
+    from pint_tpu_torch.kernels.incremental import (delta_gram,
+                                                    delta_gram_cuda,
+                                                    delta_gram_plain)
+
+    x, r, winv = _aug(n, ka - 2, 17)
+    winv = winv * 1e6
+    aug = torch.as_tensor(np.column_stack([x, r, winv]),
+                          dtype=torch.float32, device="cuda")
+    before = (delta_gram_cuda.launches, fused_block_gls_cuda.launches)
+    out = delta_gram_cuda(aug)
+    torch.cuda.synchronize()
+    assert (delta_gram_cuda.launches,
+            fused_block_gls_cuda.launches) == (before[0] + 1, before[1])
+    ref = delta_gram_plain(aug)
+    used = slice(0, ka - 1)
+    assert out.shape == (ka, ka)
+    assert (out - ref)[used, used].abs().max() \
+        <= 1e-5 * ref[used, used].abs().max()
+    # the dispatcher launches it for CUDA rows under precision="mixed"
+    dev = [torch.as_tensor(a, device="cuda") for a in (x, r, winv)]
+    G = delta_gram(*dev, precision="mixed")
+    assert G.dtype == torch.float64 and G.is_cuda
+    assert delta_gram_cuda.launches == before[0] + 2
