@@ -9,10 +9,12 @@ It drives the port's main path — the noise-marginalised GLS refit of a
 68-pulsar timing array (~670k TOAs, NANOGrav-15yr-like ragged counts)
 through ``PTAFleet(toa_bucket="plan").fit(method="gls", maxiter=2,
 precision="mixed")`` — then the GW detection stage on the fitted fleet,
-and checks both, in these phases:
+the streaming append lanes and the photon path, and checks each, in
+these phases:
 
 1. build the hand-written CUDA kernels from ``pint_tpu_torch/csrc``
-   (``gram.cu`` and ``paircorr.cu``, one nvcc each, started together);
+   (``gram.cu``, ``paircorr.cu`` and ``harmonics.cu``, one nvcc each,
+   started together);
 2. host prep: 68 pulsars of zero-residual geocentric TOAs (the bench
    par template: EFAC/EQUAD/ECORR, power-law red noise with 30
    harmonics, 4 TOAs per epoch at 800/1400 MHz), then the fleet's host
@@ -80,7 +82,27 @@ and checks both, in these phases:
    1e-5 of the f64 one), and chol_update on the host vs eager on the
    card; then ``[kernel] delta_gram``: K1′ at the lane shape (64 x 6)
    and the scenario's (64 x 12) against its plain version, timed beside
-   one f32 ``torch.mm`` and the bound.
+   one f32 ``torch.mm`` and the bound;
+13. ``[photon]``: bench.py's photon stage (4,000,000 photons, 1,000,000
+   pulsed at phase 0.3 with sigma 0.04, seed 0) over one year as a
+   barycentred NICER event file with a PSRPROB weight column, written
+   with the port's FITS writer (event times invert the par's spindown
+   phase to < 1 ns), then loaded (``load_event_TOAs``), given its
+   barycentre posvels, and folded by the timing model on the card.
+   ``hm``, ``hmw`` and ``z2m(m=4)`` each launch K4 once (counts set to
+   0 just before each) and agree with the f64 reference sums on the
+   card within 1e-5 relative; H > 1e5 with a finite significance;
+   4,000,000 uniform phases give H < 50; ``hm_scan`` over 32 F0 trials
+   1/(4T) apart is one K4 launch with its maximum at the true F0; an
+   ``LCFitter`` Gaussian fit finds the pulse within 0.01 cycles and
+   its width within 5%; the photonphase CLI on the card prints the
+   same weighted H (1e-9) and writes the same PULSE_PHASE column;
+14. ``[kernel] harmonic_sums``: K4 at (4,000,000, m = 20) unweighted
+   and weighted and on the scan's (32, 4,000,000) phases against its
+   plain f32 version (max(4e-8 n, 1e-4) absolute) and the f64
+   reference, a bitwise repeat, and the times of the kernel, the plain
+   version and the reference beside the bound (no library call
+   computes these sums).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -90,6 +112,8 @@ no CUDA card, or a directory without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -119,6 +143,17 @@ INJ_PSR, INJ_CELLS, INJ_AMP, INJ_DRAWS = 68, 128, 0.5, 100
 STREAM_ROUNDS, STREAM_CHUNK, STREAM_EXTRA = 4, 64, 2
 TOL_RELRES_CHOL = 1e-12  # kernels/incremental.py's factored-solve gate
 TOL_PARITY = 1e-15  # incremental vs scratch, floored relative (f64)
+# photons: bench.py's photon stage (bench.py:995-1012) with the par file
+# of tests/test_events.py, over one year of barycentred NICER events
+PHOTON_N, PHOTON_PULSED = 4_000_000, 1_000_000
+PHOTON_LOC, PHOTON_SIGMA = 0.3, 0.04
+PHOTON_F0, PHOTON_F1, PHOTON_PEPOCH = 29.946923, -3.77e-10, 56700
+PHOTON_SPAN_DAYS = 365.0
+PHOTON_TRIALS = 32  # hm_scan trials, 1/(4T) apart
+PHOTON_PAR = (f"PSR TESTEV\nRAJ 10:00:00.0\nDECJ 15:00:00.0\n"
+              f"F0 {PHOTON_F0} 1\nF1 {PHOTON_F1} 1\n"
+              f"PEPOCH {PHOTON_PEPOCH}\nDM 0.0\n")
+TOL_H = 1e-5  # |H_K4 - H_f64| / H_f64 (and each Z^2_k)
 
 
 def log(msg):
@@ -933,6 +968,294 @@ def delta_record(torch, lane_arrays, scenario_rows, launches):
             "launches": int(launches), **lane, "scenario": rec["scenario"]}
 
 
+# -- [photon]: event file -> phases -> H-test / Z^2_m -> template fit --
+
+def photon_events(path, seed=0):
+    """bench.py's photon stage (4,000,000 photons: 1,000,000 pulsed at
+    phase 0.3 with a Gaussian sigma of 0.04, 3,000,000 uniform, seed 0)
+    as a barycentred NICER event file over one year from MJD 56700:
+    TIMESYS TDB, a PSRPROB weight column (pulsed U(0.5, 1), background
+    U(0, 0.5)). Event times invert PHOTON_PAR's spindown phase
+    phi(t) = F0 t + F1 t^2 / 2 exactly (Newton in longdouble to < 1 ns).
+    Returns the last Newton step's largest size [s]."""
+    from pint_tpu_torch.event_toas import MISSION_MJDREF
+    from pint_tpu_torch.io.fits import write_fits_table
+
+    rng = np.random.default_rng(seed)
+    f0, f1 = np.longdouble(PHOTON_F0), np.longdouble(PHOTON_F1)
+    span = np.longdouble(PHOTON_SPAN_DAYS * 86400.0)
+    cycles = float(f0 * span + f1 * span * span / 2)
+    n_p = PHOTON_PULSED
+    phi = np.empty(PHOTON_N, np.longdouble)
+    phi[:n_p] = (np.floor(rng.uniform(0.0, cycles - 1.0, n_p))
+                 + PHOTON_LOC + PHOTON_SIGMA * rng.standard_normal(n_p))
+    phi[n_p:] = rng.uniform(0.0, cycles, PHOTON_N - n_p)
+    w = np.concatenate([rng.uniform(0.5, 1.0, n_p),
+                        rng.uniform(0.0, 0.5, PHOTON_N - n_p)])
+    t = phi / f0
+    for _ in range(6):
+        step = (f0 * t + f1 * t * t / 2 - phi) / (f0 + f1 * t)
+        t = t - step
+    worst = float(np.max(np.abs(step)))
+    if not worst < 1e-9:
+        raise AssertionError(f"photon times did not converge: {worst} s")
+    order = np.argsort(t, kind="stable")
+    t, w = t[order], w[order]
+    ref = MISSION_MJDREF["nicer"]
+    met = (np.longdouble(PHOTON_PEPOCH) - np.longdouble(ref)) * 86400 + t
+    write_fits_table(path, {"TIME": np.asarray(met, np.float64),
+                            "PSRPROB": w},
+                     {"MJDREFI": int(ref), "MJDREFF": ref - int(ref),
+                      "TIMESYS": "TDB", "TELESCOP": "NICER"})
+    return worst
+
+
+def h_f64(torch, phases, m, weights=None):
+    """The H-test of ``phases`` from the f64 reference sums on the same
+    device (eventstats.hm's formula over harmonic_sums_ref)."""
+    from pint_tpu_torch.eventstats import _h_of
+
+    return _h_of(z_f64(torch, phases, m, weights))
+
+
+def z_f64(torch, phases, m, weights=None):
+    """Z^2_1..m from the f64 reference sums (eventstats.z2m's formula)."""
+    from pint_tpu_torch.kernels.harmonics import harmonic_sums_ref
+
+    c, s = harmonic_sums_ref(phases, m, weights)
+    norm = (phases.shape[-1] / 2.0 if weights is None
+            else torch.sum(weights.double() ** 2) / 2.0)
+    return torch.cumsum((c ** 2 + s ** 2) / norm, dim=-1)
+
+
+def photon_path(torch, tmp, device="cuda"):
+    """The ``[photon]`` phases: write and load the event file, fill the
+    barycentre posvels, the timing model's phase on the card, H-test /
+    weighted H-test / Z^2_4 (K4 counted per statistic, held to the f64
+    reference), a uniform-photon null, the 32-trial hm_scan, the
+    template fit and the photonphase CLI. Returns K4's launches per
+    step and the inputs K4 got: the folded phases, the weights and the
+    scan's (32, n) phases in f32."""
+    from pint_tpu_torch import eventstats
+    from pint_tpu_torch.event_toas import get_event_weights, load_event_TOAs
+    from pint_tpu_torch.kernels.harmonics import harmonic_sums_cuda
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.scripts.photonphase import main as photonphase
+    from pint_tpu_torch.templates import LCFitter, LCGaussian, LCTemplate
+
+    walls = {}
+    path = os.path.join(tmp, "photons.fits")
+    t0 = time.perf_counter()
+    worst = photon_events(path)
+    walls["write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toas = load_event_TOAs(path, "nicer", weightcolumn="PSRPROB")
+    walls["load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toas.compute_posvels()
+    walls["posvels"] = time.perf_counter() - t0
+    model = get_model(PHOTON_PAR)
+    sync()
+    t0 = time.perf_counter()
+    prepared = model.prepare(toas, device=device)
+    sync()
+    walls["prepare"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ph_obj = prepared.phase()
+    phases = torch.remainder(ph_obj.frac, 1.0)
+    sync()
+    walls["phase"] = time.perf_counter() - t0
+    w = torch.as_tensor(get_event_weights(toas), device=device)
+    log(f"[photon] {len(toas)} photons over {PHOTON_SPAN_DAYS:g} d written "
+        f"({walls['write']:.2f} s; inversion to {worst:.1e} s), loaded "
+        f"{walls['load']:.2f} s, barycentre posvels {walls['posvels']:.2f} "
+        f"s (host); prepare {walls['prepare']:.2f} s (host pack + upload), "
+        f"phase {walls['phase']:.4f} s (device)")
+
+    stats, launches = {}, {}
+    for name, fn in (("hm", lambda: eventstats.hm(phases)),
+                     ("hmw", lambda: eventstats.hmw(phases, w)),
+                     ("z2m", lambda: eventstats.z2m(phases, m=4))):
+        harmonic_sums_cuda.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        stats[name] = fn()
+        sync()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = harmonic_sums_cuda.launches
+    ref = {"hm": h_f64(torch, phases, 20), "hmw": h_f64(torch, phases, 20, w),
+           "z2m": z_f64(torch, phases, 4)}
+    rel = {k: float(((stats[k] - ref[k]).abs() / ref[k].abs()).max())
+           for k in stats}
+    h, hw = float(stats["hm"]), float(stats["hmw"])
+    sig = eventstats.h2sig(h)
+    urng = np.random.default_rng(1)
+    uniform = torch.as_tensor(urng.random(PHOTON_N), device=device)
+    harmonic_sums_cuda.launches = 0
+    h_null = float(eventstats.hm(uniform))
+    launches["null"] = harmonic_sums_cuda.launches
+    log(f"[photon] H {h!r} ({sig:.1f} sigma, {walls['hm']:.4f} s), weighted "
+        f"H {hw!r} ({walls['hmw']:.4f} s), Z^2_1..4 "
+        f"{[round(float(z), 3) for z in stats['z2m']]} "
+        f"({walls['z2m']:.4f} s); vs the f64 reference: relative "
+        f"{rel['hm']:.2e} / {rel['hmw']:.2e} / {rel['z2m']:.2e}; K4 "
+        f"launches {launches}; H of {PHOTON_N} uniform phases {h_null:.3f}")
+    check("[photon] statistics", {
+        "K4 launched once per statistic": all(
+            v == 1 for v in launches.values()),
+        "|H_K4 - H_f64| / H_f64 <= 1e-5 (hm, hmw, each Z^2_k)":
+            max(rel.values()) <= TOL_H,
+        "H > 1e5 and h2sig finite": h > 1e5 and hw > 0 and np.isfinite(sig),
+        "H of uniform phases < 50": h_null < 50.0,
+    })
+
+    # hm_scan: 32 trials 1/(4T) apart about the true F0, one K4 launch
+    dt = torch.as_tensor((toas.tdb.day - PHOTON_PEPOCH) * 86400.0
+                         + toas.tdb.sec, device=device)
+    span = float(dt.max() - dt.min())
+    df = 1.0 / (4.0 * span)
+    grid = PHOTON_F0 + (np.arange(PHOTON_TRIALS) - PHOTON_TRIALS // 2) * df
+    frac = ph_obj.frac
+
+    def phases_at(f):
+        return torch.remainder(frac + (f - PHOTON_F0) * dt, 1.0)
+
+    harmonic_sums_cuda.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    scan = eventstats.hm_scan(phases_at, torch.as_tensor(grid, device=device))
+    sync()
+    walls["scan"] = time.perf_counter() - t0
+    scan_rows = torch.func.vmap(phases_at)(
+        torch.as_tensor(grid, device=device)).to(torch.float32)
+    launches["scan"] = harmonic_sums_cuda.launches
+    best = int(torch.argmax(scan))
+    log(f"[photon] hm_scan: {PHOTON_TRIALS} trials x {PHOTON_N} photons, "
+        f"df {df:.3e} Hz, {walls['scan']:.4f} s; K4 launches "
+        f"{launches['scan']}; max H {float(scan[best]):.1f} at trial {best} "
+        f"(true F0 at {PHOTON_TRIALS // 2}); neighbours "
+        f"{float(scan[best - 1]):.1f}, {float(scan[best + 1]):.1f}")
+    check("[photon] hm_scan", {
+        "one K4 launch over (32, n)": launches["scan"] == 1,
+        "max H at the true F0": best == PHOTON_TRIALS // 2,
+    })
+
+    # the template fit of the folded photons
+    template = LCTemplate([LCGaussian([0.06, 0.25])], [0.3])
+    fitter = LCFitter(template, phases, device=device)
+    sync()
+    t0 = time.perf_counter()
+    ll = fitter.fit()
+    sync()
+    walls["fit"] = time.perf_counter() - t0
+    norm, width, loc = template.get_parameters()
+    log(f"[photon] LCFitter (one LCGaussian, unbinned, 400 Adam steps): "
+        f"{walls['fit']:.3f} s; norm {norm:.5f}, width {width:.6f}, loc "
+        f"{loc:.6f}, logL {ll:.3f}")
+    check("[photon] template fit", {
+        "loc within 0.01 of 0.3": abs(loc - PHOTON_LOC) <= 0.01,
+        "width within 5% of 0.04": abs(width / PHOTON_SIGMA - 1) <= 0.05,
+    })
+
+    # the photonphase CLI, in-process on the card
+    par = os.path.join(tmp, "photon.par")
+    with open(par, "w") as fh:
+        fh.write(PHOTON_PAR)
+    out = os.path.join(tmp, "photons_phased.fits")
+    buf = io.StringIO()
+    harmonic_sums_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = photonphase([path, par, "--weightcol", "PSRPROB", "--device",
+                          device, "--outfile", out])
+    walls["cli"] = time.perf_counter() - t0
+    launches["cli"] = harmonic_sums_cuda.launches
+    text = buf.getvalue()
+    h_cli = float(next(line.split("=", 1)[1] for line in text.splitlines()
+                       if line.startswith("H = ")))
+    from pint_tpu_torch.io.fits import get_table
+
+    col = get_table(out, "EVENTS")[1]["PULSE_PHASE"]
+    d_phase = float(np.max(np.abs(col - phases.cpu().numpy())))
+    log(f"[photon] photonphase --device {device}: rc {rc}, "
+        f"{walls['cli']:.2f} s, K4 launches {launches['cli']}; "
+        f"{text.splitlines()[-3].strip()!r}; H {h_cli!r} vs weighted H "
+        f"{hw!r}; max |PULSE_PHASE - phase| {d_phase:.3e}")
+    check("[photon] photonphase", {
+        "exit code 0": rc == 0,
+        "printed H equals the weighted H to 1e-9": abs(h_cli - hw)
+            <= 1e-9 * hw,
+        "PULSE_PHASE equals the phases": d_phase == 0.0,
+    })
+    return launches, phases, w, scan_rows
+
+
+def harmonics_record(torch, phases, w, scan_rows, launches):
+    """K4 at (4,000,000, m = 20) unweighted and weighted and at (32,
+    4,000,000, m = 20): against its plain f32 version and the f64
+    reference (max |d| over sum|w|), a bitwise repeat, and CUDA-event
+    times of the kernel, the plain version and the reference beside
+    the bound. No single PyTorch call computes these sums, so the
+    library column is null. Returns the JSON entry."""
+    from pint_tpu_torch.kernels.harmonics import (harmonic_sums_cuda,
+                                                  harmonic_sums_plain,
+                                                  harmonic_sums_ref)
+
+    m = 20
+    p32 = phases.to(torch.float32).contiguous()
+    w32 = w.to(torch.float32).contiguous()
+    shapes = {"photons": (p32, None), "weighted": (p32, w32),
+              "scan": (scan_rows, None)}
+    rec = {}
+    for label, (ph, wt) in shapes.items():
+        out = harmonic_sums_cuda(ph, m, wt)
+        again = harmonic_sums_cuda(ph, m, wt)
+        torch.cuda.synchronize()
+        plain = harmonic_sums_plain(ph, m, wt)
+        ref = harmonic_sums_ref(ph, m, wt)
+        g = 1 if ph.ndim == 1 else ph.shape[0]
+        n = ph.shape[-1]
+        scale = float(n * g if wt is None else wt.abs().sum() * g)
+        d32 = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+        d64 = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        ms = cuda_ms(torch, lambda: harmonic_sums_cuda(ph, m, wt))
+        plain_ms = cuda_ms(torch, lambda: harmonic_sums_plain(ph, m, wt))
+        ref_ms = cuda_ms(torch, lambda: harmonic_sums_ref(ph, m, wt), reps=3,
+                         warmup=1)
+        nbytes = 4.0 * g * n * (1 if wt is None else 2) + 8.0 * g * 2 * m
+        # per photon 2 (theta = phi 2 pi, 2 cos theta); per harmonic 4 for
+        # the recurrence and 4 for the weighted sums (2 FMAs), 2 unweighted
+        flops = g * n * (2.0 + (8.0 if wt is not None else 6.0) * m)
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_F32_FLOP_S * 1e3
+        log(f"[kernel] harmonic_sums {label} {tuple(ph.shape)} m {m}: vs "
+            f"plain f32 max|d| {d32:.3e} ({d32 / scale:.3e} of sum|w|), vs "
+            f"f64 {d64:.3e} ({d64 / scale:.3e}); bitwise repeat {same}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, f64 reference "
+            f"{ref_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)")
+        if not (d32 < max(4e-8 * n, 1e-4) and same):
+            raise AssertionError(f"harmonic_sums at the {label} shape: "
+                                 f"|d| {d32:.3e} vs plain, bitwise repeat "
+                                 f"{same}")
+        rec[label] = {"shape": list(ph.shape) + [m], "max_abs_err": d32,
+                      "max_err_f64_of_sum_w": d64 / scale, "ms": ms,
+                      "plain_ms": plain_ms, "f64_ms": ref_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "library_ms": None}
+    weighted = rec.pop("weighted")
+    return {"name": "harmonic_sums", "route": "cuda",
+            "source": "pint_tpu_torch/csrc/harmonics.cu",
+            "replaces": "pint_tpu/kernels/harmonics.py:81",
+            "launches": int(sum(launches.values())), **weighted,
+            "unweighted": rec["photons"], "scan": rec["scan"],
+            "launches_per_statistic": int(max(
+                launches[k] for k in ("hm", "hmw", "z2m"))),
+            "scan_launches": int(launches["scan"])}
+
+
 def run():
     import torch
 
@@ -954,10 +1277,12 @@ def run():
         f"{torch.backends.cuda.matmul.allow_tf32}")
 
     t0 = time.perf_counter()
-    build.load_all(["gram", "paircorr"])
-    log(f"[build] csrc/gram.cu and csrc/paircorr.cu built (one nvcc each, "
-        f"started together) and loaded in {time.perf_counter() - t0:.2f} s")
-    for name, tag in (("gram", "[build]"), ("paircorr", "[gw] build")):
+    build.load_all(["gram", "paircorr", "harmonics"])
+    log(f"[build] csrc/gram.cu, csrc/paircorr.cu and csrc/harmonics.cu "
+        f"built (one nvcc each, started together) and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, tag in (("gram", "[build]"), ("paircorr", "[gw] build"),
+                      ("harmonics", "[photon] build")):
         info = build.BUILD_INFO[name]
         log(f"{tag} csrc/{name}.cu: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -1058,6 +1383,16 @@ def run():
     scenario_rows = stream_kernel(torch)
     entries.append(delta_record(torch, lane_arrays, scenario_rows,
                                 k1p_launches))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        k4_launches, phases, weights, scan_rows = photon_path(torch, tmp)
+        log(f"[photon] event file to template fit and CLI took "
+            f"{time.perf_counter() - t0:.2f} s")
+    entries.append(harmonics_record(torch, phases, weights, scan_rows,
+                                    k4_launches))
+    log(f"[photon] phases with the kernel record took "
+        f"{time.perf_counter() - t0:.2f} s in all")
     log(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

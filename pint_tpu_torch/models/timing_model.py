@@ -155,6 +155,12 @@ class TimingModel:
     def prepare(self, toas, device="cuda") -> "PreparedTiming":
         return PreparedTiming(self, toas, device=device)
 
+    def phase(self, toas, device="cuda"):
+        """The model's pulse phase at ``toas`` as a
+        :class:`~pint_tpu_torch.phase.Phase` of tensors on ``device``
+        (reference: TimingModel.phase)."""
+        return self.prepare(toas, device=device).phase()
+
     def as_parfile(self) -> str:
         """Serialize the model in ``pint`` format (reference:
         TimingModel.as_parfile with format="pint"): the top-level
@@ -242,6 +248,7 @@ class PreparedTiming:
 
     def __init__(self, model, toas, device="cuda"):
         dev = resolve_device(device)
+        toas.ensure_posvels()
         self.model = model
         self.toas = toas
         self.device = dev
@@ -322,6 +329,13 @@ class PreparedTiming:
                            else params, self.batch, self.prep)
         n = torch.floor(frac + 0.5)
         return frac - n, self.prep["phi_ref_int"] + n
+
+    def phase(self, params=None):
+        """Full Phase (int, frac) (reference: TimingModel.phase)."""
+        from ..phase import Phase
+
+        frac, pint_ = self.phase_frac_and_int(params)
+        return Phase(pint_, frac)
 
     def scaled_sigma_us(self, params=None):
         return _sigma_impl(self.model, self.params0 if params is None

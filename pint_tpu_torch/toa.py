@@ -1,11 +1,19 @@
-"""TOAs and their device packing, slimmed to what the GLS slice needs.
+"""TOAs and their device packing, slimmed to what the ported slices
+need.
 
 Counterpart of the JAX package's ``toa.py``. The host table here holds
 TOAs that arrive already barycentred — TDB epochs, observatory and Sun
-positions — and ``TOAs.to_batch(device)`` packs them into a
-``TOABatch`` of float64 tensors, the single host->device boundary.
-Tim-file parsing, clock chains, UTC->TDB and the ephemeris/observatory
-posvel pipeline are host ingest and are not part of this package yet.
+positions — or whose observatory is one of the special locations of
+``observatory/`` (the barycentre, the geocentre), which fill those
+columns themselves (``compute_posvels``). ``TOAs.to_batch(device)``
+packs them into a ``TOABatch`` of float64 tensors, the single
+host->device boundary. Tim-file parsing, clock chains, UTC->TDB and the
+ephemeris/observatory posvel pipeline of real observatories are host
+ingest and are not part of this package yet.
+
+Per-TOA flags are lazy, as in the JAX package: a table built without
+flags (a photon table of millions of rows) stores no dicts, and
+``get_pulse_numbers`` reads none.
 """
 
 from __future__ import annotations
@@ -55,8 +63,10 @@ class TOAs:
         self.error_us = np.zeros(0)
         self.freq_mhz = np.zeros(0)
         self.obs = np.zeros(0, dtype=object)
-        self.flags: list[dict] = []
+        self._flags: list[dict] | None = None  # lazy; see ``flags``
+        self.weights: np.ndarray | None = None  # per-photon probabilities
         self.planets = False  # whether planet positions are wanted
+        self.filename = None  # the file a loader read, if any
         self.tdb: Epochs | None = None
         self.ssb_obs: PosVel | None = None
         self.obs_sun: PosVel | None = None
@@ -65,15 +75,33 @@ class TOAs:
     def __len__(self):
         return len(self.day)
 
+    @property
+    def flags(self) -> list[dict]:
+        """Per-TOA flag dicts; a table built without flags makes its
+        empty dicts only when this is read (JAX ``toa.py:114-128``)."""
+        if self._flags is None:
+            self._flags = [{} for _ in range(len(self))]
+        return self._flags
+
+    @flags.setter
+    def flags(self, value):
+        self._flags = None if value is None else list(value)
+
+    def has_flags(self) -> bool:
+        """True when the table holds flag dicts (the check to use
+        instead of reading ``flags``, which would make them)."""
+        return self._flags is not None
+
     @classmethod
     def from_arrays(cls, day, sec, error_us=1.0, freq_mhz=np.inf,
                     obs="geocenter", flags=None, tdb=None, ssb_obs=None,
-                    obs_sun=None, planet_pos=None) -> "TOAs":
+                    obs_sun=None, planet_pos=None, weights=None) -> "TOAs":
         """Vectorized constructor from barycentred columns: ``tdb`` an
         :class:`~pint_tpu_torch.mjd.Epochs`, ``ssb_obs``/``obs_sun``
         :class:`~pint_tpu_torch.utils.PosVel` (metres, m/s),
         ``planet_pos`` {name: (n, 3) metres wrt the observatory},
-        ``flags`` a list of per-TOA dicts."""
+        ``flags`` a list of per-TOA dicts or None (no dicts are made),
+        ``weights`` per-photon probabilities or None."""
         t = cls()
         n = len(day)
         t.day = np.asarray(day, np.int64)
@@ -84,9 +112,12 @@ class TOAs:
             np.asarray(freq_mhz, np.float64), (n,)).copy()
         t.obs = (np.full(n, obs, dtype=object) if isinstance(obs, str)
                  else np.asarray(obs, dtype=object))
-        t.flags = [{} for _ in range(n)] if flags is None else list(flags)
-        if len(t.flags) != n:
+        t.flags = flags
+        if t.has_flags() and len(t.flags) != n:
             raise ValueError(f"{len(t.flags)} flag dicts for {n} TOAs")
+        t.weights = None if weights is None else np.asarray(weights, float)
+        if t.weights is not None and t.weights.shape != (n,):
+            raise ValueError(f"{t.weights.shape} weights for {n} TOAs")
         t.tdb = tdb
         t.ssb_obs = ssb_obs
         t.obs_sun = obs_sun
@@ -110,6 +141,8 @@ class TOAs:
 
     def get_pulse_numbers(self):
         pn = np.full(len(self), np.nan)
+        if not self.has_flags():
+            return pn
         for i, f in enumerate(self.flags):
             if "pn" in f:
                 pn[i] = float(f["pn"])
@@ -123,12 +156,36 @@ class TOAs:
         true, every column carried (reference: toa.py::TOAs.mask)."""
         return _concat([(self, np.asarray(condition, dtype=bool))])
 
-    def to_batch(self, device="cuda") -> TOABatch:
-        """Pack into a TOABatch of float64 tensors on ``device``."""
-        dev = resolve_device(device)
+    def compute_posvels(self):
+        """Fill ``tdb``, ``ssb_obs``, ``obs_sun`` (and ``planet_pos``)
+        from the table's observatory, one of the special locations of
+        ``observatory/`` (reference: toa.py::TOAs.compute_posvels). Any
+        other observatory, or a table that mixes observatories, raises
+        ``NotImplementedError``: that is host ingest."""
+        from .observatory import HOST_INGEST, get_observatory
+
+        names = {str(o) for o in np.unique(self.obs.astype(str))}
+        obs = {type(get_observatory(n)) for n in names}
+        if len(obs) > 1:
+            raise NotImplementedError(
+                f"TOAs from several observatories {sorted(names)}: "
+                f"{HOST_INGEST}")
+        if obs:
+            get_observatory(names.pop()).fill_posvels(self)
+        return self
+
+    def ensure_posvels(self):
+        """``compute_posvels`` if ``tdb``, ``ssb_obs`` or ``obs_sun`` is
+        missing (as the JAX package's to_batch does); returns self."""
         if self.tdb is None or self.ssb_obs is None or self.obs_sun is None:
-            raise ValueError("TOAs need tdb, ssb_obs and obs_sun columns "
-                             "before packing (host ingest is not ported)")
+            self.compute_posvels()
+        return self
+
+    def to_batch(self, device="cuda") -> TOABatch:
+        """Pack into a TOABatch of float64 tensors on ``device``; a
+        table without posvels gets them first (``ensure_posvels``)."""
+        dev = resolve_device(device)
+        self.ensure_posvels()
         ls = C_M_S  # meters per light-second
         planet = (np.stack([self.planet_pos[p] for p in self.PLANETS]) / ls
                   if self.planet_pos else np.zeros((0, len(self), 3)))
@@ -149,8 +206,8 @@ class TOAs:
 
 def _concat(parts) -> TOAs:
     """One table of the rows ``index`` of each ``(toas, index)`` part,
-    in order; a derived column (tdb, posvels, planets) is carried when
-    every part has it."""
+    in order; a derived column (tdb, posvels, planets, weights) is
+    carried when every part has it, flags when any part has them."""
     tabs = [t for t, _ in parts]
 
     def cat(get):
@@ -170,14 +227,19 @@ def _concat(parts) -> TOAs:
     if all(t.planet_pos for t in tabs):
         planet_pos = {p: cat(lambda t: t.planet_pos[p])
                       for p in tabs[0].planet_pos}
+    flags = None
+    if any(t.has_flags() for t in tabs):
+        flags = [dict(f) for t, i in parts
+                 for f in np.asarray(t.flags, dtype=object)[i]]
+    weights = None
+    if all(t.weights is not None for t in tabs):
+        weights = cat(lambda t: t.weights)
     out = TOAs.from_arrays(
         cat(lambda t: t.day), cat(lambda t: t.sec),
         error_us=cat(lambda t: t.error_us),
         freq_mhz=cat(lambda t: t.freq_mhz), obs=cat(lambda t: t.obs),
-        flags=[dict(f) for t, i in parts
-               for f in np.asarray(t.flags, dtype=object)[i]],
-        tdb=tdb, ssb_obs=posvel("ssb_obs"), obs_sun=posvel("obs_sun"),
-        planet_pos=planet_pos)
+        flags=flags, tdb=tdb, ssb_obs=posvel("ssb_obs"),
+        obs_sun=posvel("obs_sun"), planet_pos=planet_pos, weights=weights)
     out.planets = tabs[0].planets
     return out
 

@@ -1,10 +1,11 @@
-"""The port's Gram kernels (pint_tpu_torch/kernels) against the JAX
-package's: the fused whiten+Gram kernel (K1, kernels/fusedgls.py) and
-the block-Gram kernel (K2, kernels/seggram.py); on a card also the GW
-pair-products kernel (K3, kernels/paircorr.py, whose CPU parity tests
-are in test_torch_gw.py) and the appended-rows Gram (K1′,
-kernels/incremental.py, CPU parity tests in test_torch_incremental.py)
-against their plain versions.
+"""The port's kernels (pint_tpu_torch/kernels) against the JAX
+package's: the fused whiten+Gram kernel (K1, kernels/fusedgls.py), the
+block-Gram kernel (K2, kernels/seggram.py) and the photon harmonic sums
+(K4, kernels/harmonics.py); on a card also the GW pair-products kernel
+(K3, kernels/paircorr.py, whose CPU parity tests are in
+test_torch_gw.py), the appended-rows Gram (K1′, kernels/incremental.py,
+CPU parity tests in test_torch_incremental.py) and K4 against their
+plain versions.
 
 On the CPU the JAX Pallas kernels run in interpret mode (as
 tests/test_kernels.py runs them) and the port's wrappers take their
@@ -15,7 +16,9 @@ Tolerances: f32 block Grams of O(1) entries accumulated over Q rows in
 two different summation orders differ by a few f32 ulps of the largest
 entry, so the f32 paths are held to 1e-5 of max|G|. The f64 paths
 compute the same sums in f64 in possibly different orders: 1e-12
-relative.
+relative. K4's f32 sums over n photons are held to the JAX package's
+own bound, max(4e-8 n, 1e-4) absolute (tests/test_kernels.py), and its
+f64 reference to 1e-12 of sum|w|.
 """
 
 import numpy as np
@@ -243,3 +246,147 @@ def test_delta_gram_on_card_matches_plain(n, ka):
     G = delta_gram(*dev, precision="mixed")
     assert G.dtype == torch.float64 and G.is_cuda
     assert delta_gram_cuda.launches == before[0] + 2
+
+
+# -- K4: harmonic sums over photon phases ---------------------------------
+
+def _photons(n, seed, weighted):
+    rng = np.random.default_rng(seed)
+    ph = rng.random(n)
+    return ph, (rng.random(n) if weighted else None)
+
+
+def _k4_tol(n):
+    return max(4e-8 * n, 1e-4)
+
+
+@pytest.mark.parametrize("n,m,weighted", [(1000, 5, False),
+                                          (5000, 8, True), (3, 33, True)])
+def test_harmonic_sums_ref_matches_jnp(n, m, weighted):
+    """The f64 reference against the JAX package's jnp path: the same
+    expression summed in different orders, <= 1e-12 sum|w|."""
+    from pint_tpu.kernels.harmonics import harmonic_sums_jnp
+    from pint_tpu_torch.kernels.harmonics import (harmonic_sums,
+                                                  harmonic_sums_ref)
+
+    ph, w = _photons(n, 3, weighted)
+    scale = n if w is None else np.abs(w).sum()
+    ref = harmonic_sums_jnp(ph, m, w)
+    out = harmonic_sums_ref(_t(ph), m, None if w is None else _t(w))
+    for a, b in zip(out, ref):
+        assert a.shape == (m,) and a.dtype == torch.float64
+        assert np.abs(a.numpy() - np.asarray(b)).max() <= 1e-12 * scale
+    # the dispatcher takes the f64 reference for CPU tensors
+    disp = harmonic_sums(_t(ph), m, None if w is None else _t(w))
+    for a, b in zip(disp, out):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("n,m,weighted", [(1000, 5, False),
+                                          (8192 * 3 + 517, 8, True),
+                                          (70000, 20, False)])
+def test_harmonic_sums_plain_matches_pallas(n, m, weighted, pallas_interpret):
+    """The plain f32 version (the kernel's arithmetic) against the JAX
+    Pallas kernel in interpret mode, at the JAX package's tolerance."""
+    from pint_tpu.kernels.harmonics import harmonic_sums_pallas
+    from pint_tpu_torch.kernels.harmonics import harmonic_sums_plain
+
+    ph, w = _photons(n, 4, weighted)
+    ref = harmonic_sums_pallas(ph, m, weights=w, interpret=pallas_interpret)
+    out = harmonic_sums_plain(_t(ph), m, None if w is None else _t(w))
+    for a, b in zip(out, ref):
+        assert a.shape == (m,) and a.dtype == torch.float64
+        assert np.abs(a.numpy() - np.asarray(b)).max() < _k4_tol(n)
+
+
+@pytest.mark.parametrize("weights", ["none", "shared", "per-row"])
+def test_harmonic_sums_rows_equal_row_calls(weights):
+    """A (G, n) input gives what G calls on its rows give: the f64
+    reference to 1e-12 of sum|w|, the plain f32 version to the K4
+    tolerance."""
+    from pint_tpu_torch.kernels.harmonics import (harmonic_sums_plain,
+                                                  harmonic_sums_ref)
+
+    rng = np.random.default_rng(8)
+    g, n, m = 3, 4099, 7
+    ph = rng.random((g, n))
+    w = {"none": None, "shared": rng.random(n),
+         "per-row": rng.random((g, n))}[weights]
+    for fn, tol in ((harmonic_sums_ref, 1e-12 * n),
+                    (harmonic_sums_plain, _k4_tol(n))):
+        c, s = fn(_t(ph), m, None if w is None else _t(w))
+        assert c.shape == s.shape == (g, m)
+        for i in range(g):
+            wi = None if w is None else _t(w if w.ndim == 1 else w[i])
+            ci, si = fn(_t(ph[i]), m, wi)
+            assert np.abs(c[i].numpy() - ci.numpy()).max() <= tol
+            assert np.abs(s[i].numpy() - si.numpy()).max() <= tol
+
+
+def test_harmonic_sums_cuda_refuses_cpu_tensors():
+    from pint_tpu_torch.kernels.harmonics import harmonic_sums_cuda
+
+    before = harmonic_sums_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        harmonic_sums_cuda(torch.zeros(70000, dtype=torch.float32), 4)
+    assert harmonic_sums_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("m", [1, 5, 20, 33])
+@pytest.mark.parametrize("n", [1, 8191, 8192 * 3 + 517, 4_000_000])
+def test_harmonic_sums_on_card_match_plain(n, m, g):
+    """K4 on the card against its plain f32 version, unweighted and
+    weighted (per-row and shared weights), at the K4 tolerance; one
+    launch per call, two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pint_tpu_torch.kernels.harmonics import (harmonic_sums_cuda,
+                                                  harmonic_sums_plain)
+
+    rng = np.random.default_rng(n + m + g)
+    shape = (n,) if g == 1 else (g, n)
+    ph = torch.as_tensor(rng.random(shape), dtype=torch.float32,
+                         device="cuda")
+    wts = (None, torch.as_tensor(rng.random(shape), dtype=torch.float32,
+                                 device="cuda"),
+           torch.as_tensor(rng.random(n), dtype=torch.float32,
+                           device="cuda"))
+    for w in wts:
+        before = harmonic_sums_cuda.launches
+        out = harmonic_sums_cuda(ph, m, w)
+        again = harmonic_sums_cuda(ph, m, w)
+        torch.cuda.synchronize()
+        assert harmonic_sums_cuda.launches == before + 2
+        ref = harmonic_sums_plain(ph, m, w)
+        for a, b, r in zip(out, again, ref):
+            assert a.shape == r.shape == shape[:-1] + (m,)
+            assert a.dtype == torch.float64 and a.is_cuda
+            assert torch.equal(a, b)
+            assert (a - r).abs().max().item() < _k4_tol(n)
+
+
+@pytest.mark.cuda
+def test_harmonic_sums_cuda_refuses_bad_tensors():
+    """An f64 or a non-contiguous CUDA tensor, or m < 1, raises and
+    counts no launch; the dispatcher sends a CUDA batch of >= 65536
+    photons to the kernel and a smaller one to the f64 reference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pint_tpu_torch.kernels.harmonics import (harmonic_sums,
+                                                  harmonic_sums_cuda)
+
+    before = harmonic_sums_cuda.launches
+    ph = torch.rand(2, 70000, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        harmonic_sums_cuda(ph.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        harmonic_sums_cuda(ph.mT, 4)
+    with pytest.raises(ValueError, match="m must be"):
+        harmonic_sums_cuda(ph, 0)
+    assert harmonic_sums_cuda.launches == before
+    harmonic_sums(ph.double(), 4)
+    assert harmonic_sums_cuda.launches == before + 1
+    harmonic_sums(ph[:, :1000].double(), 4)
+    assert harmonic_sums_cuda.launches == before + 1

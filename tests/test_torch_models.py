@@ -198,9 +198,12 @@ def test_builder_names_unported_components():
         get_model(EQUATORIAL + "BINARY ELL1\nPB 1.5\nA1 2.0\n")
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     """With no card, every entry point that defaults to device="cuda"
     raises instead of quietly running on the CPU."""
+    from pint_tpu_torch import eventstats
+    from pint_tpu_torch.event_toas import load_event_TOAs
+    from pint_tpu_torch.io.fits import write_fits_table
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.parallel.pta import PTABatch, PTAFleet
     from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
@@ -211,8 +214,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_fake_toas_fromMJDs(mjds, m)
     t = make_fake_toas_fromMJDs(mjds, m, device="cpu")
+    write_fits_table(tmp_path / "e.fits", {"TIME": np.linspace(0, 1e5, 64)},
+                     {"MJDREFI": 56658, "MJDREFF": 7.7e-4, "TIMESYS": "TDB"})
+    ev = load_event_TOAs(tmp_path / "e.fits", "nicer")
+    ph = np.linspace(0, 1, 64)
     for call in (lambda: m.prepare(t), lambda: t.to_batch(),
-                 lambda: PTABatch([m], [t]), lambda: PTAFleet([m], [t])):
+                 lambda: PTABatch([m], [t]), lambda: PTAFleet([m], [t]),
+                 lambda: m.phase(t), lambda: m.prepare(ev),
+                 lambda: eventstats.hm(ph), lambda: eventstats.z2m(ph),
+                 lambda: eventstats.hm_scan(lambda f: f * ph, [1.0, 2.0])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
