@@ -105,7 +105,15 @@ these phases:
    computes these sums).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
-line, and as its last line ``{"ok": true, "device": {...}}``. Any
+line (each record, and each per-shape record in it, with ``bound_share``
+= ``bound_ms / ms``; the gram.cu and paircorr.cu records with their
+launch geometry: grid, threads, dynamic shared bytes, tile), and as its
+last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --compare OLD_DIR`` instead builds an earlier
+design's ``gram.cu`` and ``paircorr.cu`` from ``OLD_DIR`` beside the
+checkout's and times both in turns at the kernel records' shapes (see
+:func:`compare_designs`). Any
 failed check exits non-zero without that line; so does a machine with
 no CUDA card, or a directory without the rest of the repository.
 """
@@ -284,12 +292,62 @@ def kernel_record(torch, name, replaces, kern, plain, inp, block, whiten,
     log(f"[kernel] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.bmm {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
         f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    geometry = gram_geometry(inp, out, block, whiten)
+    log(f"[kernel] {name}: launch {geometry}")
     return {"name": name, "route": "cuda",
             "source": "pint_tpu_torch/csrc/gram.cu", "replaces": replaces,
             "launches": int(launches), "max_abs_err": d32, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "launch": geometry}
+
+
+def gram_geometry(x, out, block, whiten):
+    """The launch shape csrc/gram.cu gets for rows x (out its output) at
+    Q = block: the persistent grid, threads, dynamic shared bytes, the
+    4 x 4 tile of a thread, the rows of a ring chunk, the bytes of each
+    row copy, whether the products read the ring directly and whether
+    the output leaves by one bulk store."""
+    from pint_tpu_torch.kernels import gram
+
+    n, ka = x.shape
+    shape = gram.gram_shape(block, ka, whiten)
+    grid_x, threads, chunk, vec, bulk, smem = gram.gram_plan(
+        n // block, block, ka, whiten, x.data_ptr(), out.data_ptr(),
+        gram.resident_blocks(x.device.index, shape.threads,
+                             shape.smem_bytes))
+    return {"grid": [grid_x, shape.grid_y], "threads": threads,
+            "smem_bytes": smem, "tile": [gram.TILE, gram.TILE],
+            "chunk_rows": chunk, "copy_bytes": 16 if vec else 4,
+            "direct": shape.direct, "bulk_store": bool(bulk)}
+
+
+def pair_geometry(ua, wa, ub, wb):
+    """The launch shape csrc/paircorr.cu gets for these operands: grid,
+    threads,
+    dynamic shared bytes, output tile, outputs per thread and the bytes
+    of each row copy."""
+    from pint_tpu_torch.kernels import paircorr
+
+    (ba, m), bb = ua.shape, ub.shape[0]
+    vec = paircorr.copies_16_bytes(m, *(t.data_ptr()
+                                        for t in (ua, wa, ub, wb)))
+    return {"grid": list(paircorr.pair_grid(ba, bb)),
+            "threads": paircorr.THREADS, "smem_bytes": paircorr.SMEM_BYTES,
+            "tile": [paircorr.TILE, paircorr.TILE],
+            "per_thread": list(paircorr.PER_THREAD),
+            "copy_bytes": 16 if vec else 4}
+
+
+def add_bound_share(rec):
+    """bound_share = bound_ms / ms on a kernel record and on each of its
+    per-shape records."""
+    if "bound_ms" in rec and "ms" in rec:
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    for v in rec.values():
+        if isinstance(v, dict):
+            add_bound_share(v)
+    return rec
 
 
 def profile_fit(fleet, torch, top=10):
@@ -559,7 +617,9 @@ def pair_record(torch, fleet_lat, sweep_lat, launches, sweep_launches):
                       "plain_ms": plain_ms,
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations", "library_ms": library_ms}
+                      else "operations", "library_ms": library_ms,
+                      "launch": pair_geometry(*ins)}
+        log(f"[kernel] pair_products {label}: launch {rec[label]['launch']}")
     whole = rec.pop("whole")
     return {"name": "pair_products", "route": "cuda",
             "source": "pint_tpu_torch/csrc/paircorr.cu",
@@ -1286,7 +1346,8 @@ def run():
         info = build.BUILD_INFO[name]
         log(f"{tag} csrc/{name}.cu: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"{tag} {line.strip()}")
 
     counts = ragged_counts()
@@ -1393,7 +1454,7 @@ def run():
                                     k4_launches))
     log(f"[photon] phases with the kernel record took "
         f"{time.perf_counter() - t0:.2f} s in all")
-    log(json.dumps({"kernels": entries}))
+    log(json.dumps({"kernels": [add_bound_share(e) for e in entries]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1401,7 +1462,222 @@ def run():
     return 0
 
 
+def compare_designs(old_dir):
+    """``--compare OLD_DIR``: the kernels of ``OLD_DIR/gram.cu`` and
+    ``OLD_DIR/paircorr.cu`` (an earlier design, with the earlier C
+    interface: no launch plan) against the checkout's, on one card in
+    turns (old, new, new, old), at the shapes the kernel records use,
+    on inputs made from a seed: K1 (460800, 66) at Q = 256, K2 (115200,
+    64) at Q = 32, K1′ at 64 x 6 and 64 x 12, K3 at the fleet's 68 x 68
+    x 100, a 256 x 256 x 512 sweep tile and the whole 3000 x 3000 x 512
+    product. Each design is held to the plain f32 version (1e-5 of
+    max|.|) first; the library yardstick is timed in the same call. Each
+    design is timed twice: back to back as a caller launches it (CUDA
+    events), and replayed from a CUDA graph, which leaves out the host's
+    launch path."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pint_tpu_torch.kernels import build, paircorr
+    from pint_tpu_torch.kernels.fusedgls import (fused_block_gls_cuda,
+                                                 fused_block_gls_plain)
+    from pint_tpu_torch.kernels.paircorr import (pair_products_cuda,
+                                                 pair_products_plain)
+    from pint_tpu_torch.kernels.seggram import (block_grams_cuda,
+                                                block_grams_plain)
+
+    card = gpu_line()
+    log(f"[compare] {card}; old sources from {old_dir}")
+    procs = {}
+    for name in ("gram", "paircorr"):
+        src = os.path.join(old_dir, name + ".cu")
+        so = os.path.join(old_dir, f"lib{name}_old.so")
+        procs[name] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    build.load_all(["gram", "paircorr"])
+    old = {}
+    for name, (so, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the old {name}.cu:\n{out}")
+        old[name] = ctypes.CDLL(so)
+        for design, text in (("old", out), ("new",
+                                            build.BUILD_INFO[name]["log"])):
+            for line in text.splitlines():
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
+                    log(f"[compare] {design} {name}.cu: "
+                        f"{line.strip()}")
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    # the earlier design's Python wrappers as they were (checks, output
+    # allocation, stream, ctypes call), so that each design is timed with
+    # the host path it shipped with
+    def old_gram(entry):
+        fn = getattr(old["gram"], entry)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def call(x, block):
+            if x.device.type != "cuda":
+                raise ValueError(f"{entry}: x must be a CUDA tensor")
+            if x.dtype != torch.float32:
+                raise TypeError(f"{entry}: x must be float32")
+            if x.ndim != 2 or not x.is_contiguous():
+                raise ValueError(f"{entry}: x must be a contiguous 2-D "
+                                 "tensor")
+            n, k = x.shape
+            if block < 1 or n % block:
+                raise ValueError(f"{entry}: rows not a multiple of block")
+            nb = n // block
+            out = torch.empty((nb, k, k), dtype=torch.float32,
+                              device=x.device)
+            if nb == 0 or k == 0:
+                return out
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(x.data_ptr(), out.data_ptr(), nb, block, k,
+                    x.device.index, stream)
+            if rc:
+                raise RuntimeError(f"old {entry}: CUDA error {rc}")
+            return out
+        return call
+
+    fn_pair = old["paircorr"].pair_products_f32
+    fn_pair.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn_pair.restype = ctypes.c_int
+
+    def old_pair(ua, wa, ub, wb):
+        check = paircorr._check
+        check("ua", ua, ua.device)
+        ba, m = ua.shape
+        bb = ub.shape[0]
+        for name, t in (("wa", wa), ("ub", ub), ("wb", wb)):
+            check(name, t, ua.device, m)
+        if wa.shape[0] != ba or wb.shape[0] != bb:
+            raise ValueError("old pair_products: row counts differ")
+        if max(ba, bb, m) > 2**31 - 1:
+            raise ValueError("old pair_products: dimensions exceed int32")
+        num = torch.empty((ba, bb), dtype=torch.float32, device=ua.device)
+        den = torch.empty_like(num)
+        if ba == 0 or bb == 0:
+            return num, den
+        stream = torch.cuda.current_stream(ua.device).cuda_stream
+        rc = fn_pair(ua.data_ptr(), wa.data_ptr(), ub.data_ptr(),
+                     wb.data_ptr(), num.data_ptr(), den.data_ptr(), ba, bb,
+                     m, ua.device.index, stream)
+        if rc:
+            raise RuntimeError(f"old pair_products_f32: CUDA error {rc}")
+        return num, den
+
+    rng = np.random.default_rng(5)
+
+    def rows(n, ka, whiten):
+        a = rng.normal(size=(n, ka))
+        if whiten:
+            a[:, -1] = 1.0 / rng.uniform(0.5, 2.0, n)
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def gram_case(label, entry, new, plain, x, block, whiten):
+        xw = x * x[:, -1:] if whiten else x
+        xb = xw.reshape(-1, block, x.shape[1])
+        prev = old_gram(entry)
+        return (label, lambda: new(x, block), lambda: prev(x, block),
+                lambda: plain(x, block), lambda: torch.bmm(xb.mT, xb))
+
+    lat = torch.as_tensor(rng.normal(size=(3000, 512)), dtype=torch.float32,
+                          device=dev)
+    wts = torch.as_tensor(rng.uniform(0.5, 2.0, (3000, 512)),
+                          dtype=torch.float32, device=dev)
+    fleet = (lat[:68, :100].contiguous(), wts[:68, :100].contiguous())
+    tile_a = (lat[:256].contiguous(), wts[:256].contiguous())
+    tile_b = (lat[256:512].contiguous(), wts[256:512].contiguous())
+
+    def pair_case(label, ua, wa, ub, wb):
+        ins = (ua, wa, ub, wb)
+        return (label, lambda: pair_products_cuda(*ins),
+                lambda: old_pair(*ins), lambda: pair_products_plain(*ins),
+                lambda: (torch.matmul(ua, ub.mT), torch.matmul(wa, wb.mT)))
+
+    cases = [
+        gram_case("K1 (460800, 66) Q=256", "fused_block_gls_f32",
+                  fused_block_gls_cuda, fused_block_gls_plain,
+                  rows(460800, 66, True), 256, True),
+        gram_case("K2 (115200, 64) Q=32", "block_grams_f32",
+                  block_grams_cuda, block_grams_plain,
+                  rows(115200, 64, False), 32, False),
+        gram_case("K1' (64, 6)", "fused_block_gls_f32",
+                  fused_block_gls_cuda, fused_block_gls_plain,
+                  rows(64, 6, True), 64, True),
+        gram_case("K1' (64, 12)", "fused_block_gls_f32",
+                  fused_block_gls_cuda, fused_block_gls_plain,
+                  rows(64, 12, True), 64, True),
+        pair_case("K3 fleet 68x68x100", *fleet, *fleet),
+        pair_case("K3 tile 256x256x512", *tile_a, *tile_b),
+        pair_case("K3 whole 3000x3000x512", lat, wts, lat, wts),
+    ]
+    def graph_ms(fn, n=20):
+        """Time per launch of n launches of fn captured in one CUDA graph
+        and replayed: the device's time without the host's launch path
+        (which sets the back-to-back times of the small shapes)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        ms = cuda_ms(torch, graph.replay, reps=10, warmup=2) / n
+        del graph
+        return ms
+
+    results = []
+    for label, new, prev, plain, library in cases:
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for design, fn in (("new", new), ("old", prev)):
+            got = fn()
+            got = got if isinstance(got, tuple) else (got,)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                rel = ((g - r).abs().max() / r.abs().max()).item()
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"{label}: the {design} design is "
+                                         f"{rel:.3e} from plain f32")
+        turns = [cuda_ms(torch, fn) for fn in (prev, new, new, prev)]
+        device = [graph_ms(fn) for fn in (prev, new, new, prev)]
+        library_ms = cuda_ms(torch, library)
+        rec = {"case": label, "old_ms": [turns[0], turns[3]],
+               "new_ms": [turns[1], turns[2]], "library_ms": library_ms,
+               "old_graph_ms": [device[0], device[3]],
+               "new_graph_ms": [device[1], device[2]]}
+        results.append(rec)
+        log(f"[compare] {label}: old {turns[0]:.4f} / {turns[3]:.4f} ms, "
+            f"new {turns[1]:.4f} / {turns[2]:.4f} ms, library "
+            f"{library_ms:.4f} ms; replayed from a CUDA graph: old "
+            f"{device[0]:.4f} / {device[3]:.4f} ms, new {device[1]:.4f} / "
+            f"{device[2]:.4f} ms")
+    log(json.dumps({"compare": results}))
+    log(card)
+    return 0
+
+
 def main():
+    if sys.argv[1:2] == ["--compare"] and len(sys.argv) == 3:
+        return compare_designs(sys.argv[2])
     try:
         return run()
     except Exception as exc:  # noqa: BLE001 - the smoke test's boundary

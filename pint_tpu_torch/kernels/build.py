@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source has a plain C interface; it is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library at first use and loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
-library lands in ``csrc/build/`` under a name keyed by the source's
-hash, so an edited source rebuilds and an unchanged one loads as is.
+library lands in ``csrc/build/`` under a name keyed by the hash of the
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads as is.
 :func:`load_all` starts one ``nvcc`` per missing library, all at once,
 so several sources build in the time of the slowest. Nothing is
 compiled or loaded at import time.
@@ -43,9 +44,12 @@ def _nvcc():
 
 def _library_path(name):
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:16]
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

@@ -19,7 +19,9 @@ Three paths, as for the GLS kernels:
   of the kernel and the yardstick the card's kernel is held to;
 - :func:`pair_products_cuda` — the hand-written Hopper kernel
   (``csrc/paircorr.cu::pair_products_f32``), replacing the TPU kernel
-  ``pint_tpu/kernels/paircorr.py::pair_products_pallas``.
+  ``pint_tpu/kernels/paircorr.py::pair_products_pallas``. Whether its
+  rows copy 16 bytes at a time is decided here (:func:`copies_16_bytes`),
+  and :func:`pair_grid` gives its grid, where the CPU tests reach them.
 
 :func:`pair_products` dispatches: under ``precision="mixed"`` the plain
 version for CPU tensors and the kernel for CUDA tensors, which launches
@@ -34,7 +36,30 @@ import torch
 
 from ..fitter import check_precision
 
+# csrc/paircorr.cu: a 64 x 64 output tile of 128 threads, each owning 8
+# rows x 4 columns; a ring of 2 chunks of 32 lattice cells, rows padded
+# to 36 floats, for both operands
+TILE, THREADS, PER_THREAD = 64, 128, (8, 4)
+CHUNK, STAGES = 32, 2
+ROW_STRIDE = CHUNK + 4
+SMEM_BYTES = STAGES * 2 * TILE * ROW_STRIDE * 4
+
 _FN = None
+
+
+def pair_grid(ba, bb):
+    """The launch grid csrc/paircorr.cu takes for a (B_a, B_b) pair
+    block: (x over B_b, y over B_a, z = the 2 products)."""
+    return (-(-bb // TILE), -(-ba // TILE), 2)
+
+
+def copies_16_bytes(m, *data_ptrs):
+    """Whether rows copy 16 bytes at a time: M a multiple of 4 and every
+    operand 16-byte aligned. Else each thread copies 4 bytes at a time."""
+    bits = 0
+    for p in data_ptrs:
+        bits |= p
+    return m % 4 == 0 and bits % 16 == 0
 
 
 def pair_products_ref(ua, wa, ub, wb):
@@ -57,7 +82,7 @@ def _kernel_fn():
         from .build import load
 
         fn = load("paircorr").pair_products_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -100,10 +125,11 @@ def pair_products_cuda(ua, wa, ub, wb):
     den = torch.empty_like(num)
     if ba == 0 or bb == 0:
         return num, den
+    ptrs = (ua.data_ptr(), wa.data_ptr(), ub.data_ptr(), wb.data_ptr())
     stream = torch.cuda.current_stream(ua.device).cuda_stream
-    rc = _kernel_fn()(ua.data_ptr(), wa.data_ptr(), ub.data_ptr(),
-                      wb.data_ptr(), num.data_ptr(), den.data_ptr(), ba, bb,
-                      m, ua.device.index, stream)
+    rc = _kernel_fn()(*ptrs, num.data_ptr(), den.data_ptr(), ba, bb, m,
+                      int(copies_16_bytes(m, *ptrs)), ua.device.index,
+                      stream)
     if rc != 0:
         raise RuntimeError(f"pair_products_f32 launch failed with CUDA "
                            f"error {rc}")

@@ -152,6 +152,120 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert [k.launches for k in kernels] == before
 
 
+# -- launch plans (computed in Python, so they are tested here) ---------
+
+# chip_smoke.py's K3 shapes (fleet, sweep tile, whole product) and the
+# card tests' edges
+PAIR_PLAN_SHAPES = [(68, 68, 100), (256, 256, 512), (3000, 3000, 512),
+                    (1, 1, 1), (13, 21, 37), (300, 70, 129), (129, 257, 33),
+                    (64, 64, 37), (50, 40, 7)]
+
+
+@pytest.mark.parametrize("ba,bb,m", PAIR_PLAN_SHAPES)
+def test_pair_grid_covers_each_output_once(ba, bb, m):
+    """K3's launch: the grid's 64 x 64 tiles and each tile's 128 threads
+    (8 rows x 4 columns each) cover every output of both products
+    exactly once, with no block wholly past the edge; the ring fits the
+    48 KB a block has without an opt-in; rows copy 16 bytes at a time
+    only when M is a multiple of 4 and every operand is aligned."""
+    from pint_tpu_torch.kernels import paircorr as pc
+
+    gx, gy, gz = pc.pair_grid(ba, bb)
+    assert gz == 2
+    assert (gx - 1) * pc.TILE < bb <= gx * pc.TILE
+    assert (gy - 1) * pc.TILE < ba <= gy * pc.TILE
+    tm, tn = pc.PER_THREAD
+    assert pc.THREADS * tm * tn == pc.TILE ** 2
+    rt, ct = pc.TILE // tm, pc.TILE // tn
+    seen = np.zeros((pc.TILE, pc.TILE), dtype=int)
+    for tid in range(pc.THREADS):
+        ty, tx = divmod(tid, ct)
+        for i in range(tm):
+            for j in range(tn):
+                seen[ty + rt * i, tx + ct * j] += 1
+    assert (seen == 1).all()
+    assert pc.SMEM_BYTES <= 48 * 1024
+    assert pc.copies_16_bytes(m, 0, 256, 4096, 16) == (m % 4 == 0)
+    assert not pc.copies_16_bytes(m, 0, 4, 4096, 16)
+
+
+# chip_smoke.py's shapes, (nb, q, ka): K2 (115200, 64) at Q = 32, K1
+# (460800, 66) at Q = 256, K1′ at 64 x 6 and 64 x 12; then the card
+# tests' shapes, K = 120's grid.y split, and q * ka no multiple of 4
+GRAM_PLAN_SHAPES = [(3600, 32, 64), (1800, 256, 66), (1, 64, 6), (1, 64, 12),
+                    (6, 32, 9), (6, 32, 11), (4, 96, 21), (4, 96, 23),
+                    (2, 256, 62), (2, 256, 64), (2, 32, 1), (2, 32, 3),
+                    (4, 32, 120), (4, 32, 122), (3, 30, 5), (3, 30, 7),
+                    (1, 8, 6), (1, 24, 12)]
+
+
+@pytest.mark.parametrize("resident", [1, 131, 528])
+@pytest.mark.parametrize("whiten", [False, True])
+@pytest.mark.parametrize("nb,q,ka", GRAM_PLAN_SHAPES)
+def test_gram_plan_covers_each_q_block_once(nb, q, ka, whiten, resident):
+    """The block-Gram launch plan: the persistent grid walks every
+    Q-block exactly once and is never wider than the Q-blocks; the ring
+    chunks cover every row of a Q-block once; the threads of the grid's
+    y-blocks own every upper-triangle 4 x 4 tile once (numbered diagonal
+    by diagonal, as gram.cu does); the layout pass's threads cover a
+    row; shared memory stays within 227 KB; rows copy 16 bytes at a
+    time exactly when every chunk starts on a 16-byte boundary (else per
+    thread, 4 bytes at a time); the products read the ring directly
+    only without whitening at ka % 4 == 0; the output leaves by one
+    bulk store only for even ka, one block per Q-block, an aligned
+    output and blocks that walk more than one Q-block."""
+    from pint_tpu_torch.kernels import gram
+
+    shape = gram.gram_shape(q, ka, whiten)
+    grid_x, threads, chunk, vec, bulk, smem = gram.gram_plan(
+        nb, q, ka, whiten, 256, 512, resident)
+    assert (threads, chunk, smem) == (shape.threads, shape.chunk,
+                                      shape.smem_bytes)
+    assert 1 <= grid_x <= nb
+    assert grid_x == max(1, min(nb, resident // shape.grid_y))
+    # gram.cu: blk = blockIdx.x; blk < nb; blk += gridDim.x
+    walked = [blk for bx in range(grid_x) for blk in range(bx, nb, grid_x)]
+    assert sorted(walked) == list(range(nb))
+    rows = np.zeros(q, dtype=int)
+    for c in range(-(-q // chunk)):
+        rows[c * chunk:min(q, (c + 1) * chunk)] += 1
+    assert (rows == 1).all() and (chunk % 4 == 0 or chunk == q)
+    ntr = -(-ka // gram.TILE)
+    n_tiles = ntr * (ntr + 1) // 2
+    assert threads % 32 == 0 and threads <= gram.MAX_THREADS
+    assert (shape.grid_y - 1) * threads < n_tiles <= shape.grid_y * threads
+    entries = np.zeros((4 * ntr, 4 * ntr), dtype=int)
+    for t in range(n_tiles):
+        d = 0
+        while t >= (d + 1) * ntr - (d + 1) * d // 2:
+            d += 1
+        ti = t - (d * ntr - d * (d - 1) // 2)
+        entries[4 * ti:4 * ti + 4, 4 * (ti + d):4 * (ti + d) + 4] += 1
+    upper = np.triu(np.ones((ka, ka), dtype=bool))
+    assert (entries[:ka, :ka][upper] == 1).all()
+    assert (ka if ka % 2 else ka // 2) <= threads  # the layout pass
+    assert smem <= gram.SMEM_LIMIT
+    assert shape.direct == (not whiten and ka % 4 == 0)
+    land = -(-chunk * ka // 4) * 4
+    assert smem == 4 * (gram.STAGES * land
+                        + (0 if shape.direct else chunk * 4 * ntr)
+                        + ka * ka)
+    assert vec == (q * ka % 4 == 0)
+    assert bulk == (nb > grid_x and ka % 2 == 0 and shape.grid_y == 1)
+    assert gram.gram_plan(nb, q, ka, whiten, 260, 512, resident)[3] == 0
+    assert gram.gram_plan(nb, q, ka, whiten, 256, 520, resident)[4] == 0
+
+
+def test_gram_shape_refuses_what_shared_memory_cannot_hold():
+    """A staging tile wider than a block's shared memory is refused
+    before any launch; the widest the plan accepts fits."""
+    from pint_tpu_torch.kernels import gram
+
+    with pytest.raises(ValueError, match="shared memory"):
+        gram.gram_shape(32, 240, True)
+    assert gram.gram_shape(32, 200, True).smem_bytes <= gram.SMEM_LIMIT
+
+
 # K = 120: the output is too wide for one band of shared memory and its
 # tiles for one thread block (the kernel's grid.y split)
 @pytest.mark.cuda
@@ -162,52 +276,109 @@ def test_kernels_on_card_match_plain(n, k, block):
     same inputs: 1e-5 of max|G|, and each call counts one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    x, r, winv = _aug(n, k, 15)
+    aug = torch.as_tensor(np.column_stack([x, r, winv]),
+                          dtype=torch.float32, device="cuda")
+    _gram_pair_on_card(aug, k, block)
+
+
+def _gram_pair_on_card(aug, k, block, kernels=("K1", "K2")):
+    """K1 on ``aug`` and K2 on its first k columns against their plain
+    f32 versions: 1e-5 of max|G|, one launch per call, and a second
+    call bitwise equal to the first."""
     from pint_tpu_torch.kernels.fusedgls import (fused_block_gls_cuda,
                                                  fused_block_gls_plain)
     from pint_tpu_torch.kernels.seggram import (block_grams_cuda,
                                                 block_grams_plain)
 
-    x, r, winv = _aug(n, k, 15)
-    aug = torch.as_tensor(np.column_stack([x, r, winv]),
-                          dtype=torch.float32, device="cuda")
-    for kern, plain, inp in ((fused_block_gls_cuda, fused_block_gls_plain, aug),
-                             (block_grams_cuda, block_grams_plain,
-                              aug[:, :k].contiguous())):
+    runs = {"K1": (fused_block_gls_cuda, fused_block_gls_plain, aug),
+            "K2": (block_grams_cuda, block_grams_plain,
+                   aug[:, :k].contiguous())}
+    for kern, plain, inp in (runs[name] for name in kernels):
         before = kern.launches
         out = kern(inp, block)
+        again = kern(inp, block)
         torch.cuda.synchronize()
         ref = plain(inp, block)
-        assert kern.launches == before + 1
+        assert kern.launches == before + 2
+        assert out.shape == ref.shape
         assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+        assert torch.equal(out, again)
+
+
+# Q-block counts at the persistent grid's edges (one Q-block, just
+# below and just above the grid's width on this card, K2's 3,600 at
+# Q = 32, K = 64) and Q-blocks whose q * Ka is no multiple of 4, which
+# take the per-thread copies
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("case", ["one", "below", "above", "k2", "ragged"])
+def test_gram_on_card_at_persistent_edges(case, kernel):
+    """K1 or K2 on the card at the persistent grid's edges and with
+    rows that cannot copy 16 bytes at a time, against its plain f32
+    version: 1e-5 of max|G|, one launch per call, bitwise repeats."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from pint_tpu_torch.kernels import gram
+
+    k, block = (5, 30) if case == "ragged" else (64, 32)
+    ka = k + 2 if kernel == "K1" else k
+    shape = gram.gram_shape(block, ka, kernel == "K1")
+    width = gram.persistent_grid(
+        2**40, shape.grid_y,
+        gram.resident_blocks(torch.cuda.current_device(), shape.threads,
+                             shape.smem_bytes))
+    nb = {"one": 1, "below": width - 1, "above": width + 1, "k2": 3600,
+          "ragged": 3}[case]
+    x, r, winv = _aug(nb * block, k, 18)
+    aug = torch.as_tensor(np.column_stack([x, r, winv]),
+                          dtype=torch.float32, device="cuda")
+    _gram_pair_on_card(aug, k, block, (kernel,))
 
 
 # K3 (B_a, B_b, M): a single entry, ragged edges in every dimension of
-# the kernel's 64 x 64 output tiles and 32-cell lattice chunks, and the
-# GW sweep's full 256 x 256 tile at the throughput lattice
-PAIR_CASES = [(1, 1, 1), (13, 21, 37), (256, 256, 512), (300, 70, 129)]
+# the kernel's output tiles and 32-cell lattice chunks, and the GW
+# sweep's full 256 x 256 tile at the throughput lattice; then a shape
+# that straddles the 64 tile and the chunk in every dimension, M not a
+# multiple of 4, M below one chunk, and the whole 3000-pulsar product
+# (the 128 tile)
+PAIR_CASES = [(1, 1, 1), (13, 21, 37), (256, 256, 512), (300, 70, 129),
+              (129, 257, 33), (64, 64, 37), (50, 40, 7), (3000, 3000, 512)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("ba,bb,m", PAIR_CASES)
-def test_pair_products_on_card_match_plain(ba, bb, m):
+def test_pair_products_on_card_match_plain(ba, bb, m, offset):
     """K3 on the card against its plain f32 version on the same inputs:
-    1e-5 of max|.| of each product, one launch per call."""
+    1e-5 of max|.| of each product, one launch per call, and a second
+    call bitwise equal to the first. ``offset`` 1 starts every operand
+    one float into its buffer, off the 16-byte copies."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from pint_tpu_torch.kernels.paircorr import (pair_products_cuda,
                                                  pair_products_plain)
 
     rng = np.random.default_rng(16)
-    ins = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+
+    def upload(a):
+        buf = torch.empty(a.size + offset, dtype=torch.float32,
+                          device="cuda")
+        buf[offset:] = torch.as_tensor(a.ravel(), dtype=torch.float32)
+        return buf[offset:].view(a.shape)
+
+    ins = [upload(a)
            for a in (rng.normal(size=(ba, m)), rng.uniform(0.5, 2, (ba, m)),
                      rng.normal(size=(bb, m)), rng.uniform(0.5, 2, (bb, m)))]
     before = pair_products_cuda.launches
     out = pair_products_cuda(*ins)
+    again = pair_products_cuda(*ins)
     torch.cuda.synchronize()
-    assert pair_products_cuda.launches == before + 1
-    for got, ref in zip(out, pair_products_plain(*ins)):
+    assert pair_products_cuda.launches == before + 2
+    for got, rep, ref in zip(out, again, pair_products_plain(*ins)):
         assert got.shape == (ba, bb)
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+        assert torch.equal(got, rep)
 
 
 # K1′ (rows, Ka): the streaming lanes' 64-row chunks at Ka = 6 (offset,
