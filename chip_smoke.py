@@ -88,7 +88,9 @@ these phases:
    barycentred NICER event file with a PSRPROB weight column, written
    with the port's FITS writer (event times invert the par's spindown
    phase to < 1 ns), then loaded (``load_event_TOAs``), given its
-   barycentre posvels, and folded by the timing model on the card.
+   barycentre posvels (the Sun from the numeph tier, as in the JAX
+   package; the phase checks the tier) and folded by the timing model on
+   the card.
    ``hm``, ``hmw`` and ``z2m(m=4)`` each launch K4 once (counts set to
    0 just before each) and agree with the f64 reference sums on the
    card within 1e-5 relative; H > 1e5 with a finite significance;
@@ -102,18 +104,20 @@ these phases:
    plain f32 version (max(4e-8 n, 1e-4) absolute) and the f64
    reference, a bitwise repeat, and the times of the kernel, the plain
    version and the reference beside the bound (no library call
-   computes these sums).
+   computes these sums), with each shape's launch geometry and the
+   per-photon SASS counts of the m = 20 photon loop (``cuobjdump``).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line (each record, and each per-shape record in it, with ``bound_share``
-= ``bound_ms / ms``; the gram.cu and paircorr.cu records with their
-launch geometry: grid, threads, dynamic shared bytes, tile), and as its
+= ``bound_ms / ms``; every record with its launch geometry: grid,
+threads, dynamic shared bytes or photons per thread, tile or harmonics
+per chunk), and as its
 last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --compare OLD_DIR`` instead builds an earlier
-design's ``gram.cu`` and ``paircorr.cu`` from ``OLD_DIR`` beside the
-checkout's and times both in turns at the kernel records' shapes (see
-:func:`compare_designs`). Any
+design's ``gram.cu``, ``paircorr.cu`` and ``harmonics.cu`` (whichever
+``OLD_DIR`` holds) beside the checkout's and times both in turns at the
+kernel records' shapes (see :func:`compare_designs`). Any
 failed check exits non-zero without that line; so does a machine with
 no CUDA card, or a directory without the rest of the repository.
 """
@@ -256,6 +260,25 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(torch, fn, n=20):
+    """Time per launch of n launches of fn captured in one CUDA graph and
+    replayed: the device's time without the host's launch path (which
+    sets the back-to-back times of the small shapes)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = cuda_ms(torch, graph.replay, reps=10, warmup=2) / n
+    del graph
+    return ms
 
 
 def kernel_record(torch, name, replaces, kern, plain, inp, block, whiten,
@@ -1114,6 +1137,12 @@ def photon_path(torch, tmp, device="cuda"):
     t0 = time.perf_counter()
     toas.compute_posvels()
     walls["posvels"] = time.perf_counter() - t0
+    log(f"[photon] ephemeris {toas.ephem}: the Sun from the "
+        f"{toas.ephem_provider!r} tier")
+    check("[photon] ephemeris", {
+        "the Sun comes from the numeph kernel (the JAX package's tier)":
+            toas.ephem_provider == "numeph",
+    })
     model = get_model(PHOTON_PAR)
     sync()
     t0 = time.perf_counter()
@@ -1254,9 +1283,12 @@ def harmonics_record(torch, phases, w, scan_rows, launches):
     """K4 at (4,000,000, m = 20) unweighted and weighted and at (32,
     4,000,000, m = 20): against its plain f32 version and the f64
     reference (max |d| over sum|w|), a bitwise repeat, and CUDA-event
-    times of the kernel, the plain version and the reference beside
-    the bound. No single PyTorch call computes these sums, so the
-    library column is null. Returns the JSON entry."""
+    times of the kernel (back to back, and replayed from a CUDA graph,
+    without the host's launch path), the plain version and the
+    reference beside the bound, each shape's launch geometry, and the per-photon SASS
+    counts of the m = 20 photon loop, unweighted and weighted. No single
+    PyTorch call computes these sums, so the library column is null.
+    Returns the JSON entry."""
     from pint_tpu_torch.kernels.harmonics import (harmonic_sums_cuda,
                                                   harmonic_sums_plain,
                                                   harmonic_sums_ref)
@@ -1280,6 +1312,7 @@ def harmonics_record(torch, phases, w, scan_rows, launches):
         d64 = max(float((a - b).abs().max()) for a, b in zip(out, ref))
         same = all(torch.equal(a, b) for a, b in zip(out, again))
         ms = cuda_ms(torch, lambda: harmonic_sums_cuda(ph, m, wt))
+        dev_ms = graph_ms(torch, lambda: harmonic_sums_cuda(ph, m, wt))
         plain_ms = cuda_ms(torch, lambda: harmonic_sums_plain(ph, m, wt))
         ref_ms = cuda_ms(torch, lambda: harmonic_sums_ref(ph, m, wt), reps=3,
                          warmup=1)
@@ -1292,20 +1325,35 @@ def harmonics_record(torch, phases, w, scan_rows, launches):
         log(f"[kernel] harmonic_sums {label} {tuple(ph.shape)} m {m}: vs "
             f"plain f32 max|d| {d32:.3e} ({d32 / scale:.3e} of sum|w|), vs "
             f"f64 {d64:.3e} ({d64 / scale:.3e}); bitwise repeat {same}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, f64 reference "
+            f"kernel {ms:.4f} ms (replayed from a CUDA graph {dev_ms:.4f} "
+            f"ms), plain {plain_ms:.4f} ms, f64 reference "
             f"{ref_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)")
         if not (d32 < max(4e-8 * n, 1e-4) and same):
             raise AssertionError(f"harmonic_sums at the {label} shape: "
                                  f"|d| {d32:.3e} vs plain, bitwise repeat "
                                  f"{same}")
+        geometry = harmonic_geometry(ph, wt, m)
+        log(f"[kernel] harmonic_sums {label}: launch {geometry}")
         rec[label] = {"shape": list(ph.shape) + [m], "max_abs_err": d32,
                       "max_err_f64_of_sum_w": d64 / scale, "ms": ms,
+                      "graph_ms": dev_ms,
                       "plain_ms": plain_ms, "f64_ms": ref_ms,
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations", "library_ms": None}
+                      else "operations", "library_ms": None,
+                      "launch": geometry}
     weighted = rec.pop("weighted")
+    from pint_tpu_torch.kernels import build
+    from pint_tpu_torch.kernels.harmonics import PHOTONS
+
+    sass = {}
+    for label, kernel in (("unweighted", "harmonic_partials_kernelILi20ELb0E"),
+                          ("weighted", "harmonic_partials_kernelILi20ELb1E")):
+        sass[label] = sass_loop_counts(build._library_path("harmonics")[1],
+                                       kernel, PHOTONS)
+        log(f"[kernel] harmonic_sums m = 20 {label}: SASS of the partials "
+            f"kernel's photon loop, per photon: {sass[label]}")
     return {"name": "harmonic_sums", "route": "cuda",
             "source": "pint_tpu_torch/csrc/harmonics.cu",
             "replaces": "pint_tpu/kernels/harmonics.py:81",
@@ -1313,7 +1361,108 @@ def harmonics_record(torch, phases, w, scan_rows, launches):
             "unweighted": rec["photons"], "scan": rec["scan"],
             "launches_per_statistic": int(max(
                 launches[k] for k in ("hm", "hmw", "z2m"))),
-            "scan_launches": int(launches["scan"])}
+            "scan_launches": int(launches["scan"]), "sass_per_photon": sass}
+
+
+def harmonic_geometry(ph, wt, m):
+    """The launch csrc/harmonics.cu gets for phases ``ph`` and weights
+    ``wt`` at m harmonics: grid (blocks per row, rows, chunks), threads,
+    photons a thread takes per iteration, harmonics per chunk, the bytes
+    of each load, and the blocks of that instantiation resident on the
+    card."""
+    from pint_tpu_torch.kernels import harmonics
+
+    rows = ph.reshape(1, -1) if ph.ndim == 1 else ph
+    g, n = rows.shape
+    w_ptr = None if wt is None else wt.data_ptr()
+    w_stride = n if wt is not None and wt.ndim == 2 else 0
+    dev = ph.device.index
+    plan = tuple(harmonics.launch_plan(dev, g, n, m, rows.data_ptr(), w_ptr,
+                                       w_stride))
+    kc, nchunks, nb, vec = plan[3:7]
+    return {"grid": [nb, g, nchunks], "threads": harmonics.THREADS,
+            "photons_per_iteration": harmonics.PHOTONS, "chunk": kc,
+            "copy_bytes": 16 if vec else 4,
+            "resident_blocks": harmonics.resident_blocks(dev, kc,
+                                                         wt is not None)}
+
+
+# SASS opcode classes, and the issue slots of one warp instruction of
+# each relative to an FP32 one on an H100 SM sub-partition (32 FP32
+# lanes; 16 FP64 lanes; 4 lanes for the f32<->f64 conversions, 16 per SM)
+SASS_CLASSES = {"fp32": ("FFMA", "FADD", "FMUL"),
+                "fp64": ("DFMA", "DADD", "DMUL"),
+                "convert": ("F2F", "F2I", "I2F", "F2IP", "I2FP", "FRND"),
+                "load": ("LDG", "LD", "LDS")}
+SASS_SLOTS = {"fp64": 2, "convert": 8}
+
+
+def sass_loop_counts(so, kernel, photons):
+    """Per-photon SASS instruction counts of the photon loop of the
+    function whose mangled name contains ``kernel`` in the library
+    ``so`` (``cuobjdump -sass``): the backward branch whose body holds
+    the most f64 operations (the loop with the sincos), counted
+    statically over its body, by class, divided by the photons one
+    iteration takes; ``slots`` weighs each class by SASS_SLOTS (1 for
+    the rest). None, with the reason logged, where cuobjdump is missing
+    or its output has no such loop."""
+    import re
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        log(f"[kernel] SASS of {kernel}: not measured (no cuobjdump)")
+        return None
+    text = subprocess.run([exe, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    code, labels, pending, name = [], {}, [], None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            continue
+        if name is None or kernel not in name:
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+([^;]*);", line)
+        if ins:
+            addr = int(ins.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            words = [w for w in ins.group(2).split() if not w.startswith("@")]
+            if words:
+                code.append((addr, words[0].split(".")[0], ins.group(2)))
+    best = None
+    for addr, op, body in code:
+        if op != "BRA":
+            continue
+        tgt = re.search(r"`\((\.L_x_\d+)\)", body)
+        target = (labels.get(tgt.group(1)) if tgt else
+                  int(re.search(r"0x([0-9a-f]+)", body).group(1), 16)
+                  if re.search(r"0x([0-9a-f]+)", body) else None)
+        if target is None or target > addr:
+            continue
+        ops = [o for a, o, _ in code if target <= a <= addr]
+        n64 = sum(o in SASS_CLASSES["fp64"] for o in ops)
+        if best is None or (n64, -len(ops)) > (best[0], -len(best[1])):
+            best = (n64, ops)
+    if best is None or best[0] == 0:
+        log(f"[kernel] SASS of {kernel}: not measured (no loop with f64 "
+            f"operations found in {so})")
+        return None
+    ops = best[1]
+    counts = {c: sum(o in names for o in ops)
+              for c, names in SASS_CLASSES.items()}
+    counts["other"] = len(ops) - sum(counts.values())
+    per = {c: v / photons for c, v in counts.items()}
+    per["total"] = len(ops) / photons
+    per["slots"] = sum(v * SASS_SLOTS.get(c, 1)
+                       for c, v in counts.items()) / photons
+    return per
 
 
 def run():
@@ -1463,18 +1612,22 @@ def run():
 
 
 def compare_designs(old_dir):
-    """``--compare OLD_DIR``: the kernels of ``OLD_DIR/gram.cu`` and
-    ``OLD_DIR/paircorr.cu`` (an earlier design, with the earlier C
-    interface: no launch plan) against the checkout's, on one card in
-    turns (old, new, new, old), at the shapes the kernel records use,
-    on inputs made from a seed: K1 (460800, 66) at Q = 256, K2 (115200,
-    64) at Q = 32, K1′ at 64 x 6 and 64 x 12, K3 at the fleet's 68 x 68
-    x 100, a 256 x 256 x 512 sweep tile and the whole 3000 x 3000 x 512
-    product. Each design is held to the plain f32 version (1e-5 of
-    max|.|) first; the library yardstick is timed in the same call. Each
-    design is timed twice: back to back as a caller launches it (CUDA
-    events), and replayed from a CUDA graph, which leaves out the host's
-    launch path."""
+    """``--compare OLD_DIR``: the kernels of an earlier design's
+    ``gram.cu``, ``paircorr.cu`` and ``harmonics.cu`` (whichever
+    ``OLD_DIR`` holds, each with its earlier C interface) against the
+    checkout's, on one card in turns (old, new, new, old), at the shapes
+    the kernel records use, on inputs made from a seed: K1 (460800, 66)
+    at Q = 256, K2 (115200, 64) at Q = 32, K1′ at 64 x 6 and 64 x 12; K3
+    at the fleet's 68 x 68 x 100, a 256 x 256 x 512 sweep tile and the
+    whole 3000 x 3000 x 512 product; K4 at 4,000,000 photons and m = 20,
+    unweighted and weighted, and on (32, 4,000,000) scan rows. Each
+    design is held to the plain f32 version first (K1-K3: 1e-5 of
+    max|.|; K4: max(4e-8 n, 1e-4) absolute); the library yardstick is
+    timed in the same call where there is one. Each design is timed
+    twice: back to back as a caller launches it (CUDA events), and
+    replayed from a CUDA graph, which leaves out the host's launch path.
+    K4's record also holds the per-photon SASS counts of both designs'
+    photon loops."""
     import ctypes
 
     import torch
@@ -1484,30 +1637,39 @@ def compare_designs(old_dir):
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pint_tpu_torch.kernels import build, paircorr
+    from pint_tpu_torch.kernels import build, harmonics, paircorr
     from pint_tpu_torch.kernels.fusedgls import (fused_block_gls_cuda,
                                                  fused_block_gls_plain)
+    from pint_tpu_torch.kernels.harmonics import (harmonic_sums_cuda,
+                                                  harmonic_sums_plain)
     from pint_tpu_torch.kernels.paircorr import (pair_products_cuda,
                                                  pair_products_plain)
     from pint_tpu_torch.kernels.seggram import (block_grams_cuda,
                                                 block_grams_plain)
 
     card = gpu_line()
-    log(f"[compare] {card}; old sources from {old_dir}")
+    names = [n for n in ("gram", "paircorr", "harmonics")
+             if os.path.exists(os.path.join(old_dir, n + ".cu"))]
+    if not names:
+        print(f"chip_smoke: {old_dir} holds none of gram.cu, paircorr.cu "
+              "and harmonics.cu", file=sys.stderr)
+        return 1
+    log(f"[compare] {card}; old sources from {old_dir}: {names}")
     procs = {}
-    for name in ("gram", "paircorr"):
+    for name in names:
         src = os.path.join(old_dir, name + ".cu")
         so = os.path.join(old_dir, f"lib{name}_old.so")
         procs[name] = (so, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", so, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    build.load_all(["gram", "paircorr"])
+    build.load_all(names)
     old = {}
     for name, (so, proc) in procs.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the old {name}.cu:\n{out}")
         old[name] = ctypes.CDLL(so)
+        old[name + "_so"] = so
         for design, text in (("old", out), ("new",
                                             build.BUILD_INFO[name]["log"])):
             for line in text.splitlines():
@@ -1552,12 +1714,11 @@ def compare_designs(old_dir):
             return out
         return call
 
-    fn_pair = old["paircorr"].pair_products_f32
-    fn_pair.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn_pair.restype = ctypes.c_int
-
     def old_pair(ua, wa, ub, wb):
+        fn_pair = old["paircorr"].pair_products_f32
+        fn_pair.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn_pair.restype = ctypes.c_int
         check = paircorr._check
         check("ua", ua, ua.device)
         ba, m = ua.shape
@@ -1580,6 +1741,40 @@ def compare_designs(old_dir):
             raise RuntimeError(f"old pair_products_f32: CUDA error {rc}")
         return num, den
 
+    def old_harmonics(phases, m, weights=None):
+        """PR 4's ``harmonic_sums_cuda`` host path over the old library
+        (harmonic_chunk / harmonic_blocks looked up per call)."""
+        lib = old["harmonics"]
+        fn = lib.harmonic_sums_f32
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int,
+                                                  ctypes.c_longlong]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.harmonic_chunk.argtypes = [ctypes.c_int]
+        lib.harmonic_chunk.restype = ctypes.c_int
+        lib.harmonic_blocks.argtypes = [ctypes.c_longlong]
+        lib.harmonic_blocks.restype = ctypes.c_int
+        rows = phases.reshape(1, -1) if phases.ndim == 1 else phases
+        g, n = rows.shape
+        w_ptr, w_stride = None, 0
+        if weights is not None:
+            w_ptr, w_stride = weights.data_ptr(), (n if weights.ndim == 2
+                                                   else 0)
+        kc, nb = lib.harmonic_chunk(m), lib.harmonic_blocks(n)
+        partial = torch.empty(g * -(-m // kc) * nb * 2 * kc,
+                              dtype=torch.float32, device=phases.device)
+        out = torch.empty((g, 2, m), dtype=torch.float64,
+                          device=phases.device)
+        stream = torch.cuda.current_stream(phases.device).cuda_stream
+        rc = fn(rows.data_ptr(), w_ptr, w_stride, partial.data_ptr(),
+                out.data_ptr(), g, n, m, phases.device.index, stream)
+        if rc:
+            raise RuntimeError(f"old harmonic_sums_f32: CUDA error {rc}")
+        if phases.ndim == 1:
+            out = out[0]
+        return out[..., 0, :], out[..., 1, :]
+
     rng = np.random.default_rng(5)
 
     def rows(n, ka, whiten):
@@ -1593,7 +1788,7 @@ def compare_designs(old_dir):
         xb = xw.reshape(-1, block, x.shape[1])
         prev = old_gram(entry)
         return (label, lambda: new(x, block), lambda: prev(x, block),
-                lambda: plain(x, block), lambda: torch.bmm(xb.mT, xb))
+                lambda: plain(x, block), lambda: torch.bmm(xb.mT, xb), None)
 
     lat = torch.as_tensor(rng.normal(size=(3000, 512)), dtype=torch.float32,
                           device=dev)
@@ -1607,45 +1802,51 @@ def compare_designs(old_dir):
         ins = (ua, wa, ub, wb)
         return (label, lambda: pair_products_cuda(*ins),
                 lambda: old_pair(*ins), lambda: pair_products_plain(*ins),
-                lambda: (torch.matmul(ua, ub.mT), torch.matmul(wa, wb.mT)))
+                lambda: (torch.matmul(ua, ub.mT), torch.matmul(wa, wb.mT)),
+                None)
 
-    cases = [
-        gram_case("K1 (460800, 66) Q=256", "fused_block_gls_f32",
-                  fused_block_gls_cuda, fused_block_gls_plain,
-                  rows(460800, 66, True), 256, True),
-        gram_case("K2 (115200, 64) Q=32", "block_grams_f32",
-                  block_grams_cuda, block_grams_plain,
-                  rows(115200, 64, False), 32, False),
-        gram_case("K1' (64, 6)", "fused_block_gls_f32",
-                  fused_block_gls_cuda, fused_block_gls_plain,
-                  rows(64, 6, True), 64, True),
-        gram_case("K1' (64, 12)", "fused_block_gls_f32",
-                  fused_block_gls_cuda, fused_block_gls_plain,
-                  rows(64, 12, True), 64, True),
-        pair_case("K3 fleet 68x68x100", *fleet, *fleet),
-        pair_case("K3 tile 256x256x512", *tile_a, *tile_b),
-        pair_case("K3 whole 3000x3000x512", lat, wts, lat, wts),
-    ]
-    def graph_ms(fn, n=20):
-        """Time per launch of n launches of fn captured in one CUDA graph
-        and replayed: the device's time without the host's launch path
-        (which sets the back-to-back times of the small shapes)."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(n):
-                fn()
-        ms = cuda_ms(torch, graph.replay, reps=10, warmup=2) / n
-        del graph
-        return ms
+    cases = []
+    if "gram" in names:
+        cases += [
+            gram_case("K1 (460800, 66) Q=256", "fused_block_gls_f32",
+                      fused_block_gls_cuda, fused_block_gls_plain,
+                      rows(460800, 66, True), 256, True),
+            gram_case("K2 (115200, 64) Q=32", "block_grams_f32",
+                      block_grams_cuda, block_grams_plain,
+                      rows(115200, 64, False), 32, False),
+            gram_case("K1' (64, 6)", "fused_block_gls_f32",
+                      fused_block_gls_cuda, fused_block_gls_plain,
+                      rows(64, 6, True), 64, True),
+            gram_case("K1' (64, 12)", "fused_block_gls_f32",
+                      fused_block_gls_cuda, fused_block_gls_plain,
+                      rows(64, 12, True), 64, True),
+        ]
+    if "paircorr" in names:
+        cases += [
+            pair_case("K3 fleet 68x68x100", *fleet, *fleet),
+            pair_case("K3 tile 256x256x512", *tile_a, *tile_b),
+            pair_case("K3 whole 3000x3000x512", lat, wts, lat, wts),
+        ]
+    if "harmonics" in names:
+        k4_ph = torch.as_tensor(rng.random(PHOTON_N), dtype=torch.float32,
+                                device=dev)
+        k4_w = torch.as_tensor(rng.random(PHOTON_N), dtype=torch.float32,
+                               device=dev)
+        k4_scan = torch.as_tensor(rng.random((PHOTON_TRIALS, PHOTON_N)),
+                                  dtype=torch.float32, device=dev)
 
+        def k4_case(label, ph, wt):
+            tol = max(4e-8 * ph.shape[-1], 1e-4)
+            return (label, lambda: harmonic_sums_cuda(ph, 20, wt),
+                    lambda: old_harmonics(ph, 20, wt),
+                    lambda: harmonic_sums_plain(ph, 20, wt), None, tol)
+
+        cases += [k4_case(f"K4 ({PHOTON_N},) m=20", k4_ph, None),
+                  k4_case(f"K4 ({PHOTON_N},) m=20 weighted", k4_ph, k4_w),
+                  k4_case(f"K4 scan ({PHOTON_TRIALS}, {PHOTON_N}) m=20",
+                          k4_scan, None)]
     results = []
-    for label, new, prev, plain, library in cases:
+    for label, new, prev, plain, library, abs_tol in cases:
         ref = plain()
         ref = ref if isinstance(ref, tuple) else (ref,)
         for design, fn in (("new", new), ("old", prev)):
@@ -1653,23 +1854,38 @@ def compare_designs(old_dir):
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
             for g, r in zip(got, ref):
-                rel = ((g - r).abs().max() / r.abs().max()).item()
-                if not rel <= TOL_KERNEL:
+                d = (g - r).abs().max().item()
+                ok = (d <= abs_tol if abs_tol is not None
+                      else d / r.abs().max().item() <= TOL_KERNEL)
+                if not ok:
                     raise AssertionError(f"{label}: the {design} design is "
-                                         f"{rel:.3e} from plain f32")
+                                         f"{d:.3e} from plain f32")
         turns = [cuda_ms(torch, fn) for fn in (prev, new, new, prev)]
-        device = [graph_ms(fn) for fn in (prev, new, new, prev)]
-        library_ms = cuda_ms(torch, library)
+        device = [graph_ms(torch, fn) for fn in (prev, new, new, prev)]
+        library_ms = None if library is None else cuda_ms(torch, library)
         rec = {"case": label, "old_ms": [turns[0], turns[3]],
                "new_ms": [turns[1], turns[2]], "library_ms": library_ms,
                "old_graph_ms": [device[0], device[3]],
                "new_graph_ms": [device[1], device[2]]}
         results.append(rec)
+        lib_text = ("none" if library_ms is None
+                    else f"{library_ms:.4f} ms")
         log(f"[compare] {label}: old {turns[0]:.4f} / {turns[3]:.4f} ms, "
             f"new {turns[1]:.4f} / {turns[2]:.4f} ms, library "
-            f"{library_ms:.4f} ms; replayed from a CUDA graph: old "
+            f"{lib_text}; replayed from a CUDA graph: old "
             f"{device[0]:.4f} / {device[3]:.4f} ms, new {device[1]:.4f} / "
             f"{device[2]:.4f} ms")
+    if "harmonics" in names:
+        sass = {
+            "old": sass_loop_counts(old["harmonics_so"],
+                                    "harmonic_partials_kernelILi24E", 1),
+            "new": sass_loop_counts(build._library_path("harmonics")[1],
+                                    "harmonic_partials_kernelILi20ELb0E",
+                                    harmonics.PHOTONS)}
+        log(f"[compare] K4 m = 20 unweighted, SASS of the photon loop per "
+            f"photon: old {sass['old']}; new {sass['new']}")
+        results.append({"case": "K4 SASS per photon, m = 20 unweighted",
+                        **sass})
     log(json.dumps({"compare": results}))
     log(card)
     return 0

@@ -66,9 +66,8 @@ def load_event_TOAs(eventfile, mission, weights=None, weightcolumn=None,
     """FITS event list -> TOAs (reference: event_toas.py::load_event_TOAs).
 
     Returns a TOAs table (TDB and posvels are filled when it is packed,
-    ``TOAs.compute_posvels``). ``ephem`` is accepted for the JAX
-    package's signature; the port's barycentre posvels use the analytic
-    ephemeris whatever it names. Weights (probability the photon is
+    ``TOAs.compute_posvels``), from the ephemeris ``ephem`` names
+    through the tiers of ``ephemeris/``. Weights (probability the photon is
     from the pulsar) land in the table's ``weights`` column. ``table``
     supplies an already-read (header, cols) pair so callers that pre-scan columns
     (the Fermi CALC weight path) don't parse a multi-million-photon
@@ -93,7 +92,8 @@ def load_event_TOAs(eventfile, mission, weights=None, weightcolumn=None,
         weights = np.asarray(weights, np.float64)[keep]
     # vectorized build: no per-photon Python objects (flags stay lazy)
     t = TOAs.from_arrays(day[keep], sec[keep], error_us=errors_us,
-                         freq_mhz=np.inf, obs=obs, weights=weights)
+                         freq_mhz=np.inf, obs=obs, weights=weights,
+                         ephem=ephem)
     t.planets = planets
     t.filename = str(eventfile)
     return t

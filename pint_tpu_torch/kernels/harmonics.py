@@ -20,9 +20,13 @@ Three paths, as for the other kernels:
   an error in cos(theta) near theta = 0 or pi by ~k^2 at harmonic k,
   and torch's f32 cos on the CPU is biased near pi, enough to leave the
   K4 tolerance against the Pallas kernel at n = 70,000 and m = 20 (a
-  case of tests/test_torch_kernels.py); with its recurrence rounded
-  step by step as the kernel's is, the kernel's per-photon terms are
-  this version's bit for bit;
+  case of tests/test_torch_kernels.py). Each recurrence step is the
+  kernel's contracted ``fmaf(2 c1, c_k, -c_{k-1})``, formed here as the
+  exact f64 product (two f32 factors) minus c_{k-1}, rounded once to
+  f32. The kernel's per-photon terms are this version's bit for bit,
+  except at a double-rounding tie (an f64 value within an ulp of an f32
+  rounding boundary, ~1 in 2^28 values), where they differ by one f32
+  ulp;
 - :func:`harmonic_sums_cuda` — the hand-written Hopper kernel
   (``csrc/harmonics.cu::harmonic_sums_f32``), replacing the TPU kernel
   ``pint_tpu/kernels/harmonics.py::harmonic_sums_pallas``.
@@ -37,6 +41,13 @@ returns (C, S) in f64 of shape (m,) or (G, m).
 row takes the kernel, which launches or raises; any other input takes
 the f64 reference, which is also what the JAX function computes on the
 CPU. There is no fallback on failure.
+
+The kernel's launch plan is computed here, so that the CPU tests reach
+every choice (:func:`harmonic_plan`): the instantiation (harmonics per
+chunk), the blocks per row (one wave of the blocks the occupancy API
+says stay resident, :func:`resident_blocks`), whether photons load 16
+bytes at a time, and the partial-sums scratch (:func:`partial_floats`);
+:func:`launch_plan` caches the packed plan per shape and alignment.
 """
 
 from __future__ import annotations
@@ -51,7 +62,17 @@ import torch
 # harmonics.py: ``n >= (1 << 16)``)
 KERNEL_MIN_PHOTONS = 1 << 16
 _TWO_PI_F32 = np.float32(2.0 * np.pi)
+# the launch geometry of csrc/harmonics.cu: threads per block, photons a
+# thread takes per loop iteration, and the accumulator counts (harmonics
+# per chunk) it instantiates
+THREADS = 256
+PHOTONS = 4
+CHUNKS = (2, 4, 8, 16, 20, 32)
+# {g, n, m, chunk, chunks, blocks, vec, w_stride}, as harmonics.cu reads it
+PlanArray = ctypes.c_longlong * 8
 _FNS = None
+_RESIDENT = {}
+_PLANS = {}
 
 
 def _weights_like(phases, weights, dtype):
@@ -82,52 +103,125 @@ def harmonic_sums_ref(phases, m, weights=None):
 
 def harmonic_sums_plain(phases, m, weights=None):
     """The kernel's arithmetic in f32 torch ops: one cos/sin per photon,
-    the Chebyshev recurrence over k, an f32 ``torch.sum`` per harmonic,
-    returned in f64."""
+    the contracted Chebyshev recurrence over k, an f32 ``torch.sum`` per
+    harmonic, returned in f64."""
     theta = (phases.to(torch.float32) * _TWO_PI_F32).to(torch.float64)
     w = _weights_like(phases, weights, torch.float32)
     # correctly rounded f32 cos/sin of the f32 theta (module docstring)
     c1 = torch.cos(theta).to(torch.float32)
     s1 = torch.sin(theta).to(torch.float32)
     del theta
-    two_c1 = 2.0 * c1
+    two_c1 = (2.0 * c1).to(torch.float64)  # exact
     ckm2, skm2 = torch.ones_like(c1), torch.zeros_like(s1)
     ck, sk = c1, s1
     cs, ss = [], []
-    for _ in range(m):
+    for k in range(m):
         if w is None:
             cs.append(torch.sum(ck, dim=-1))
             ss.append(torch.sum(sk, dim=-1))
         else:
             cs.append(torch.sum(w * ck, dim=-1))
             ss.append(torch.sum(w * sk, dim=-1))
-        ck, ckm2 = two_c1 * ck - ckm2, ck
-        sk, skm2 = two_c1 * sk - skm2, sk
+        if k + 1 < m:  # fmaf(2 c1, c_k, -c_{k-1}): one rounding to f32
+            ck, ckm2 = (two_c1 * ck - ckm2).to(torch.float32), ck
+            sk, skm2 = (two_c1 * sk - skm2).to(torch.float32), sk
     return (torch.stack(cs, dim=-1).to(torch.float64),
             torch.stack(ss, dim=-1).to(torch.float64))
 
 
+def harmonic_chunk(m):
+    """Harmonics per chunk for m harmonics: the smallest instantiation of
+    csrc/harmonics.cu that holds m, else 32 (several chunks)."""
+    return next((kc for kc in CHUNKS if kc >= m), CHUNKS[-1])
+
+
+def harmonic_blocks(g, n, nchunks, resident):
+    """Blocks per (row, chunk): the grid's g * nchunks rows share the
+    ``resident`` blocks the card keeps (one wave), never fewer than 1
+    and never more than the row's quads of photons need (a thread per
+    quad)."""
+    need = -(-(-(-n // PHOTONS)) // THREADS)
+    return max(1, min(need, resident // (g * nchunks)))
+
+
+def copies_16_bytes(g, n, ph_ptr, w_ptr=None, w_stride=0):
+    """Whether each thread loads its 4 photons (and weights) as one
+    16-byte piece: every row must start on a 16-byte boundary (aligned
+    base, and n % 4 == 0 unless there is one row), for the weights as
+    well unless one row of them is shared."""
+    rows = g == 1 or n % PHOTONS == 0
+    ok = ph_ptr % 16 == 0 and rows
+    if w_ptr is not None:
+        ok = ok and w_ptr % 16 == 0 and (w_stride == 0 or rows)
+    return ok
+
+
+def harmonic_plan(g, n, m, ph_ptr, w_ptr, w_stride, resident):
+    """Everything the C entry needs besides the tensors, in its order:
+    (g, n, m, chunk, chunks, blocks, vec, w_stride), with ``resident``
+    blocks of the instantiation resident on the card."""
+    kc = harmonic_chunk(m)
+    nchunks = -(-m // kc)
+    return (g, n, m, kc, nchunks, harmonic_blocks(g, n, nchunks, resident),
+            int(copies_16_bytes(g, n, ph_ptr, w_ptr, w_stride)), w_stride)
+
+
+def partial_floats(plan):
+    """Floats of the partial-sums scratch a plan needs: (g, chunks,
+    blocks, 2 chunk)."""
+    g, _, _, kc, nchunks, nb = plan[:6]
+    return g * nchunks * nb * 2 * kc
+
+
 def _kernel_fns():
     """The C entries of csrc/harmonics.cu, argtypes set (pointers and
-    the stream as c_void_p, lengths as c_longlong, counts and the
-    device index as c_int)."""
+    the stream as c_void_p, the plan as one int64 array, the device
+    index and counts as c_int)."""
     global _FNS
     if _FNS is None:
         from .build import load
 
         lib = load("harmonics")
         fn = lib.harmonic_sums_f32
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int,
-                                                  ctypes.c_longlong]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 4 + [PlanArray, ctypes.c_int,
+                                               ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.harmonic_chunk.argtypes = [ctypes.c_int]
-        lib.harmonic_chunk.restype = ctypes.c_int
-        lib.harmonic_blocks.argtypes = [ctypes.c_longlong]
-        lib.harmonic_blocks.restype = ctypes.c_int
-        _FNS = (fn, lib.harmonic_chunk, lib.harmonic_blocks)
+        occ = lib.harmonic_resident_blocks
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+        _FNS = (fn, occ)
     return _FNS
+
+
+def resident_blocks(device_index, kc, weighted):
+    """Blocks of the partials kernel with ``kc`` harmonics per chunk that
+    stay resident on the card (SM count x blocks per SM, from the CUDA
+    occupancy API), cached per instantiation."""
+    key = (device_index, kc, weighted)
+    n = _RESIDENT.get(key)
+    if n is None:
+        out = ctypes.c_int(0)
+        rc = _kernel_fns()[1](kc, int(weighted), device_index,
+                              ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(f"harmonic_resident_blocks failed with CUDA "
+                               f"error {rc} ({out.value} blocks)")
+        n = _RESIDENT[key] = out.value
+    return n
+
+
+def launch_plan(dev, g, n, m, ph_ptr, w_ptr, w_stride):
+    """The packed plan of a launch, cached per shape and alignment."""
+    key = (dev, g, n, m, w_ptr is not None, w_stride, ph_ptr % 16,
+           None if w_ptr is None else w_ptr % 16)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if len(_PLANS) >= 1024:
+            _PLANS.clear()
+        resident = resident_blocks(dev, harmonic_chunk(m), w_ptr is not None)
+        plan = _PLANS[key] = PlanArray(*harmonic_plan(
+            g, n, m, ph_ptr, w_ptr, w_stride, resident))
+    return plan
 
 
 def _check(name, t, device):
@@ -169,14 +263,14 @@ def harmonic_sums_cuda(phases, m, weights=None):
                              f"of shape {tuple(phases.shape)}")
         w_ptr, w_stride = weights.data_ptr(), (n if weights.ndim == 2
                                                else 0)
-    fn, chunk_of, blocks_of = _kernel_fns()
-    kc, nb = chunk_of(m), blocks_of(n)
-    partial = torch.empty(g * -(-m // kc) * nb * 2 * kc,
-                          dtype=torch.float32, device=phases.device)
+    dev = phases.device.index
+    plan = launch_plan(dev, g, n, m, rows.data_ptr(), w_ptr, w_stride)
+    partial = torch.empty(partial_floats(plan), dtype=torch.float32,
+                          device=phases.device)
     out = torch.empty((g, 2, m), dtype=torch.float64, device=phases.device)
     stream = torch.cuda.current_stream(phases.device).cuda_stream
-    rc = fn(rows.data_ptr(), w_ptr, w_stride, partial.data_ptr(),
-            out.data_ptr(), g, n, m, phases.device.index, stream)
+    rc = _kernel_fns()[0](rows.data_ptr(), w_ptr, partial.data_ptr(),
+                          out.data_ptr(), plan, dev, stream)
     if rc != 0:
         raise RuntimeError(f"harmonic_sums_f32 launch failed with CUDA "
                            f"error {rc}")

@@ -10,29 +10,49 @@ rotation:
 - :class:`GeocenterObs` (``geocenter``, ``coe``): the Earth's centre,
   whose TOAs ``simulation.py`` makes and fills.
 
-Every other observatory (a radio telescope, a mission's satellite
-observatory with its orbit file) is host ingest — clock chains, the
-TT->TDB chain, the SPK ephemeris, the orbit interpolation — and
-:func:`get_observatory` raises ``NotImplementedError`` for it.
+Both take the Sun, the Earth and the planets from the ephemeris tiers
+of ``ephemeris/`` (``objPosVel_wrt_SSB`` under the tier that
+``ephemeris_provider`` resolves once for the table, as the JAX
+package's ``TOAs.compute_posvels`` does). Every other observatory (a
+radio telescope, a mission's satellite observatory with its orbit file)
+is host ingest — clock chains, the UTC->TDB chain, Earth rotation, the
+orbit interpolation — and :func:`get_observatory` raises
+``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..ephemeris.analytic import _all_positions_icrs, earth_sun_icrs
+from ..ephemeris import ephemeris_provider, objPosVel_wrt_SSB
 from ..mjd import Epochs
 from ..utils import PosVel
 
-HOST_INGEST = ("host ingest (clock chains, TT->TDB, the SPK ephemeris and "
-               "observatory or orbit-file posvels; ROADMAP item 7) is not "
+HOST_INGEST = ("host ingest (clock chains, UTC->TDB, Earth rotation and "
+               "observatory or orbit-file posvels; ROADMAP §1 item 1) is not "
                "ported")
 
 
-def _julian_centuries(tdb: Epochs):
-    """Julian centuries of TDB since J2000, the analytic ephemeris'
-    time argument."""
-    return (tdb.mjd_float() - 51544.5) / 36525.0
+def solar_system_posvels(toas, earth=None):
+    """``toas.ephem_provider``, ``obs_sun`` and ``planet_pos`` for an
+    observatory at ``earth`` (a PosVel wrt the SSB, or None for the SSB
+    itself) at the table's TDB epochs: the tier resolved once on every
+    epoch, then the Sun (and, when ``toas.planets``, the planets) from
+    it, relative to the observatory (JAX ``toa.py::compute_posvels``).
+    The Sun's velocity is zero, as in the JAX package."""
+    tdb = toas.tdb
+    toas.ephem_provider = ephemeris_provider(toas.ephem, tdb)
+    obs = 0.0 if earth is None else earth.pos
+    sun = objPosVel_wrt_SSB("sun", tdb, toas.ephem,
+                            provider=toas.ephem_provider).pos - obs
+    toas.obs_sun = PosVel(sun, np.zeros_like(sun), origin="obs", obj="sun")
+    toas.planet_pos = {}
+    if toas.planets:
+        toas.planet_pos = {
+            p: objPosVel_wrt_SSB(p, tdb, toas.ephem,
+                                 provider=toas.ephem_provider).pos - obs
+            for p in toas.PLANETS}
+    return toas
 
 
 class Observatory:
@@ -55,30 +75,20 @@ class BarycenterObs(Observatory):
     def fill_posvels(self, toas):
         """``tdb`` the epochs as given (TDB, the JAX package's
         ``compute_TDBs`` for a TDB observatory), ``ssb_obs`` exactly
-        zero, ``obs_sun`` the Sun with respect to the SSB from the
-        analytic ephemeris (``ephemeris/analytic.py::earth_sun_icrs``,
-        the substitution the port makes for the SPK ephemeris), and
-        ``planet_pos`` the planets with respect to the SSB when
-        ``toas.planets``. Velocities are zero, as in the JAX package."""
+        zero, and the Sun and planets from the ephemeris tier
+        (:func:`solar_system_posvels`)."""
         norm = Epochs(toas.day, toas.sec, "utc").normalized()
         toas.tdb = Epochs(norm.day, norm.sec, "tdb")
-        t = _julian_centuries(toas.tdb)
-        _, sun = earth_sun_icrs(t)
         zero = np.zeros((len(toas), 3))
         toas.ssb_obs = PosVel(zero, zero.copy(), origin="ssb",
                               obj="barycenter")
-        toas.obs_sun = PosVel(sun, np.zeros_like(sun), origin="obs",
-                              obj="sun")
-        toas.planet_pos = {}
-        if toas.planets:
-            pos = _all_positions_icrs(t)
-            toas.planet_pos = {p: pos[p] for p in toas.PLANETS}
-        return toas
+        return solar_system_posvels(toas)
 
 
 class GeocenterObs(Observatory):
     """geocenter / coe: the Earth's centre, epochs taken as TDB
-    (``simulation.geocenter_posvels``)."""
+    (``simulation.geocenter_posvels``; the JAX package reads them as
+    UTC, which waits for the port of ``timescales.py``)."""
 
     name = "geocenter"
     aliases = ("coe", "geocentre")

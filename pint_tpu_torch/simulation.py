@@ -6,10 +6,12 @@ until residuals vanish, then optionally add Gaussian measurement
 noise.)
 
 Host ingest (clock chains, UTC->TDB, observatory posvels) is not
-ported yet, so the epochs given here are taken as TDB at the geocentre:
-the observatory is the Earth's centre, and the Earth and Sun positions
-come from the analytic ephemeris (truncated VSOP87 Earth, Keplerian
-planets), which needs no data files.
+ported yet, so the epochs given here are taken as TDB at the geocentre
+(the JAX package reads them as UTC and converts them with
+``timescales.py``): the observatory is the Earth's centre, and the
+Earth, the Sun and the planets come from the ephemeris tiers
+(``ephemeris/``: the shipped numeph kernel inside its coverage), as the
+JAX package's ``GeocenterObs`` takes them.
 """
 
 from __future__ import annotations
@@ -17,40 +19,26 @@ from __future__ import annotations
 import numpy as np
 
 from .constants import SECS_PER_DAY
-from .ephemeris.analytic import _all_positions_icrs, earth_sun_icrs
+from .ephemeris import ephemeris_provider, objPosVel_wrt_SSB
 from .mjd import Epochs
+from .observatory import solar_system_posvels
 from .toa import TOAs
 from .utils import PosVel
 
-_VEL_STEP_S = 120.0  # central-difference step of analytic.body_posvel_ssb
 
-
-def geocenter_posvels(toas: TOAs, velocities=True):
+def geocenter_posvels(toas: TOAs):
     """Fill ``tdb``, ``ssb_obs``, ``obs_sun`` (and ``planet_pos`` when
-    ``toas.planets``) for geocentric TOAs whose epochs are TDB, from the
-    analytic ephemeris. The observatory velocity is a central difference
-    over 120 s, as in ``analytic.body_posvel_ssb``; ``velocities=False``
-    leaves it zero (no component of the slice reads it, and the
-    zero-residual iteration needs positions only)."""
+    ``toas.planets``) for geocentric TOAs whose epochs are TDB: the
+    ephemeris tier is resolved once on every epoch, the observatory is
+    the Earth with its velocity from that tier (JAX
+    ``GeocenterObs.posvel_ssb``), and the Sun and planets are taken
+    relative to it."""
     toas.tdb = Epochs(toas.day, toas.sec, "tdb")
-    t = toas.tdb.mjd_float()
-
-    def T(shift_s=0.0):
-        return (t + shift_s / SECS_PER_DAY - 51544.5) / 36525.0
-
-    earth, sun = earth_sun_icrs(T())
-    vel = np.zeros_like(earth)
-    if velocities:
-        vel = (earth_sun_icrs(T(_VEL_STEP_S))[0]
-               - earth_sun_icrs(T(-_VEL_STEP_S))[0]) / (2 * _VEL_STEP_S)
-    toas.ssb_obs = PosVel(earth, vel, origin="ssb", obj="obs")
-    toas.obs_sun = PosVel(sun - earth, np.zeros_like(sun), origin="obs",
-                          obj="sun")
-    toas.planet_pos = {}
-    if toas.planets:
-        pos = _all_positions_icrs(T())
-        toas.planet_pos = {p: pos[p] - earth for p in TOAs.PLANETS}
-    return toas
+    toas.ephem_provider = ephemeris_provider(toas.ephem, toas.tdb)
+    earth = objPosVel_wrt_SSB("earth", toas.tdb, toas.ephem,
+                              provider=toas.ephem_provider)
+    toas.ssb_obs = PosVel(earth.pos, earth.vel, origin="ssb", obj="obs")
+    return solar_system_posvels(toas, earth)
 
 
 def _iterate_zero_residuals(toas: TOAs, model, iterations=4, device="cuda"):
@@ -59,7 +47,7 @@ def _iterate_zero_residuals(toas: TOAs, model, iterations=4, device="cuda"):
     (reference: simulation.py internal zero_residual iteration)
     """
     for _ in range(iterations):
-        geocenter_posvels(toas, velocities=False)
+        geocenter_posvels(toas)
         prepared = model.prepare(toas, device=device)
         frac, _ = prepared.phase_frac_and_int()
         shift = (frac / prepared.params0["F"][0]).cpu().numpy()
@@ -86,8 +74,12 @@ def make_fake_toas_fromMJDs(mjds, model, error_us=1.0, freq_mhz=1400.0,
     day = np.floor(mjds).astype(np.int64)
     sec = (mjds - day) * SECS_PER_DAY
     base_flags = {"simulated": "1", **{k: str(v) for k, v in (flags or {}).items()}}
+    ephem = "de440s"
+    if "EPHEM" in model.params and model.EPHEM.value:
+        ephem = model.EPHEM.value.lower()
     toas = TOAs.from_arrays(day, sec, error_us=error_us, freq_mhz=freq_mhz,
-                            obs=obs, flags=[dict(base_flags) for _ in mjds])
+                            obs=obs, flags=[dict(base_flags) for _ in mjds],
+                            ephem=ephem)
     toas.planets = ("PLANET_SHAPIRO" in model.params
                     and bool(model.PLANET_SHAPIRO.value))
     _iterate_zero_residuals(toas, model, iterations=iterations, device=device)

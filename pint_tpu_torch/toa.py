@@ -7,9 +7,12 @@ positions — or whose observatory is one of the special locations of
 ``observatory/`` (the barycentre, the geocentre), which fill those
 columns themselves (``compute_posvels``). ``TOAs.to_batch(device)``
 packs them into a ``TOABatch`` of float64 tensors, the single
-host->device boundary. Tim-file parsing, clock chains, UTC->TDB and the
-ephemeris/observatory posvel pipeline of real observatories are host
-ingest and are not part of this package yet.
+host->device boundary. The special locations take the Sun, the Earth
+and the planets from the ephemeris tiers of ``ephemeris/`` (a real SPK
+kernel, the shipped numeph kernel, the analytic series), resolved once
+per table as the JAX package does. Tim-file parsing, clock chains,
+UTC->TDB and the posvels of real observatories are host ingest and are
+not part of this package yet.
 
 Per-TOA flags are lazy, as in the JAX package: a table built without
 flags (a photon table of millions of rows) stores no dicts, and
@@ -18,6 +21,7 @@ flags (a photon table of millions of rows) stores no dicts, and
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -53,7 +57,10 @@ class TOAs:
     """Host-side TOA table (reference: toa.py::TOAs), barycentred
     columns only. ``day``/``sec`` are the TOA epochs as given (what
     ``get_mjds`` reads, like the JAX package), ``tdb`` the TDB epochs,
-    ``ssb_obs``/``obs_sun`` the observatory and Sun positions."""
+    ``ssb_obs``/``obs_sun`` the observatory and Sun positions, ``ephem``
+    the ephemeris they come from and ``ephem_provider`` the tier that
+    served it ('spk', 'numeph' or 'analytic'; None until
+    ``compute_posvels`` runs)."""
 
     PLANETS = ("venus", "mars", "jupiter", "saturn", "uranus", "neptune")
 
@@ -67,6 +74,8 @@ class TOAs:
         self.weights: np.ndarray | None = None  # per-photon probabilities
         self.planets = False  # whether planet positions are wanted
         self.filename = None  # the file a loader read, if any
+        self.ephem = "de440s"
+        self.ephem_provider: str | None = None
         self.tdb: Epochs | None = None
         self.ssb_obs: PosVel | None = None
         self.obs_sun: PosVel | None = None
@@ -95,14 +104,17 @@ class TOAs:
     @classmethod
     def from_arrays(cls, day, sec, error_us=1.0, freq_mhz=np.inf,
                     obs="geocenter", flags=None, tdb=None, ssb_obs=None,
-                    obs_sun=None, planet_pos=None, weights=None) -> "TOAs":
+                    obs_sun=None, planet_pos=None, weights=None,
+                    ephem="de440s") -> "TOAs":
         """Vectorized constructor from barycentred columns: ``tdb`` an
         :class:`~pint_tpu_torch.mjd.Epochs`, ``ssb_obs``/``obs_sun``
         :class:`~pint_tpu_torch.utils.PosVel` (metres, m/s),
         ``planet_pos`` {name: (n, 3) metres wrt the observatory},
         ``flags`` a list of per-TOA dicts or None (no dicts are made),
-        ``weights`` per-photon probabilities or None."""
+        ``weights`` per-photon probabilities or None, ``ephem`` the
+        ephemeris name the posvels are (or will be) computed from."""
         t = cls()
+        t.ephem = ephem
         n = len(day)
         t.day = np.asarray(day, np.int64)
         t.sec = np.asarray(sec, np.float64)
@@ -135,6 +147,7 @@ class TOAs:
         self.ssb_obs = None
         self.obs_sun = None
         self.planet_pos = {}
+        self.ephem_provider = None
 
     def get_flag_value(self, flag: str, fill=""):
         return np.array([f.get(flag, fill) for f in self.flags], dtype=object)
@@ -207,7 +220,10 @@ class TOAs:
 def _concat(parts) -> TOAs:
     """One table of the rows ``index`` of each ``(toas, index)`` part,
     in order; a derived column (tdb, posvels, planets, weights) is
-    carried when every part has it, flags when any part has them."""
+    carried when every part has it, flags when any part has them; the
+    ephemeris name is the first part's, and the tier is kept when every
+    part's posvels came from one tier (else None, with a warning, as in
+    the JAX package's merge_TOAs)."""
     tabs = [t for t, _ in parts]
 
     def cat(get):
@@ -239,8 +255,17 @@ def _concat(parts) -> TOAs:
         error_us=cat(lambda t: t.error_us),
         freq_mhz=cat(lambda t: t.freq_mhz), obs=cat(lambda t: t.obs),
         flags=flags, tdb=tdb, ssb_obs=posvel("ssb_obs"),
-        obs_sun=posvel("obs_sun"), planet_pos=planet_pos, weights=weights)
+        obs_sun=posvel("obs_sun"), planet_pos=planet_pos, weights=weights,
+        ephem=tabs[0].ephem)
     out.planets = tabs[0].planets
+    if out.ssb_obs is not None:
+        providers = {t.ephem_provider for t in tabs}
+        if len(providers) > 1:
+            warnings.warn(f"merging TOAs computed under different "
+                          f"ephemeris tiers {sorted(map(str, providers))}; "
+                          "recompute posvels for a consistent dataset")
+        out.ephem_provider = (providers.pop() if len(providers) == 1
+                              else None)
     return out
 
 

@@ -494,6 +494,72 @@ def test_harmonic_sums_rows_equal_row_calls(weights):
             assert np.abs(s[i].numpy() - si.numpy()).max() <= tol
 
 
+# chip_smoke.py's K4 shapes (hm / hmw at 4M photons, z2m(m=4), the
+# 32-trial scan), then the card tests' edges: one photon, n % 4 != 0,
+# fewer photons than a wave of threads, 65535 one-photon rows, m above
+# one chunk
+K4_PLAN_SHAPES = [(1, 4_000_000, 20), (1, 4_000_000, 4), (32, 4_000_000, 20),
+                  (1, 1, 1), (1, 7, 2), (3, 4095, 4), (3, 8191, 5),
+                  (2, 70000, 33), (65535, 1, 1), (1, 25093, 8), (4, 9, 20)]
+
+
+@pytest.mark.parametrize("resident", [132, 264, 528])
+@pytest.mark.parametrize("weights", ["none", "shared", "per-row"])
+@pytest.mark.parametrize("g,n,m", K4_PLAN_SHAPES)
+def test_harmonic_plan_covers_each_photon_and_harmonic_once(g, n, m, weights,
+                                                            resident):
+    """K4's launch plan: the smallest instantiation that holds m (32 and
+    several chunks above 32), whose chunks cover harmonics 1..m once;
+    blocks per (row, chunk) never more than the row's quads need and
+    the grid one wave wherever the rows allow; the grid-stride loop over
+    whole quads of 4 photons and the one thread that takes the last n %
+    4 photons cover every photon of a row exactly once; 16-byte loads
+    exactly when every row of phases (and weights) starts on a 16-byte
+    boundary; the partial scratch (g, chunks, blocks, 2 chunk)."""
+    from pint_tpu_torch.kernels import harmonics as hs
+
+    w_ptr = None if weights == "none" else 1024
+    w_stride = n if weights == "per-row" else 0
+    plan = hs.harmonic_plan(g, n, m, 512, w_ptr, w_stride, resident)
+    assert len(plan) == len(hs.PlanArray())
+    pg, pn, pm, kc, nchunks, nb, vec, ws = plan
+    assert (pg, pn, pm, ws) == (g, n, m, w_stride)
+    assert kc in hs.CHUNKS
+    if m <= max(hs.CHUNKS):
+        assert kc >= m and all(c < m for c in hs.CHUNKS if c < kc)
+        assert nchunks == 1
+    else:
+        assert kc == max(hs.CHUNKS)
+    k = np.zeros(m, dtype=int)
+    for chunk in range(nchunks):  # harmonics.cu: j < min(KC, m - k0)
+        for j in range(min(kc, m - chunk * kc)):
+            k[chunk * kc + j] += 1
+    assert (k == 1).all()
+    need = -(-(-(-n // hs.PHOTONS)) // hs.THREADS)
+    assert 1 <= nb <= need
+    assert g * nchunks * nb <= max(resident, g * nchunks)
+    if need * g * nchunks <= resident:
+        assert nb == need
+    stride = nb * hs.THREADS
+    nq = n // hs.PHOTONS
+    if n <= 100_000:  # the kernel's loop, thread by thread
+        seen = np.zeros(n, dtype=int)
+        for lin in range(stride):
+            for q in range(lin, nq, stride):
+                seen[hs.PHOTONS * q:hs.PHOTONS * (q + 1)] += 1
+            if lin == nq % stride:
+                seen[nq * hs.PHOTONS:] += 1
+        assert (seen == 1).all()
+    rows_aligned = g == 1 or n % hs.PHOTONS == 0
+    assert vec == int(rows_aligned)
+    assert hs.harmonic_plan(g, n, m, 516, w_ptr, w_stride, resident)[6] == 0
+    if w_ptr is not None:
+        assert hs.harmonic_plan(g, n, m, 512, 1028, w_stride,
+                                resident)[6] == 0
+    assert hs.partial_floats(plan) == g * nchunks * nb * 2 * kc
+    assert hs.harmonic_plan(g, n, m, 512, w_ptr, w_stride, resident) == plan
+
+
 def test_harmonic_sums_cuda_refuses_cpu_tensors():
     from pint_tpu_torch.kernels.harmonics import harmonic_sums_cuda
 
@@ -505,12 +571,15 @@ def test_harmonic_sums_cuda_refuses_cpu_tensors():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [1, 3])
-@pytest.mark.parametrize("m", [1, 5, 20, 33])
-@pytest.mark.parametrize("n", [1, 8191, 8192 * 3 + 517, 4_000_000])
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 20, 33])
+@pytest.mark.parametrize("n", [1, 5, 4095, 8191, 8192 * 3 + 517, 4_000_000])
 def test_harmonic_sums_on_card_match_plain(n, m, g):
     """K4 on the card against its plain f32 version, unweighted and
     weighted (per-row and shared weights), at the K4 tolerance; one
-    launch per call, two launches bitwise equal."""
+    launch per call, two launches bitwise equal. The instantiations the
+    photon path uses (m = 2, 4, 20) at their edges: one photon, n not a
+    multiple of the 4 photons a thread takes, fewer photons than a wave
+    of threads, rows that are not 16-byte aligned (g = 3, n % 4 != 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from pint_tpu_torch.kernels.harmonics import (harmonic_sums_cuda,
@@ -536,6 +605,79 @@ def test_harmonic_sums_on_card_match_plain(n, m, g):
             assert a.dtype == torch.float64 and a.is_cuda
             assert torch.equal(a, b)
             assert (a - r).abs().max().item() < _k4_tol(n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4, 20])
+def test_harmonic_sums_on_card_unaligned_rows(m):
+    """Phases and weights that start 4 bytes past a 16-byte boundary
+    take the 4-byte loads and give the plain version's sums; the same
+    values from aligned storage give bitwise the same result as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pint_tpu_torch.kernels import harmonics as hs
+
+    rng = np.random.default_rng(m)
+    n = 70_000
+    buf = torch.as_tensor(rng.random((2, n + 1)), dtype=torch.float32,
+                          device="cuda")
+    ph, w = buf[0, 1:], buf[1, 1:]
+    assert ph.data_ptr() % 16 == 4 and not hs.copies_16_bytes(
+        1, n, ph.data_ptr())
+    for wt in (None, w):
+        out = hs.harmonic_sums_cuda(ph, m, wt)
+        ref = hs.harmonic_sums_plain(ph, m, wt)
+        aligned = hs.harmonic_sums_cuda(
+            ph.clone(), m, None if wt is None else wt.clone())
+        torch.cuda.synchronize()
+        for a, r, b in zip(out, ref, aligned):
+            assert (a - r).abs().max().item() < _k4_tol(n)
+            assert torch.equal(a, b)
+
+
+# the photon phases where the recurrence's ~k^2 amplification of an error
+# in cos(theta) is worst (theta near 0, pi/2, pi, 3 pi/2), and seeded ones
+def _rounding_phases(rng, rows):
+    near = [np.float32(c) + np.float32(2.0 ** -24) * rng.integers(
+        -2000, 2000, rows // 8) for c in (0.0, 0.25, 0.5, 0.75)]
+    ph = np.concatenate(near + [rng.random(rows)]).astype(np.float32)
+    return ph[(ph >= 0) & (ph < 1)][:rows]
+
+
+@pytest.mark.cuda
+def test_harmonic_c1_s1_correctly_rounded_on_card():
+    """Through the public entry: 65,535 rows of one photon at m = 1, so
+    each row's C_1 and S_1 are that photon's f32 cos(theta) and
+    sin(theta), exactly, in f64. They equal the plain version's
+    correctly rounded values (f64 cos/sin rounded to f32), seeded phases
+    in [0, 1) and phases within 2000 f32 steps of 0, 1/4, 1/2 and 3/4.
+    Each side takes its f64 value from a different routine, so a
+    double-rounding tie (an f64 value within an ulp of an f32 rounding
+    boundary, ~1 in 2^28 values) may round the two apart: at most 2 of
+    the 131,070 values may differ, by one f32 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pint_tpu_torch.kernels.harmonics import (harmonic_sums_cuda,
+                                                  harmonic_sums_plain)
+
+    rows = 65535
+    ph = _rounding_phases(np.random.default_rng(12), rows)
+    assert len(ph) == rows
+    x = torch.as_tensor(ph, device="cuda").reshape(rows, 1)
+    c, s = harmonic_sums_cuda(x, 1)
+    pc, ps = harmonic_sums_plain(x, 1)
+    torch.cuda.synchronize()
+    assert c.shape == s.shape == (rows, 1)
+    differ = 0
+    for a, b in ((c, pc), (s, ps)):
+        a32 = a.to(torch.float32)
+        assert torch.equal(a32.double(), a)  # an f32 value, exactly
+        bad = a32 != b.to(torch.float32)
+        differ += int(bad.sum())
+        ulps = (a32[bad].view(torch.int32) - b.to(torch.float32)[bad]
+                .view(torch.int32)).abs()
+        assert bool((ulps <= 1).all())
+    assert differ <= 2
 
 
 @pytest.mark.cuda

@@ -16,13 +16,12 @@ Tolerances:
 - Phase on barycentred event TOAs with the JAX package's posvels (the
   ``port_toas`` adapter of test_torch_models.py): ``int_`` equal,
   ``frac`` 1e-9 cycles, test_torch_models.py's tier.
-- With the port's own barycentre posvels the Sun comes from the
-  analytic ephemeris (``ephemeris/analytic.py``), not the JAX package's
-  SPK tier, which moves the solar Shapiro delay (ROADMAP §3). That path
-  is held to 5e-8 cycles, and its gap must stay above 1e-9 cycles: a
-  smaller one means the substitution is gone and the tier can tighten.
-  The photonphase script is held to 1e-9 cycles and H to 1e-12 with
-  the JAX Sun handed to the port, and to that 5e-8 without it.
+- With the port's own barycentre posvels, which take the Sun from the
+  same ephemeris tier as the JAX package (the shipped numeph kernel,
+  read by each package's own SPK reader), the Sun is bitwise the JAX
+  package's (held to 1e-6 m) and the phase meets the same 1e-9-cycle
+  tier. The photonphase script is held to 1e-9 cycles and H to 1e-12
+  with the JAX Sun handed to the port, and to 1e-9 cycles with its own.
 """
 
 import contextlib
@@ -234,9 +233,9 @@ def test_weights_and_lazy_flags_through_mask_and_merge():
 
 def test_barycentre_posvels_and_observatories():
     """``compute_posvels`` at the barycentre: TDB epochs as given,
-    ssb_obs exactly zero, obs_sun the analytic Sun; any other
+    ssb_obs exactly zero, obs_sun the Sun of the numeph tier; any other
     observatory raises."""
-    from pint_tpu_torch.ephemeris.analytic import earth_sun_icrs
+    from pint_tpu_torch.ephemeris import objPosVel_wrt_SSB
     from pint_tpu_torch.observatory import (BarycenterObs, GeocenterObs,
                                             get_observatory)
     from pint_tpu_torch.toa import TOAs
@@ -246,7 +245,7 @@ def test_barycentre_posvels_and_observatories():
     for name in ("geocenter", "coe"):
         assert isinstance(get_observatory(name), GeocenterObs)
     for name in ("gbt", "nicer", "fermi"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1"):
             get_observatory(name)
     day = np.full(5, 56700)
     sec = np.linspace(10.0, 8e4, 5)
@@ -255,7 +254,8 @@ def test_barycentre_posvels_and_observatories():
     np.testing.assert_array_equal(t.tdb.sec, sec)
     assert t.tdb.scale == "tdb"
     assert not np.any(t.ssb_obs.pos) and not np.any(t.ssb_obs.vel)
-    _, sun = earth_sun_icrs((t.tdb.mjd_float() - 51544.5) / 36525.0)
+    assert t.ephem_provider == "numeph"
+    sun = objPosVel_wrt_SSB("sun", t.tdb, provider="numeph").pos
     np.testing.assert_array_equal(t.obs_sun.pos, sun)
     assert 1e8 < np.linalg.norm(sun, axis=1).min()  # ~0.005 AU
     mixed = TOAs.from_arrays(np.full(2, 56700), np.zeros(2),
@@ -350,8 +350,11 @@ def test_phase_on_event_toas_matches(jax_event_toas):
     assert abs(h_t - h_j) <= 1e-9 * h_j
 
 
-def test_phase_with_port_posvels_within_the_sun_substitution(
-        event_file, jax_event_toas):
+def test_phase_with_port_posvels_matches_jax(event_file, jax_event_toas):
+    """The port's own barycentre posvels: the Sun from the numeph tier,
+    as the JAX package's ``compute_posvels`` takes it, to 1e-6 m (it is
+    bitwise), and the phase at the 1e-9-cycle tier with ``int_``
+    equal."""
     from pint_tpu.models import get_model as jget
     from pint_tpu_torch.event_toas import load_event_TOAs
     from pint_tpu_torch.models import get_model as tget
@@ -359,9 +362,10 @@ def test_phase_with_port_posvels_within_the_sun_substitution(
     jp = jget(PAR).phase(jax_event_toas)
     tt = load_event_TOAs(event_file, "nicer", weightcolumn="PSRPROB")
     tp = tget(PAR).phase(tt, device="cpu")
+    assert tt.ephem_provider == jax_event_toas.ephem_provider == "numeph"
+    assert np.abs(tt.obs_sun.pos - jax_event_toas.obs_sun.pos).max() <= 1e-6
     np.testing.assert_array_equal(tp.int_.numpy(), np.asarray(jp.int_))
-    gap = np.abs(tp.frac.numpy() - np.asarray(jp.frac)).max()
-    assert 1e-9 < gap <= 5e-8
+    assert np.abs(tp.frac.numpy() - np.asarray(jp.frac)).max() <= 1e-9
 
 
 def _pulsed(n, seed):
@@ -447,8 +451,8 @@ def test_photonphase_script_matches(event_file, jax_event_toas, tmp_path,
     """The port's photonphase on the CPU against the JAX script: with
     the JAX package's Sun handed to the port, the same printed H-test,
     H to 1e-12 and PULSE_PHASE to 1e-9 cycles; PULSE_NUMBER +
-    PULSE_PHASE equals the phase; with its own analytic Sun, within the
-    substitution's 5e-8 cycles."""
+    PULSE_PHASE equals the phase; with its own Sun (the numeph tier), to
+    1e-9 cycles as well."""
     from pint_tpu.io.fits import get_table as jget_table
     from pint_tpu.scripts.photonphase import main as jmain
     from pint_tpu_torch import observatory
@@ -472,7 +476,7 @@ def test_photonphase_script_matches(event_file, jax_event_toas, tmp_path,
                                   str(tmp_path / "own.fits")])
     assert rc == 0
     assert np.abs(tcols("own.fits")["PULSE_PHASE"]
-                  - jcols["PULSE_PHASE"]).max() <= 5e-8
+                  - jcols["PULSE_PHASE"]).max() <= 1e-9
     fill = observatory.BarycenterObs.fill_posvels
 
     def jax_sun(self, toas):
