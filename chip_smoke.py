@@ -5,20 +5,34 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's main path — the noise-marginalised GLS refit of a
-68-pulsar timing array (~670k TOAs, NANOGrav-15yr-like ragged counts)
-through ``PTAFleet(toa_bucket="plan").fit(method="gls", maxiter=2,
+It drives the port's main path — GBT TOAs read from tim files by
+``get_TOAs``, then the noise-marginalised GLS refit of a 68-pulsar
+timing array (~670k TOAs, NANOGrav-15yr-like ragged counts) through
+``PTAFleet(toa_bucket="plan").fit(method="gls", maxiter=2,
 precision="mixed")`` — then the GW detection stage on the fitted fleet,
 the streaming append lanes and the photon path, and checks each, in
 these phases:
 
 1. build the hand-written CUDA kernels from ``pint_tpu_torch/csrc``
-   (``gram.cu``, ``paircorr.cu`` and ``harmonics.cu``, one nvcc each,
-   started together);
-2. host prep: 68 pulsars of zero-residual geocentric TOAs (the bench
-   par template: EFAC/EQUAD/ECORR, power-law red noise with 30
-   harmonics, 4 TOAs per epoch at 800/1400 MHz), then the fleet's host
-   pack, both timed;
+   (``gram.cu``, ``paircorr.cu`` and ``harmonics.cu``, one nvcc each)
+   and the C++ host library (``host_kernels.cpp``, g++), all started
+   together;
+2. ``[ingest]``: 68 pulsars of zero-residual TOAs at GBT (the bench par
+   template: EFAC/EQUAD/ECORR, power-law red noise with 30 harmonics,
+   4 TOAs per epoch at 800/1400 MHz; each of 2 passes runs clock chain
+   -> UTC->TDB with the GCRS products -> posvels on the host and the
+   phase on the card), each written with ``write_TOA_file`` and read
+   back by ``get_TOAs(path, model=m, usepickle=True)``, then once more
+   from the pickle; each step timed. Checks: the read-back day, flags
+   and errors equal the written ones, |d sec| and |d TDB| <= 1e-11 s,
+   the TDB seconds the card is given within one ulp (1.46e-11 s),
+   the pickle hit equals the miss bitwise, the C++ host library served
+   the chain, and the zero-clock warning was given once. The fleet is
+   built from the read-back TOAs; its host pack is timed;
+   ``[ingest] ngc6440e``: the port's copy of the NGC6440E example
+   (SOLARN0 and CORRECT_TROPOSPHERE dropped: unported, zero delays)
+   through ``get_model`` -> ``get_TOAs`` -> ``Residuals`` on the card
+   with AbsPhase, held to the golden prefit residuals within 1e-3 us;
 3. an f64 fit at the true parameters gives each pulsar's sigma; every
    start vector is then moved 3 sigma off the truth;
 4. the main path: the mixed-precision fit, cold then warm, with the
@@ -131,10 +145,14 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
 import numpy as np
+
+# the checkout's pint_tpu_torch, whatever the working directory
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM
 # bandwidth and f32 FMA rate outside the tensor cores
@@ -203,9 +221,10 @@ def par_text(i):
 
 
 def build_pta(counts, device, seed=0, iterations=2):
-    """Models and zero-residual TOAs: epochs uniform over MJD
-    54000-57000, 4 TOAs per epoch 0.5 s apart, 1 us errors,
-    alternating 800/1400 MHz, all flagged -f L-wide."""
+    """Models and zero-residual TOAs at GBT (bench.py's site, the fake
+    maker's default): epochs uniform over MJD 54000-57000, 4 TOAs per
+    epoch 0.5 s apart, 1 us errors, alternating 800/1400 MHz, all
+    flagged -f L-wide."""
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
 
@@ -221,6 +240,195 @@ def build_pta(counts, device, seed=0, iterations=2):
             iterations=iterations, device=device))
         models.append(m)
     return models, toas
+
+
+INGEST_STEPS = (  # (owner module, attribute, label) timed in [ingest]
+    ("pint_tpu_torch.toa", "_read_tim_native", "parse (C++)"),
+    ("pint_tpu_torch.toa", "read_tim_file", "parse (Python)"),
+    ("pint_tpu_torch.toa:TOAs", "apply_clock_corrections", "clock chain"),
+    ("pint_tpu_torch.toa:TOAs", "compute_TDBs", "compute_TDBs"),
+    ("pint_tpu_torch.timescales", "utc_to_tdb", "  UTC->TDB"),
+    ("pint_tpu_torch.earth.erfa_lite", "gcrs_posvel_from_itrf",
+     "  GCRS products"),
+    ("pint_tpu_torch.toa:TOAs", "compute_posvels", "compute_posvels"),
+    ("pint_tpu_torch.toa", "save_pickle", "save_pickle"),
+)
+TOL_READBACK_S = 1e-11  # |d sec|, |d TDB| after the 16-digit MJD format
+TDB_SEC_ULP_S = 2.0 ** -36  # one ulp of f64 seconds in [65536, 86400)
+NGC_DROPPED = ("SOLARN0", "CORRECT_TROPOSPHERE")  # unported, zero delays
+
+
+def ingest_timers():
+    """Timers over the host chain's steps (``INGEST_STEPS``)."""
+    import importlib
+
+    timers = Timers()
+    for owner, attr, label in INGEST_STEPS:
+        mod, _, cls = owner.partition(":")
+        obj = importlib.import_module(mod)
+        timers.patch(getattr(obj, cls) if cls else obj, attr, label)
+    return timers
+
+
+def log_steps(tag, timers):
+    for _, _, label in INGEST_STEPS:
+        if label in timers.total:
+            log(f"{tag}   {label}: {timers.total[label]:.3f} s "
+                f"({timers.calls[label]} calls)")
+
+
+def ingest(counts, tmp, device="cuda"):
+    """``[ingest]``: the main path's TOAs made, written and read back
+    through the normal entry point. 68 pulsars of zero-residual GBT
+    TOAs (``build_pta``), each written with ``write_TOA_file`` into
+    ``tmp``, then read by ``get_TOAs(path, model=m, usepickle=True)``
+    (parse, clock chain, TDB with the GCRS products, posvels, the pickle
+    written) and once more from the pickle. Prints each step's wall and
+    checks the read-back against what was written, the pickle hit
+    against the miss, the C++ host library in use and the zero-clock
+    warning given once. Returns the models and the read-back TOAs."""
+    from pint_tpu_torch import native
+    from pint_tpu_torch.toa import get_TOAs
+
+    with warnings.catch_warnings(record=True) as wl:
+        warnings.simplefilter("always")
+        timers = ingest_timers()
+        t0 = time.perf_counter()
+        try:
+            models, made = build_pta(counts, device)
+        finally:
+            timers.restore()
+        make_s = time.perf_counter() - t0
+        n_toa = sum(len(t) for t in made)
+        log(f"[ingest] fake TOAs: {len(models)} pulsars, {n_toa} "
+            f"zero-residual GBT TOAs (2 phase passes on the card, 3 host "
+            f"chains) in {make_s:.2f} s; host chain:")
+        log_steps("[ingest]", timers)
+        t0 = time.perf_counter()
+        paths = []
+        for i, t in enumerate(made):
+            paths.append(os.path.join(tmp, f"psr{i:02d}.tim"))
+            t.write_TOA_file(paths[-1])
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(p) for p in paths)
+        log(f"[ingest] write_TOA_file: {len(paths)} tim files, "
+            f"{size / 1e6:.1f} MB in {write_s:.2f} s")
+        timers = ingest_timers()
+        t0 = time.perf_counter()
+        try:
+            toas = [get_TOAs(p, model=m, usepickle=True)
+                    for p, m in zip(paths, models)]
+        finally:
+            timers.restore()
+        read_s = time.perf_counter() - t0
+        log(f"[ingest] get_TOAs(usepickle=True), a miss: {read_s:.2f} s:")
+        log_steps("[ingest]", timers)
+        t0 = time.perf_counter()
+        for t in toas:
+            t.flags
+        flags_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hits = [get_TOAs(p, model=m, usepickle=True)
+                for p, m in zip(paths, models)]
+        hit_s = time.perf_counter() - t0
+    n_warn = sum("no clock files found" in str(w.message) for w in wl)
+    log(f"[ingest] flags decoded in {flags_s:.2f} s; get_TOAs pickle hit "
+        f"{hit_s:.2f} s; C++ host library loaded: {native.loaded()} "
+        f"({native.library_path()}); zero-clock warnings: {n_warn}")
+
+    def same_flags(written, read):
+        return (all(f.get("name") == "pint_tpu" for f in read)
+                and [{k: v for k, v in f.items() if k != "name"}
+                     for f in read] == written)
+
+    dsec = max(float(np.abs(a.sec - b.sec).max()) for a, b in zip(made, toas))
+
+    def dtdb(a, b, lo):
+        d = (a.tdb.day - b.tdb.day) * 86400.0 + (a.tdb.sec - b.tdb.sec)
+        return float(np.abs(d + (a.tdb.lo - b.tdb.lo if lo else 0.0)).max())
+
+    # the TDB instant is day + sec + lo (mjd.Epochs); its f64 seconds
+    # alone, which to_batch ships to the card, sit on a grid of 1.46e-11 s
+    # above 65536 s, coarser than the 16-digit MJD format, and may move
+    # by one ulp
+    dtdb_lo = max(dtdb(a, b, True) for a, b in zip(made, toas))
+    dtdb_sec = max(dtdb(a, b, False) for a, b in zip(made, toas))
+    log(f"[ingest] read-back vs written: max |d sec| {dsec:.3e} s, max "
+        f"|d TDB| {dtdb_lo:.3e} s (the instant, sec + lo; the f64 "
+        f"seconds alone {dtdb_sec:.3e} s); ephemeris tier "
+        f"{sorted({t.ephem_provider for t in toas})}")
+
+    def same(a, b):
+        cols = ("day", "sec", "error_us", "freq_mhz", "clock_corr_s")
+        return (all(np.array_equal(getattr(a, c), getattr(b, c))
+                    for c in cols)
+                and all(np.array_equal(getattr(a.tdb, c), getattr(b.tdb, c))
+                        for c in ("day", "sec", "lo"))
+                and np.array_equal(a.ssb_obs.pos, b.ssb_obs.pos)
+                and np.array_equal(a.ssb_obs.vel, b.ssb_obs.vel)
+                and np.array_equal(a.obs_sun.pos, b.obs_sun.pos)
+                and list(a.obs) == list(b.obs) and a.flags == b.flags)
+
+    check("ingest", {
+        "read-back day equals the written": all(
+            np.array_equal(a.day, b.day) for a, b in zip(made, toas)),
+        "read-back errors equal the written": all(
+            np.array_equal(a.error_us, b.error_us)
+            for a, b in zip(made, toas)),
+        "read-back flags equal the written": all(
+            same_flags(a.flags, b.flags) for a, b in zip(made, toas)),
+        "|d sec| <= 1e-11 s": dsec <= TOL_READBACK_S,
+        "|d TDB| <= 1e-11 s": dtdb_lo <= TOL_READBACK_S,
+        "|d TDB seconds| <= one ulp (1.46e-11 s)": dtdb_sec <= TDB_SEC_ULP_S,
+        "all GBT": all(set(t.obs) == {"gbt"} for t in toas),
+        "pickle hit equals the miss": all(
+            h is not t and same(h, t) for h, t in zip(hits, toas)),
+        "C++ host library loaded": native.loaded(),
+        "zero-clock warning given once": n_warn == 1,
+    })
+    return models, toas
+
+
+def ingest_ngc6440e(device="cuda"):
+    """``[ingest] ngc6440e``: the port's copy of the NGC6440E example
+    (62 GBT TOAs, AbsPhase at TZRSITE 1) through get_model -> get_TOAs
+    -> Residuals on the card, held to the port's copy of the prefit
+    golden residuals within 1e-3 us. The par file drops SOLARN0 and
+    CORRECT_TROPOSPHERE, whose components are not ported and whose
+    delays are exactly zero at these values."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.toa import get_TOAs
+
+    ex = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "pint_tpu_torch", "data", "examples")
+    with open(os.path.join(ex, "NGC6440E.par")) as f:
+        par = "".join(line for line in f
+                      if not line.startswith(NGC_DROPPED))
+    golden = np.load(os.path.join(ex, "NGC6440E_prefit_resids_us.npy"))
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m = get_model(par)
+        t = get_TOAs(os.path.join(ex, "NGC6440E.tim"), model=m)
+        r = Residuals(t, m, device=device)
+        resid_us = r.time_resids * 1e6
+    wall = time.perf_counter() - t0
+    dev = float(np.abs(resid_us - golden).max()) if (
+        resid_us.shape == golden.shape) else np.inf
+    log(f"[ingest] ngc6440e: {len(t)} TOAs, components "
+        f"{list(m.components)}, residuals on {r.prepared.device} in "
+        f"{wall:.2f} s; weighted rms {r.rms_weighted() * 1e6:.6f} us; max "
+        f"|resid - golden| {dev:.3e} us; chi2 {r.chi2:.6f}, dof {r.dof}")
+    check("ingest ngc6440e", {
+        "AbsPhase in the model": "AbsPhase" in m.components,
+        "residuals on the requested device":
+            r.prepared.device.type == device,
+        "finite residuals of the golden's shape":
+            resid_us.shape == golden.shape
+            and bool(np.all(np.isfinite(resid_us))),
+        "|resid - golden| <= 1e-3 us": dev <= 1e-3,
+    })
 
 
 def truth_vectors(fleet, models):
@@ -1472,7 +1680,7 @@ def run():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pint_tpu_torch import native
     from pint_tpu_torch.kernels import build
     from pint_tpu_torch.kernels.fusedgls import (fused_block_gls_cuda,
                                                  fused_block_gls_plain)
@@ -1486,10 +1694,18 @@ def run():
         f"{torch.backends.cuda.matmul.allow_tf32}")
 
     t0 = time.perf_counter()
+    host_build = []
+    host = threading.Thread(target=lambda: host_build.append(
+        (native.get_lib(), time.perf_counter() - t0)))
+    host.start()  # g++ beside the three nvcc builds
     build.load_all(["gram", "paircorr", "harmonics"])
+    host.join()
     log(f"[build] csrc/gram.cu, csrc/paircorr.cu and csrc/harmonics.cu "
-        f"built (one nvcc each, started together) and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"(one nvcc each) and csrc/host_kernels.cpp (g++), all started "
+        f"together, built and loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] csrc/host_kernels.cpp: g++ {host_build[0][1]:.2f} s, "
+        f"loaded: {host_build[0][0] is not None} "
+        f"{native.BUILD_ERROR}".rstrip())
     for name, tag in (("gram", "[build]"), ("paircorr", "[gw] build"),
                       ("harmonics", "[photon] build")):
         info = build.BUILD_INFO[name]
@@ -1501,11 +1717,13 @@ def run():
 
     counts = ragged_counts()
     t0 = time.perf_counter()
-    models, toas = build_pta(counts, "cuda")
-    host_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        models, toas = ingest(counts, tmp)
+    ingest_s = time.perf_counter() - t0
     n_toa = sum(len(t) for t in toas)
-    log(f"[host] {len(models)} pulsars, {n_toa} TOAs of zero-residual "
-        f"geocentric TOAs in {host_s:.2f} s")
+    log(f"[host] {len(models)} pulsars, {n_toa} GBT TOAs made, written "
+        f"and read back by get_TOAs in {ingest_s:.2f} s")
+    ingest_ngc6440e()
     t0 = time.perf_counter()
     fleet = PTAFleet(models, toas, toa_bucket="plan", device="cuda")
     torch.cuda.synchronize()
@@ -1636,7 +1854,6 @@ def compare_designs(old_dir):
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pint_tpu_torch.kernels import build, harmonics, paircorr
     from pint_tpu_torch.kernels.fusedgls import (fused_block_gls_cuda,
                                                  fused_block_gls_plain)

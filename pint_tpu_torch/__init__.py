@@ -31,6 +31,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+__version__ = "0.2.0"  # the JAX package's version this port mirrors
+
 DTYPE = torch.float64
 
 

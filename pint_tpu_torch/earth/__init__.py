@@ -1,1 +1,1 @@
-"""Earth-orientation helpers the analytic ephemeris needs (host numpy)."""
+from .erfa_lite import gcrs_posvel_from_itrf, itrf_to_gcrs_matrix  # noqa: F401

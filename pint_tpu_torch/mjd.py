@@ -146,18 +146,28 @@ def parse_mjd_string(s: str) -> tuple[int, float]:
     return day, sec
 
 
+def format_mjds(day, sec, ndigits: int = 16) -> list[str]:
+    """Format arrays of (day, sec) as decimal MJD strings with ndigits
+    fractional digits (longdouble arithmetic; seconds past a day carry
+    into the day, and so does a fraction that rounds up to 1)."""
+    day = np.asarray(day, np.int64)
+    frac = LD(np.asarray(sec, np.float64)) / LD(SECS_PER_DAY)
+    carry = frac >= 1
+    if carry.any():
+        whole = np.floor(frac)
+        day = np.where(carry, day + whole.astype(np.int64), day)
+        frac = np.where(carry, frac - whole, frac)
+    scaled = np.rint(frac * LD(10) ** ndigits).astype(np.int64)
+    over = scaled >= 10**ndigits
+    scaled = np.where(over, scaled - 10**ndigits, scaled)
+    day = np.where(over, day + 1, day)
+    return [f"{d}.{s:0{ndigits}d}" for d, s in zip(day.tolist(),
+                                                    scaled.tolist())]
+
+
 def format_mjd(day: int, sec: float, ndigits: int = 16) -> str:
     """Format (day, sec) as a decimal MJD string with ndigits fractional digits."""
-    frac = LD(sec) / LD(SECS_PER_DAY)
-    # handle carry
-    if frac >= 1:
-        day += int(np.floor(float(frac)))
-        frac = frac - np.floor(frac)
-    scaled = int(np.rint(frac * LD(10) ** ndigits))
-    if scaled >= 10**ndigits:
-        scaled -= 10**ndigits
-        day += 1
-    return f"{day}.{scaled:0{ndigits}d}"
+    return format_mjds([day], [sec], ndigits)[0]
 
 
 def mjd_to_caldate(mjd: int) -> tuple[int, int, int]:

@@ -31,7 +31,7 @@ class Astrometry(DelayComponent):
     category = "astrometry"
     order = 10
 
-    def pack(self, model, toas, prep, params0):
+    def pack(self, model, toas, prep, params0, device=None):
         # seconds since POSEPOCH for proper motion (f64 is ample)
         pe = getattr(self, "POSEPOCH", None)
         if pe is not None and pe.day is not None:
@@ -125,8 +125,8 @@ class AstrometryEcliptic(Astrometry):
         name = (self.ECL.value or "IERS2010").upper()
         return OBLIQUITY_ARCSEC.get(name, OBLIQUITY_ARCSEC["DEFAULT"]) * ARCSEC_TO_RAD
 
-    def pack(self, model, toas, prep, params0):
-        super().pack(model, toas, prep, params0)
+    def pack(self, model, toas, prep, params0, device=None):
+        super().pack(model, toas, prep, params0, device)
         prep["obliquity"] = self.obliquity_rad()
 
     def ssb_to_psb_xyz(self, params, prep):

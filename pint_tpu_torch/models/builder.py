@@ -18,6 +18,7 @@ import re
 import warnings
 
 from ..utils import interesting_lines
+from .absolute_phase import AbsPhase
 from .astrometry import AstrometryEcliptic, AstrometryEquatorial
 from .dispersion import DispersionDM
 from .noise import EcorrNoise, PLRedNoise, ScaleToaError
@@ -73,7 +74,6 @@ def _unported_components(keys, repeats):
         ("FDJump", any(_FDJUMP_RE.match(c) for c in rep)),
         ("DispersionJump", "DMJUMP" in rep),
         ("binary model", "BINARY" in keys),
-        ("AbsPhase", "TZRMJD" in keys),
         ("PLDMNoise", has(lambda k: k.startswith("TNDM"))),
         ("DMWaveX", has(lambda k: k.startswith("DMWXFREQ_"))),
         ("ChromaticCM", "CM" in keys or "CM1" in keys or "TNCHROMIDX" in keys
@@ -104,7 +104,8 @@ def parse_parfile(parfile) -> list[tuple[str, list[str]]]:
 def get_model(parfile) -> TimingModel:
     """(reference: model_builder.py::get_model) for the ported
     components: Spindown, AstrometryEquatorial/Ecliptic, DispersionDM,
-    SolarSystemShapiro, ScaleToaError, EcorrNoise and PLRedNoise."""
+    SolarSystemShapiro, AbsPhase, ScaleToaError, EcorrNoise and
+    PLRedNoise."""
     entries = parse_parfile(parfile)
     keys = {}
     repeats = []
@@ -132,6 +133,8 @@ def get_model(parfile) -> TimingModel:
     if "DM" in keys or "DM1" in keys:
         model.add_component(DispersionDM())
     model.add_component(SolarSystemShapiro())
+    if "TZRMJD" in keys:
+        model.add_component(AbsPhase())
     rep = {c for c, _ in repeats}
     if rep & {"EFAC", "EQUAD", "DMEFAC", "DMEQUAD", "TNEQ", "TNGLOBALEQ"}:
         model.add_component(ScaleToaError())

@@ -47,7 +47,7 @@ class DispersionDM(DelayComponent):
             return "DM", 0
         return "DM", int(pname[2:])
 
-    def pack(self, model, toas, prep, params0):
+    def pack(self, model, toas, prep, params0, device=None):
         vals = np.array([getattr(self, f"DM{i}" if i else "DM").value or 0.0
                          for i in range(self.n_terms())], dtype=np.float64)
         params0["DM"] = vals

@@ -61,7 +61,7 @@ class ScaleToaError(NoiseComponent):
                 return kind, ids.index(int(pname[len(kind):]))
         raise KeyError(pname)
 
-    def pack(self, model, toas, prep, params0):
+    def pack(self, model, toas, prep, params0, device=None):
         for kind in ("EFAC", "EQUAD", "DMEFAC", "DMEQUAD"):
             ids = getattr(self, f"{kind.lower()}_ids")
             default = 1.0 if "FAC" in kind else 0.0
@@ -126,7 +126,7 @@ class EcorrNoise(NoiseComponent):
     def device_slot(self, pname):
         return "ECORR", self.ecorr_ids.index(int(pname[5:]))
 
-    def pack(self, model, toas, prep, params0):
+    def pack(self, model, toas, prep, params0, device=None):
         params0["ECORR"] = np.array([getattr(self, f"ECORR{i}").value or 0.0
                                      for i in self.ecorr_ids])
         mjds = toas.get_mjds()
@@ -237,7 +237,7 @@ class PLRedNoise(NoiseComponent):
     def n_harmonics(self):
         return int(self.TNREDC.value or 30)
 
-    def pack(self, model, toas, prep, params0):
+    def pack(self, model, toas, prep, params0, device=None):
         F, freqs, tspan_s = fourier_basis(toas, self.n_harmonics())
         prep["rn_F"] = F
         prep["rn_freqs"] = freqs

@@ -30,7 +30,7 @@ class SolarSystemShapiro(DelayComponent):
     def device_slot(self, pname):
         raise KeyError(pname)  # no fittable params
 
-    def pack(self, model, toas, prep, params0):
+    def pack(self, model, toas, prep, params0, device=None):
         prep["planet_shapiro"] = bool(self.PLANET_SHAPIRO.value) and bool(toas.planet_pos)
 
     @staticmethod

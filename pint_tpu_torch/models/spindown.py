@@ -57,7 +57,7 @@ class Spindown(PhaseComponent):
 
     # ---- host pack ----
 
-    def pack(self, model, toas, prep, params0):
+    def pack(self, model, toas, prep, params0, device=None):
         F_ref = self.fvalues()
         params0["F"] = F_ref.copy()
         prep["F_ref"] = F_ref.copy()

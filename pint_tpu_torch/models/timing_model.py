@@ -66,8 +66,10 @@ class Component:
         pass
 
     # --- device hooks ---
-    def pack(self, model, toas, prep: dict, params0: dict):
-        """Host-side: add numpy arrays to prep, values to params0."""
+    def pack(self, model, toas, prep: dict, params0: dict, device=None):
+        """Host-side: add numpy arrays to prep, values to params0.
+        ``device`` is the prepare's, for a pack that itself evaluates
+        the model there (AbsPhase's TZR phase)."""
 
     def delay(self, params, batch, prep, delay_accum):
         """Device: delay seconds added by this component."""
@@ -101,6 +103,9 @@ class TimingModel:
     def add_component(self, comp: Component):
         comp._parent = self
         self.components[type(comp).__name__] = comp
+
+    def remove_component(self, name: str):
+        del self.components[name]
 
     def add_top_param(self, par: Parameter):
         self._top[par.name] = par
@@ -268,7 +273,7 @@ class PreparedTiming:
         prep["T_lo"] = t_lo
         prep["T_ld"] = LD(t_hi) + LD(t_lo)  # host-side longdouble copy
         for comp in model.components.values():
-            comp.pack(model, toas, prep, params0)
+            comp.pack(model, toas, prep, params0, device=dev)
         if "phi_ref_int" not in prep:
             prep["phi_ref_int"] = np.zeros_like(t_hi)
         # one move of the packed tree (the JAX package's CPU staging +

@@ -1,120 +1,178 @@
-"""Observatories of the port (torch package; host numpy).
+"""Observatory registry: sites, clock chains, positions (host numpy).
 
-Counterpart of the JAX package's ``observatory/__init__.py``, for the
-two special locations whose TOAs need no clock chain and no Earth
-rotation:
+Counterpart of the JAX package's ``observatory/__init__.py``
+(reference: src/pint/observatory/__init__.py::Observatory/get_observatory,
+observatory/topo_obs.py::TopoObs, observatory/special_locations.py).
 
-- :class:`BarycenterObs` (``barycenter``, ``@``, ``bat``, ``ssb``):
-  TOAs already at the solar-system barycentre, in TDB (barycentred
-  photon events). The observatory is the SSB itself.
-- :class:`GeocenterObs` (``geocenter``, ``coe``): the Earth's centre,
-  whose TOAs ``simulation.py`` makes and fills.
-
-Both take the Sun, the Earth and the planets from the ephemeris tiers
-of ``ephemeris/`` (``objPosVel_wrt_SSB`` under the tier that
-``ephemeris_provider`` resolves once for the table, as the JAX
-package's ``TOAs.compute_posvels`` does). Every other observatory (a
-radio telescope, a mission's satellite observatory with its orbit file)
-is host ingest — clock chains, the UTC->TDB chain, Earth rotation, the
-orbit interpolation — and :func:`get_observatory` raises
-``NotImplementedError`` for it.
+Ground stations carry published ITRF XYZ (the port's copy of
+``data/observatories.json``) and a clock-chain spec; the special
+locations (the barycentre, the geocentre) override ``posvel_ssb``.
+Clock corrections come from tempo/tempo2-format files in
+``data/clock/`` or ``$PINT_TPU_CLOCK_DIR`` (none are bundled); a site
+whose files are missing gets a zero correction, with a warning given
+once. ``TOAs.compute_posvels`` loops over a table's observatories and
+calls ``posvel_ssb`` for each, under the ephemeris tier resolved once
+for the table.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import warnings
+
 import numpy as np
 
-from ..ephemeris import ephemeris_provider, objPosVel_wrt_SSB
+from ..earth import gcrs_posvel_from_itrf
+from ..ephemeris import objPosVel_wrt_SSB
 from ..mjd import Epochs
 from ..utils import PosVel
+from .clock_file import ClockFile, find_clock_file
 
-HOST_INGEST = ("host ingest (clock chains, UTC->TDB, Earth rotation and "
-               "observatory or orbit-file posvels; ROADMAP §1 item 1) is not "
-               "ported")
-
-
-def solar_system_posvels(toas, earth=None):
-    """``toas.ephem_provider``, ``obs_sun`` and ``planet_pos`` for an
-    observatory at ``earth`` (a PosVel wrt the SSB, or None for the SSB
-    itself) at the table's TDB epochs: the tier resolved once on every
-    epoch, then the Sun (and, when ``toas.planets``, the planets) from
-    it, relative to the observatory (JAX ``toa.py::compute_posvels``).
-    The Sun's velocity is zero, as in the JAX package."""
-    tdb = toas.tdb
-    toas.ephem_provider = ephemeris_provider(toas.ephem, tdb)
-    obs = 0.0 if earth is None else earth.pos
-    sun = objPosVel_wrt_SSB("sun", tdb, toas.ephem,
-                            provider=toas.ephem_provider).pos - obs
-    toas.obs_sun = PosVel(sun, np.zeros_like(sun), origin="obs", obj="sun")
-    toas.planet_pos = {}
-    if toas.planets:
-        toas.planet_pos = {
-            p: objPosVel_wrt_SSB(p, tdb, toas.ephem,
-                                 provider=toas.ephem_provider).pos - obs
-            for p in toas.PLANETS}
-    return toas
+_registry: dict[str, "Observatory"] = {}
+_alias_map: dict[str, str] = {}
 
 
 class Observatory:
-    name = ""
-    aliases: tuple = ()
+    """Base observatory (reference: observatory/__init__.py::Observatory)."""
 
-    def fill_posvels(self, toas):
+    def __init__(self, name: str, aliases=()):
+        self.name = name.lower()
+        self.aliases = tuple(a.lower() for a in aliases)
+        _registry[self.name] = self
+        for a in self.aliases:
+            _alias_map[a] = self.name
+
+    def clock_corrections(self, utc: Epochs, include_gps=True,
+                          include_bipm=True, bipm_version="BIPM2019",
+                          limits="warn") -> np.ndarray:
+        """Seconds to ADD to raw topocentric UTC TOAs."""
+        return np.zeros(len(utc))
+
+    def posvel_ssb(self, tdb: Epochs, utc: Epochs, ephem: str,
+                   provider: str | None = None, gcrs=None) -> PosVel:
         raise NotImplementedError
+
+    @property
+    def timescale(self):
+        return "utc"
+
+
+class TopoObs(Observatory):
+    """Ground telescope with ITRF XYZ (reference: topo_obs.py::TopoObs)."""
+
+    def __init__(self, name, itrf_xyz, aliases=(), clock_files=(),
+                 clock_fmt="tempo2", origin=""):
+        super().__init__(name, aliases)
+        self.itrf_xyz = np.asarray(itrf_xyz, dtype=np.float64)
+        self.clock_files = tuple(clock_files)
+        self.clock_fmt = clock_fmt
+        self.origin = origin
+        self._clock: list[ClockFile] | None = None
+        self._warned = False
+
+    def _load_clock(self):
+        if self._clock is None:
+            self._clock = []
+            for fname in self.clock_files:
+                cf = find_clock_file(fname, self.clock_fmt)
+                if cf is not None:
+                    self._clock.append(cf)
+        return self._clock
+
+    def clock_corrections(self, utc: Epochs, include_gps=True,
+                          include_bipm=True, bipm_version="BIPM2019",
+                          limits="warn") -> np.ndarray:
+        corr = np.zeros(len(utc))
+        chain = self._load_clock()
+        if self.clock_files and not chain and not self._warned:
+            warnings.warn(
+                f"no clock files found for {self.name} "
+                f"({self.clock_files}); proceeding with zero site-clock "
+                "correction — drop files into pint_tpu_torch/data/clock/ "
+                "for real chains")
+            self._warned = True
+        for cf in chain:
+            corr += cf.evaluate(utc, limits=limits)
+        if include_gps:
+            gps = find_clock_file("gps2utc.clk", "tempo2")
+            if gps is not None:
+                corr += gps.evaluate(utc, limits=limits)
+        if include_bipm:
+            fname = f"tai2tt_{bipm_version.lower()}.clk"
+            bipm = find_clock_file(fname, "tempo2")
+            if bipm is not None:
+                # the file gives TT(BIPM)-TT(TAI); the constant 32.184
+                # is already applied in the TAI->TT step
+                corr += bipm.evaluate(utc, limits=limits) - 32.184
+        return corr
+
+    def posvel_ssb(self, tdb: Epochs, utc: Epochs, ephem: str,
+                   provider: str | None = None, gcrs=None) -> PosVel:
+        earth = objPosVel_wrt_SSB("earth", tdb, ephem, provider=provider)
+        # gcrs: (pos, vel) from the topocentric-TDB step at the same
+        # epochs, which saves a second precession/nutation chain
+        gpos, gvel = (gcrs if gcrs is not None
+                      else gcrs_posvel_from_itrf(self.itrf_xyz, utc))
+        return PosVel(earth.pos + gpos, earth.vel + gvel, origin="ssb",
+                      obj=self.name)
 
 
 class BarycenterObs(Observatory):
-    """@ / bat / ssb: TOAs already at the SSB (reference:
-    special_locations.py; JAX ``observatory/__init__.py::
-    BarycenterObs``)."""
+    """@ / bat: TOAs already at the SSB, in TDB (reference:
+    special_locations.py)."""
 
-    name = "barycenter"
-    aliases = ("@", "bat", "ssb", "barycentre")
-    timescale = "tdb"
+    @property
+    def timescale(self):
+        return "tdb"
 
-    def fill_posvels(self, toas):
-        """``tdb`` the epochs as given (TDB, the JAX package's
-        ``compute_TDBs`` for a TDB observatory), ``ssb_obs`` exactly
-        zero, and the Sun and planets from the ephemeris tier
-        (:func:`solar_system_posvels`)."""
-        norm = Epochs(toas.day, toas.sec, "utc").normalized()
-        toas.tdb = Epochs(norm.day, norm.sec, "tdb")
-        zero = np.zeros((len(toas), 3))
-        toas.ssb_obs = PosVel(zero, zero.copy(), origin="ssb",
-                              obj="barycenter")
-        return solar_system_posvels(toas)
+    def posvel_ssb(self, tdb, utc, ephem, provider=None, gcrs=None):
+        z = np.zeros((len(tdb), 3))
+        return PosVel(z, z, origin="ssb", obj="barycenter")
 
 
 class GeocenterObs(Observatory):
-    """geocenter / coe: the Earth's centre, epochs taken as TDB
-    (``simulation.geocenter_posvels``; the JAX package reads them as
-    UTC, which waits for the port of ``timescales.py``)."""
+    """geocenter / coe: the Earth's centre, with UTC epochs converted
+    by ``timescales.py`` (reference: special_locations.py::GeocenterObs)."""
 
-    name = "geocenter"
-    aliases = ("coe", "geocentre")
-    timescale = "tdb"
-
-    def fill_posvels(self, toas):
-        from ..simulation import geocenter_posvels
-
-        return geocenter_posvels(toas)
+    def posvel_ssb(self, tdb, utc, ephem, provider=None, gcrs=None):
+        e = objPosVel_wrt_SSB("earth", tdb, ephem, provider=provider)
+        return PosVel(e.pos, e.vel, origin="ssb", obj="geocenter")
 
 
-_REGISTRY = {}
-for _cls in (BarycenterObs, GeocenterObs):
-    for _name in (_cls.name, *_cls.aliases):
-        _REGISTRY[_name] = _cls()
+def _load_builtin():
+    if "gbt" in _registry:
+        return
+    path = os.path.join(os.path.dirname(__file__), "..", "data",
+                        "observatories.json")
+    with open(path) as f:
+        defs = json.load(f)
+    for name, d in defs.items():
+        TopoObs(name, d["itrf_xyz"], aliases=d.get("aliases", ()),
+                clock_files=d.get("clock_files", ()),
+                clock_fmt=d.get("clock_fmt", "tempo2"),
+                origin=d.get("origin", ""))
+    BarycenterObs("barycenter", aliases=("@", "bat", "ssb"))
+    GeocenterObs("geocenter", aliases=("coe", "geo", "0"))
 
 
 def get_observatory(name: str) -> Observatory:
-    """The observatory called ``name`` (case-insensitive), for the
-    special locations the port knows; any other raises
-    ``NotImplementedError``."""
-    key = str(name).strip().lower()
-    if key not in _REGISTRY:
-        raise NotImplementedError(f"observatory {name!r}: {HOST_INGEST}")
-    return _REGISTRY[key]
+    """The observatory called ``name`` or one of its aliases
+    (case-insensitive); ``KeyError`` for an unknown name (reference:
+    observatory/__init__.py::get_observatory)."""
+    _load_builtin()
+    key = str(name).lower()
+    if key in _registry:
+        return _registry[key]
+    if key in _alias_map:
+        return _registry[_alias_map[key]]
+    raise KeyError(f"unknown observatory {str(name)!r}")
 
 
-__all__ = ["BarycenterObs", "GeocenterObs", "Observatory",
-           "get_observatory", "HOST_INGEST"]
+def list_observatories():
+    _load_builtin()
+    return sorted(_registry)
+
+
+__all__ = ["BarycenterObs", "GeocenterObs", "Observatory", "TopoObs",
+           "get_observatory", "list_observatories"]

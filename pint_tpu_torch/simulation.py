@@ -1,94 +1,170 @@
-"""Zero-residual fake TOAs at the geocentre (the JAX package's
-``simulation.py::make_fake_toas_fromMJDs``, for ``obs="geocenter"``).
+"""Simulation: zero-residual fake TOAs (host ingest numpy; the phase on
+``device``).
 
-(reference: src/pint/simulation.py — iterate the phase->time inversion
-until residuals vanish, then optionally add Gaussian measurement
-noise.)
-
-Host ingest (clock chains, UTC->TDB, observatory posvels) is not
-ported yet, so the epochs given here are taken as TDB at the geocentre
-(the JAX package reads them as UTC and converts them with
-``timescales.py``): the observatory is the Earth's centre, and the
-Earth, the Sun and the planets come from the ephemeris tiers
-(``ephemeris/``: the shipped numeph kernel inside its coverage), as the
-JAX package's ``GeocenterObs`` takes them.
+Counterpart of the JAX package's ``simulation.py`` (reference:
+src/pint/simulation.py — make_fake_toas_uniform /
+make_fake_toas_fromMJDs / make_fake_toas_fromtim: iterate the
+phase->time inversion until residuals vanish, then optionally add
+Gaussian measurement noise and correlated noise realizations). Each
+pass runs the host chain — clock corrections, UTC->TDB, posvels at the
+observatory (``obs="gbt"`` by default) — then the phase on ``device``.
+Tables are built with ``TOAs.from_arrays`` (no per-TOA objects). The
+wideband arguments raise ``NotImplementedError``: the wideband classes
+are not ported (ROADMAP §1 item 5).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .constants import SECS_PER_DAY
-from .ephemeris import ephemeris_provider, objPosVel_wrt_SSB
-from .mjd import Epochs
-from .observatory import solar_system_posvels
+from . import resolve_device
+from .residuals import Residuals
 from .toa import TOAs
-from .utils import PosVel
+
+WIDEBAND = ("wideband fake TOAs need the wideband residual classes, "
+            "not ported (ROADMAP §1 item 5)")
 
 
-def geocenter_posvels(toas: TOAs):
-    """Fill ``tdb``, ``ssb_obs``, ``obs_sun`` (and ``planet_pos`` when
-    ``toas.planets``) for geocentric TOAs whose epochs are TDB: the
-    ephemeris tier is resolved once on every epoch, the observatory is
-    the Earth with its velocity from that tier (JAX
-    ``GeocenterObs.posvel_ssb``), and the Sun and planets are taken
-    relative to it."""
-    toas.tdb = Epochs(toas.day, toas.sec, "tdb")
-    toas.ephem_provider = ephemeris_provider(toas.ephem, toas.tdb)
-    earth = objPosVel_wrt_SSB("earth", toas.tdb, toas.ephem,
-                              provider=toas.ephem_provider)
-    toas.ssb_obs = PosVel(earth.pos, earth.vel, origin="ssb", obj="obs")
-    return solar_system_posvels(toas, earth)
+def _refresh(toas: TOAs):
+    toas.apply_clock_corrections()
+    toas.compute_TDBs()
+    toas.compute_posvels()
+    return toas
 
 
 def _iterate_zero_residuals(toas: TOAs, model, iterations=4, device="cuda"):
-    """Shift TOA times until model residuals are ~0 (sub-ns).
-
-    (reference: simulation.py internal zero_residual iteration)
-    """
+    """Shift TOA times until model residuals are ~0 (sub-ns): each pass
+    runs clock -> TDB -> posvels on the host and the phase on
+    ``device`` (reference: simulation.py's zero-residual iteration)."""
     for _ in range(iterations):
-        geocenter_posvels(toas)
-        prepared = model.prepare(toas, device=device)
-        frac, _ = prepared.phase_frac_and_int()
-        shift = (frac / prepared.params0["F"][0]).cpu().numpy()
+        _refresh(toas)
+        r = Residuals(toas, model, subtract_mean=False, track_mode="nearest",
+                      device=device)
+        shift = r.calc_time_resids().cpu().numpy()
         toas.adjust_times(-shift)
-    return geocenter_posvels(toas)
+    return _refresh(toas)
 
 
-def make_fake_toas_fromMJDs(mjds, model, error_us=1.0, freq_mhz=1400.0,
-                            obs="geocenter", add_noise=False, seed=None,
-                            iterations=4, flags=None, device="cuda") -> TOAs:
-    """(reference: simulation.py::make_fake_toas_fromMJDs)
+def _apply_noise(toas: TOAs, model, rng, white=True, correlated=False,
+                 device="cuda"):
+    """Add measurement-noise draws to the TOA times in place and refresh
+    the derived columns. White draws are at the model-scaled
+    uncertainty (EFAC/EQUAD applied), so simulated data matches what
+    the fitter whitens with; correlated draws realize each noise
+    component's (basis, weights) pair — ECORR per-epoch offsets and
+    power-law red-noise Fourier amplitudes — as the GLS fit models them
+    (reference: simulation.py add_correlated_noise)."""
+    prepared = model.prepare(toas, device=device)
+    delta_s = np.zeros(len(toas))
+    if white:
+        sigma_us = prepared.scaled_sigma_us().cpu().numpy()
+        delta_s += rng.standard_normal(len(toas)) * sigma_us * 1e-6
+    if correlated:
+        for comp in model.components.values():
+            bw = getattr(comp, "basis_weight", None)
+            if bw is None:
+                continue
+            B, w_us2 = bw(prepared.params0, prepared.prep)
+            B = B.cpu().numpy()
+            w = w_us2.cpu().numpy()
+            if B.size == 0:
+                continue
+            amps_us = rng.standard_normal(B.shape[1]) * np.sqrt(w)
+            delta_s += (B @ amps_us) * 1e-6
+    toas.adjust_times(delta_s)
+    _refresh(toas)
 
-    Zero-residual TOAs at the TDB epochs ``mjds`` for a geocentric
-    observer; ``flags`` (dict) is applied to every TOA. ``add_noise``
-    adds white noise at the model-scaled uncertainty, drawn from
-    ``numpy.random.default_rng(seed)``. The phase evaluations run on
-    ``device``.
-    """
-    if obs != "geocenter":
-        raise NotImplementedError(
-            f"obs={obs!r}: only geocentric fake TOAs are ported (observatory "
-            "posvels and clock chains are host ingest, not ported yet)")
-    mjds = np.asarray(mjds, dtype=np.float64)
-    day = np.floor(mjds).astype(np.int64)
-    sec = (mjds - day) * SECS_PER_DAY
-    base_flags = {"simulated": "1", **{k: str(v) for k, v in (flags or {}).items()}}
+
+def _model_settings(model):
     ephem = "de440s"
     if "EPHEM" in model.params and model.EPHEM.value:
         ephem = model.EPHEM.value.lower()
+    planets = ("PLANET_SHAPIRO" in model.params
+               and bool(model.PLANET_SHAPIRO.value))
+    return ephem, planets
+
+
+def make_fake_toas_uniform(startMJD, endMJD, ntoas, model, error_us=1.0,
+                           freq_mhz=1400.0, obs="gbt", add_noise=False,
+                           add_correlated_noise=False, seed=None,
+                           iterations=4, flags=None, wideband=False,
+                           dm_error_pccm3=1e-4, fuzz_days=0.0,
+                           device="cuda") -> TOAs:
+    """(reference: simulation.py::make_fake_toas_uniform — ``fuzz_days``
+    jitters the nominally uniform epochs by up to +/-fuzz_days/2 so
+    simulated cadences don't alias)."""
+    mjds = np.linspace(startMJD, endMJD, ntoas)
+    if fuzz_days:
+        fuzz_rng = np.random.default_rng(None if seed is None else seed + 1)
+        mjds = np.sort(mjds + fuzz_rng.uniform(-fuzz_days / 2, fuzz_days / 2,
+                                               ntoas))
+    return make_fake_toas_fromMJDs(mjds, model, error_us=error_us,
+                                   freq_mhz=freq_mhz, obs=obs,
+                                   add_noise=add_noise,
+                                   add_correlated_noise=add_correlated_noise,
+                                   seed=seed, iterations=iterations,
+                                   flags=flags, wideband=wideband,
+                                   dm_error_pccm3=dm_error_pccm3,
+                                   device=device)
+
+
+def make_fake_toas(*args, **kw) -> TOAs:
+    """Alias for :func:`make_fake_toas_uniform`
+    (reference: simulation.py historical make_fake_toas name)."""
+    return make_fake_toas_uniform(*args, **kw)
+
+
+def make_fake_toas_fromMJDs(mjds, model, error_us=1.0, freq_mhz=1400.0,
+                            obs="gbt", add_noise=False,
+                            add_correlated_noise=False, seed=None,
+                            iterations=4, flags=None, wideband=False,
+                            dm_error_pccm3=1e-4, device="cuda") -> TOAs:
+    """(reference: simulation.py::make_fake_toas_fromMJDs)
+
+    Zero-residual TOAs at the UTC epochs ``mjds`` seen from ``obs``;
+    ``flags`` (dict) is applied to every TOA before any noise draw.
+    ``add_noise`` adds white noise at the model-scaled uncertainty and
+    ``add_correlated_noise`` a realization of the model's correlated
+    noise, drawn from ``numpy.random.default_rng(seed)``. The phase
+    evaluations run on ``device``.
+    """
+    if wideband:
+        raise NotImplementedError(WIDEBAND)
+    resolve_device(device)
+    mjds = np.asarray(mjds, dtype=np.float64)
+    # the JAX package's TOA(int(m), (m - int(m)) * 86400.0, ...) per row
+    day = mjds.astype(np.int64)
+    sec = (mjds - day) * 86400.0
+    base_flags = {"simulated": "1",
+                  **{k: str(v) for k, v in (flags or {}).items()}}
+    ephem, planets = _model_settings(model)
     toas = TOAs.from_arrays(day, sec, error_us=error_us, freq_mhz=freq_mhz,
-                            obs=obs, flags=[dict(base_flags) for _ in mjds],
-                            ephem=ephem)
-    toas.planets = ("PLANET_SHAPIRO" in model.params
-                    and bool(model.PLANET_SHAPIRO.value))
+                            obs=obs, ephem=ephem, planets=planets,
+                            flags=[dict(base_flags) for _ in range(len(day))])
     _iterate_zero_residuals(toas, model, iterations=iterations, device=device)
-    if add_noise:
-        # draw at the MODEL-scaled uncertainty (EFAC/EQUAD applied), so
-        # simulated data matches what the fitter whitens with
-        rng = np.random.default_rng(seed)
-        sigma_us = model.prepare(toas, device=device).scaled_sigma_us()
-        toas.adjust_times(rng.standard_normal(len(toas))
-                          * sigma_us.cpu().numpy() * 1e-6)
-        geocenter_posvels(toas)
+    rng = np.random.default_rng(seed)
+    if add_noise or add_correlated_noise:
+        _apply_noise(toas, model, rng, white=add_noise,
+                     correlated=add_correlated_noise, device=device)
+    return toas
+
+
+def make_fake_toas_fromtim(timfile, model, add_noise=False,
+                           add_correlated_noise=False, seed=None,
+                           wideband=False, dm_error_pccm3=1e-4,
+                           device="cuda") -> TOAs:
+    """(reference: simulation.py::make_fake_toas_fromtim)"""
+    from .toa import read_tim_file
+
+    if wideband:
+        raise NotImplementedError(WIDEBAND)
+    resolve_device(device)
+    toalist, _ = read_tim_file(str(timfile))
+    ephem, planets = _model_settings(model)
+    toas = TOAs(toalist, ephem=ephem, planets=planets)
+    _iterate_zero_residuals(toas, model, device=device)
+    rng = np.random.default_rng(seed)
+    if add_noise or add_correlated_noise:
+        _apply_noise(toas, model, rng, white=add_noise,
+                     correlated=add_correlated_noise, device=device)
     return toas

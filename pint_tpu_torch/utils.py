@@ -1,7 +1,7 @@
 """Helpers the slice uses from the JAX package's ``utils.py``.
 
-``PosVel``, ``interesting_lines`` and ``split_prefixed_name`` are host
-numpy/str code copied as they are; ``weighted_mean`` is the torch form.
+``PosVel``, ``interesting_lines``, ``split_prefixed_name`` and
+``compute_hash`` are host numpy/str code copied as they are; ``weighted_mean`` is the torch form.
 (The JAX module imports JAX at top level, so it cannot be copied whole.)
 """
 
@@ -79,3 +79,15 @@ def interesting_lines(lines, comments=("#", "C ")):
         if any(ls.startswith(c) for c in comments):
             continue
         yield ls
+
+
+def compute_hash(*chunks) -> str:
+    """Stable content hash for cache invalidation (reference: utils.py::compute_hash)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for c in chunks:
+        if isinstance(c, str):
+            c = c.encode()
+        h.update(c)
+    return h.hexdigest()

@@ -6,10 +6,10 @@ special observatories that read them.
 Tolerances: the SPK reader and the tier dispatch are host numpy in both
 packages, evaluated in the same order, so positions, velocities,
 provider tags, fingerprints and error messages are held bitwise equal.
-The one divergence left is logged, not hidden: the port's geocentre
-takes its epochs as TDB where the JAX package converts UTC with
-``timescales.py`` (not ported yet); its measured size is pinned below so
-that the test fails, and the bound can tighten, once that port lands.
+The geocentre reads its epochs as UTC and converts them with the
+port's ``timescales.py``, as the JAX package does; on the numpy paths
+of both packages (their C++ host libraries switched off) its TDB
+epochs, Earth and Sun are bitwise the JAX package's.
 """
 
 import hashlib
@@ -281,21 +281,24 @@ def test_barycentre_posvels_match_compute_posvels(planets):
 
 
 def test_geocentre_posvels_take_the_tier():
-    """The port's geocentre at TDB epochs: the Earth with its velocity
-    from the kernel (JAX ``GeocenterObs.posvel_ssb``), the Sun and the
-    planets relative to it, bitwise to the JAX package's tier at the
-    same epochs; out of the coverage, the analytic tier."""
+    """The port's geocentre: the Earth with its velocity from the
+    kernel at the table's TDB epochs (JAX ``GeocenterObs.posvel_ssb``),
+    the Sun and the planets relative to it, bitwise to the JAX
+    package's tier at the same epochs; out of the coverage, the
+    analytic tier."""
     from pint_tpu import ephemeris as jeph
+    from pint_tpu.mjd import Epochs as JEpochs
     from pint_tpu.observatory import get_observatory as jobs
     from pint_tpu_torch.toa import TOAs
 
     rng = np.random.default_rng(22)
     mjd = np.sort(rng.uniform(54000.0, 57000.0, 300))
-    t, j = _epochs(mjd)
+    t, _ = _epochs(mjd)
     toas = TOAs.from_arrays(t.day, t.sec, obs="geocenter")
     toas.planets = True
     toas.compute_posvels()
     assert toas.ephem_provider == "numeph"
+    j = JEpochs(toas.tdb.day, toas.tdb.sec, "tdb")
     earth = jobs("geocenter").posvel_ssb(j, j, "de440s", provider="numeph")
     np.testing.assert_array_equal(toas.ssb_obs.pos, earth.pos)
     np.testing.assert_array_equal(toas.ssb_obs.vel, earth.vel)
@@ -305,28 +308,37 @@ def test_geocentre_posvels_take_the_tier():
     for p in toas.PLANETS:
         pos = jeph.objPosVel_wrt_SSB(p, j, provider="numeph").pos
         np.testing.assert_array_equal(toas.planet_pos[p], pos - earth.pos)
-    old = TOAs.from_arrays(np.array([30000]), np.array([0.0]),
-                           obs="geocenter").compute_posvels()
-    assert old.ephem_provider == "analytic"
+    late = TOAs.from_arrays(np.array([70000]), np.array([0.0]),
+                            obs="geocenter").compute_posvels()
+    assert late.ephem_provider == "analytic"
 
 
-def test_geocentre_epochs_diverge_until_timescales():
-    """The divergence the port keeps until ``timescales.py`` lands: on
-    the fake TOAs of test_torch_models.py::jax_toas, the port's
-    geocentre reads the epochs as TDB and the JAX package's as UTC, so
-    the TDB epochs differ by TT - UTC (65.2-67.2 s over MJD
-    54000-57000) and the Earth by ~2,000 km. Both take the numeph tier.
-    When the port converts UTC, this test fails and goes."""
+def test_geocentre_epochs_match_jax(monkeypatch):
+    """The geocentre on the fake TOAs of test_torch_models.py::jax_toas:
+    both packages read the epochs as UTC and convert them through
+    ``timescales.py``. On the numpy paths (each package's C++ host
+    library switched off) the TDB epochs, the Earth (``ssb_obs``) and
+    the Sun are bitwise equal, and both take the numeph tier (tier:
+    host numpy, bitwise)."""
+    import pint_tpu.native as jnative
+    import pint_tpu_torch.native as tnative
     from pint_tpu.toa import TOAs as JTOAs
     from pint_tpu_torch.toa import TOAs
     from test_torch_models import EQUATORIAL, jax_toas
 
     _, jt = jax_toas(EQUATORIAL)
+    monkeypatch.setattr(jnative, "_LIB", False)
+    monkeypatch.setattr(tnative, "_LIB", False)
     j = JTOAs.from_arrays(jt.day, jt.sec, obs="geocenter")
     j.compute_posvels()
     t = TOAs.from_arrays(jt.day, jt.sec, obs="geocenter").compute_posvels()
     assert t.ephem_provider == j.ephem_provider == "numeph"
-    dt = (t.tdb.day - j.tdb.day) * 86400.0 + (t.tdb.sec - j.tdb.sec)
-    assert -67.3 < dt.min() and dt.max() < -65.1
-    dpos = np.linalg.norm(t.ssb_obs.pos - j.ssb_obs.pos, axis=1)
-    assert 1.8e6 < dpos.min() and dpos.max() < 2.1e6
+    np.testing.assert_array_equal(t.tdb.day, j.tdb.day)
+    np.testing.assert_array_equal(t.tdb.sec, j.tdb.sec)
+    np.testing.assert_array_equal(t.ssb_obs.pos, j.ssb_obs.pos)
+    np.testing.assert_array_equal(t.ssb_obs.vel, j.ssb_obs.vel)
+    np.testing.assert_array_equal(t.obs_sun.pos, j.obs_sun.pos)
+    dt = (t.tdb.day - jt.day) * 86400.0 + (t.tdb.sec - jt.sec)
+    assert 65.1 < dt.min() and dt.max() < 67.3  # TT - UTC + TDB - TT
+    with pytest.raises(ValueError, match="weights"):
+        TOAs.from_arrays(np.zeros(3), np.zeros(3), weights=np.ones(2))
