@@ -29,10 +29,10 @@ these phases:
    the pickle hit equals the miss bitwise, the C++ host library served
    the chain, and the zero-clock warning was given once. The fleet is
    built from the read-back TOAs; its host pack is timed;
-   ``[ingest] ngc6440e``: the port's copy of the NGC6440E example
-   (SOLARN0 and CORRECT_TROPOSPHERE dropped: unported, zero delays)
-   through ``get_model`` -> ``get_TOAs`` -> ``Residuals`` on the card
-   with AbsPhase, held to the golden prefit residuals within 1e-3 us;
+   ``[ingest] ngc6440e``: the port's copy of the NGC6440E example as it
+   is (SolarWindDispersion and TroposphereDelay at zero delay) through
+   ``get_model`` -> ``get_TOAs`` -> ``Residuals`` on the card with
+   AbsPhase, held to the golden prefit residuals within 1e-3 us;
 3. an f64 fit at the true parameters gives each pulsar's sigma; every
    start vector is then moved 3 sigma off the truth;
 4. the main path: the mixed-precision fit, cold then warm, with the
@@ -48,6 +48,28 @@ these phases:
    the kernel, the plain version and one ``torch.bmm`` in f32 (TF32
    off) as the library yardstick, beside the least time the card could
    take;
+5a. ``[fitter] ngc6440e``: the README quick start on the unmodified
+   example on the card — ``get_model_and_toas`` -> WLSFitter,
+   DownhillWLSFitter, GLSFitter (f64) and PowellFitter, each timed with
+   its ``get_summary()`` printed, and ``as_parfile()`` — held to the
+   JAX package's fits in ``NGC6440E_postfit.json`` (values 1e-6 sigma,
+   uncertainties 1e-5, chi2 1e-9; Powell by its own stopping rule), the
+   par file read back to the same values, and zero solar-wind and
+   troposphere delays;
+5b. ``[fitter] pulsar``: GLSFitter on the main path's model over the
+   median-count pulsar's read-back TOAs (ECORR's epochs and the red
+   noise as dense columns) from phase 3's start, ``maxiter=2`` in mixed
+   and f64, cold then warm, then DownhillGLSFitter and its noise
+   realizations; mixed vs f64 <= 1e-6 sigma, recovery <= 0.01 sigma,
+   and the fleet's row within 1e-2 sigma; then the largest pulsar once
+   in mixed (wall, peak device memory);
+5c. ``[fleet] modes`` on the read-back pulsars: pow2 and split4 buckets
+   in mixed and f64 and ``precision="auto"`` on the plan fleet (held to
+   the plan fit within 1e-6 sigma, verdicts printed), ``method="auto"``
+   on the noise-free ``lane_par_text`` models through WLS with each
+   cuSOLVER SVD driver timed (held to GLS within 1e-6 sigma), and
+   dense against marginalized ECORR on the 8 smallest pulsars (rtol
+   1e-9 on the updates, 1e-12 on chi2), each cold then warm;
 6. ``[gw] fleet``: the GW stage on the main path's fleet at its warm
    mixed-fit vectors: assemble and regrid at 30 days (timed), then the
    optimal statistic with the pair products in mixed (the K3 kernel;
@@ -255,7 +277,6 @@ INGEST_STEPS = (  # (owner module, attribute, label) timed in [ingest]
 )
 TOL_READBACK_S = 1e-11  # |d sec|, |d TDB| after the 16-digit MJD format
 TDB_SEC_ULP_S = 2.0 ** -36  # one ulp of f64 seconds in [65536, 86400)
-NGC_DROPPED = ("SOLARN0", "CORRECT_TROPOSPHERE")  # unported, zero delays
 
 
 def ingest_timers():
@@ -389,28 +410,28 @@ def ingest(counts, tmp, device="cuda"):
     return models, toas
 
 
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "pint_tpu_torch", "data", "examples")
+NGC_PAR = os.path.join(EXAMPLES, "NGC6440E.par")
+NGC_TIM = os.path.join(EXAMPLES, "NGC6440E.tim")
+
+
 def ingest_ngc6440e(device="cuda"):
     """``[ingest] ngc6440e``: the port's copy of the NGC6440E example
-    (62 GBT TOAs, AbsPhase at TZRSITE 1) through get_model -> get_TOAs
+    as it is (62 GBT TOAs, AbsPhase at TZRSITE 1, SolarWindDispersion
+    and TroposphereDelay at zero delay) through get_model -> get_TOAs
     -> Residuals on the card, held to the port's copy of the prefit
-    golden residuals within 1e-3 us. The par file drops SOLARN0 and
-    CORRECT_TROPOSPHERE, whose components are not ported and whose
-    delays are exactly zero at these values."""
+    golden residuals within 1e-3 us."""
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.residuals import Residuals
     from pint_tpu_torch.toa import get_TOAs
 
-    ex = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "pint_tpu_torch", "data", "examples")
-    with open(os.path.join(ex, "NGC6440E.par")) as f:
-        par = "".join(line for line in f
-                      if not line.startswith(NGC_DROPPED))
-    golden = np.load(os.path.join(ex, "NGC6440E_prefit_resids_us.npy"))
+    golden = np.load(os.path.join(EXAMPLES, "NGC6440E_prefit_resids_us.npy"))
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        m = get_model(par)
-        t = get_TOAs(os.path.join(ex, "NGC6440E.tim"), model=m)
+        m = get_model(NGC_PAR)
+        t = get_TOAs(NGC_TIM, model=m)
         r = Residuals(t, m, device=device)
         resid_us = r.time_resids * 1e6
     wall = time.perf_counter() - t0
@@ -422,6 +443,8 @@ def ingest_ngc6440e(device="cuda"):
         f"|resid - golden| {dev:.3e} us; chi2 {r.chi2:.6f}, dof {r.dof}")
     check("ingest ngc6440e", {
         "AbsPhase in the model": "AbsPhase" in m.components,
+        "SolarWindDispersion and TroposphereDelay in the model":
+            {"SolarWindDispersion", "TroposphereDelay"} <= set(m.components),
         "residuals on the requested device":
             r.prepared.device.type == device,
         "finite residuals of the golden's shape":
@@ -443,12 +466,12 @@ def set_start(fleet, x):
         fleet.batches[key].set_start_vector(x[idxs])
 
 
-def timed_fit(fleet, torch, **kw):
+def timed_fit(fleet, torch, method="gls", **kw):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as wl:
         warnings.simplefilter("always")
-        xs, chi2, covs = fleet.fit(method="gls", maxiter=2, **kw)
+        xs, chi2, covs = fleet.fit(method=method, maxiter=2, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     refit = any("refitting in f64" in str(w.message) for w in wl)
@@ -581,25 +604,25 @@ def add_bound_share(rec):
     return rec
 
 
-def profile_fit(fleet, torch, top=10):
-    """Where the warm mixed fit's time goes: one fit under
-    torch.profiler; prints the device-busy share of the host wall and
-    the ops with the most device time. Diagnostic only: prints "not
-    measured" when the profiler records no device time."""
+def profile_run(torch, tag, fn, top=10):
+    """One run of ``fn`` under torch.profiler; prints the device-busy
+    share of the host wall and the ops with the most device time.
+    Diagnostic only: prints "not measured" when the profiler records no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fleet.fit(method="gls", maxiter=2, precision="mixed")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events()
               if e.device_type.name == "CUDA" and e.device_time_total > 0]
     if not events:
-        log(f"[profile] warm mixed fit {wall:.3f} s under the profiler; "
-            "device time not measured (no CUDA events recorded)")
+        log(f"{tag} {wall:.3f} s under the profiler; device time not "
+            "measured (no CUDA events recorded)")
         return
     # busy time = union of kernel intervals on the device timeline
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -612,7 +635,7 @@ def profile_fit(fleet, torch, top=10):
             busy += e - end
             end = e
     busy_s = busy * 1e-6
-    log(f"[profile] warm mixed fit {wall:.3f} s under the profiler: device "
+    log(f"{tag} {wall:.3f} s under the profiler: device "
         f"busy {busy_s:.3f} s ({100 * busy_s / wall:.1f}%), idle "
         f"{100 * (1 - busy_s / wall):.1f}%; {len(events)} device ops")
     by_name = {}
@@ -620,7 +643,7 @@ def profile_fit(fleet, torch, top=10):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time_total * 1e-3)
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        log(f"[profile]   {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+        log(f"{tag.split()[0]}   {ms:9.3f} ms  {n:5d}x  {name[:90]}")
 
 
 def capture_inputs(fleet, torch):
@@ -651,6 +674,329 @@ def check(phase, checks):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{phase} checks failed: {failed}")
+
+
+FITTER_NGC = ("WLSFitter", "DownhillWLSFitter", "GLSFitter", "PowellFitter")
+TOL_FIT_UNC = 1e-5  # uncertainties vs the JAX fixture (safeguarded fits)
+TOL_POWELL_CHI2 = 1e-4  # Powell's stopping rule (scipy ftol), relative chi2
+TOL_SINGLE_FLEET = 1e-2  # single-pulsar GLS vs the fleet's row, sigma
+# torch.linalg.svd's cuSOLVER drivers, each timed on the fleet's WLS;
+# gesvda works from the Gram matrix (normal equations), so it is timed
+# for the record but is not a candidate for fitter.SVD_DRIVER
+SVD_DRIVERS = (None, "gesvd", "gesvdj", "gesvda")
+
+
+def fitter_ngc6440e(device="cuda"):
+    """``[fitter] ngc6440e``: the README quick start on the port's
+    unmodified NGC6440E example — ``get_model_and_toas`` -> WLSFitter,
+    DownhillWLSFitter, GLSFitter (f64) and PowellFitter on ``device`` —
+    each fit timed, its summary printed, held to the JAX package's fits
+    in ``NGC6440E_postfit.json`` (values 1e-6 sigma, uncertainties 1e-5
+    relative, chi2 1e-9 relative; Powell by its stopping rule: chi2
+    within 1e-4 relative of the WLS optimum's, each value within the
+    sqrt(1e-4 chi2) sigma that allows), the post-fit par file read
+    back by ``get_model`` to the same values (angles to their written
+    1e-10 s), and the solar-wind and
+    troposphere delays zero at the par file's settings."""
+    import pint_tpu_torch
+    from pint_tpu_torch import fitter as tfit
+    from pint_tpu_torch.models import get_model
+
+    with open(os.path.join(EXAMPLES, "NGC6440E_postfit.json")) as f:
+        fx = json.load(f)["fitters"]
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m, t = pint_tpu_torch.get_model_and_toas(NGC_PAR, NGC_TIM)
+    load_s = time.perf_counter() - t0
+    p = m.prepare(t, device=device)
+    zero = {name: float(m.components[name].delay(
+        p.params0, p.batch, p.prep, None).abs().max())
+        for name in ("SolarWindDispersion", "TroposphereDelay")}
+    log(f"[fitter] ngc6440e: get_model_and_toas {load_s:.2f} s, {len(t)} "
+        f"TOAs, components {list(m.components)}; max |delay| on "
+        f"{p.device}: {zero}")
+    gaps, fitted = {}, {}
+    wls = fx["WLSFitter"]
+    for key in FITTER_NGC:
+        ref = fx[key]
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            f = getattr(tfit, ref["class"])(t, m, device=device)
+            chi2 = float(f.fit_toas(**ref["kwargs"]))
+        sync()
+        wall = time.perf_counter() - t0
+        vals = {n: getattr(f.model, n).value for n in ref["values"]}
+        uncs = {n: getattr(f.model, n).uncertainty for n in ref["values"]}
+        sig = {n: u if u else wls["uncertainties"][n]
+               for n, u in ref["uncertainties"].items()}
+        gap = {"dx_sigma": max(abs(vals[n] - v) / sig[n]
+                               for n, v in ref["values"].items()),
+               "chi2_rel": abs(chi2 - ref["chi2"]) / ref["chi2"]}
+        if key == "PowellFitter":
+            gap["dx_wls_sigma"] = max(
+                abs(vals[n] - v) / wls["uncertainties"][n]
+                for n, v in wls["values"].items())
+            gap["chi2_excess_rel"] = (chi2 - wls["chi2"]) / wls["chi2"]
+        else:
+            gap["unc_rel"] = max(abs(uncs[n] / u - 1)
+                                 for n, u in ref["uncertainties"].items())
+        gaps[key] = gap
+        fitted[key] = f
+        log(f"[fitter] ngc6440e {key}: {wall:.3f} s on {device} "
+            f"({f.metrics['n_free']} free, iterations "
+            f"{f.metrics['iteration_s']}); chi2 {chi2:.9f}; vs the JAX "
+            f"fixture: {gap}")
+        for line in f.get_summary().splitlines():
+            log(f"[fitter] ngc6440e {key} | {line}")
+    quick = fitted["DownhillWLSFitter"]
+    par = quick.model.as_parfile()
+    for line in par.splitlines():
+        log(f"[fitter] ngc6440e as_parfile | {line}")
+    back = get_model(par)
+
+    def same_value(a, b):
+        if a.kind != "angle":
+            return a.value == b.value
+        # written to 1e-10 sexagesimal seconds: one tick
+        tick = 1e-10 / 3600 * np.pi / 180 * (
+            15.0 if a.angle_unit == "hourangle" else 1.0)
+        return abs(a.value - b.value) <= tick
+
+    same = all(same_value(getattr(quick.model, n), getattr(back, n))
+               for n in quick.model.free_params)
+    check("fitter ngc6440e", {
+        "solar-wind and troposphere delays zero":
+            all(v == 0.0 for v in zero.values()),
+        "values within 1e-6 sigma of the JAX fixture": all(
+            g["dx_sigma"] <= TOL_MIXED for k, g in gaps.items()
+            if k != "PowellFitter"),
+        "uncertainties within 1e-5 of the JAX fixture": all(
+            g["unc_rel"] <= TOL_FIT_UNC for k, g in gaps.items()
+            if k != "PowellFitter"),
+        "chi2 within 1e-9 of the JAX fixture": all(
+            g["chi2_rel"] <= 1e-9 for k, g in gaps.items()
+            if k != "PowellFitter"),
+        "Powell chi2 within its ftol of the WLS optimum's":
+            gaps["PowellFitter"]["chi2_excess_rel"] <= TOL_POWELL_CHI2,
+        "Powell values within sqrt(ftol chi2) sigma of the WLS optimum":
+            gaps["PowellFitter"]["dx_wls_sigma"]
+            <= np.sqrt(TOL_POWELL_CHI2 * wls["chi2"]),
+        "as_parfile read back gives the same values": same,
+        "fits on the requested device": all(
+            f.metrics["backend"] == device for f in fitted.values()),
+    })
+
+
+def fitter_pulsar(toas, names, x_true, x_start, x_fleet, device="cuda"):
+    """``[fitter] pulsar``: the single-pulsar GLSFitter on the main
+    path's model (``par_text``: EFAC/EQUAD/ECORR, 30-harmonic red noise,
+    F0/F1/DM free) over the read-back GBT TOAs of the fleet's
+    median-count pulsar, from phase 3's 3-sigma-off start:
+    ``fit_toas(maxiter=2)`` in mixed and f64, cold then warm, then
+    DownhillGLSFitter and its noise realizations; then the largest
+    pulsar once in mixed (wall, peak device memory). Checks mixed vs
+    f64 <= 1e-6 sigma, recovery <= 0.01 sigma, finite realizations, and
+    the single-pulsar fit against that pulsar's row of the warm mixed
+    fleet fit within 1e-2 sigma (tests/test_parallel.py's tier)."""
+    import torch
+
+    from pint_tpu_torch.fitter import DownhillGLSFitter, GLSFitter
+    from pint_tpu_torch.models import get_model
+
+    order = np.argsort([len(t) for t in toas], kind="stable")
+    i_med, i_big = int(order[len(order) // 2]), int(order[-1])
+
+    def start_model(i):
+        m = get_model(par_text(i))
+        for n, v in zip(names, x_start[i]):
+            getattr(m, n).value = float(v)
+        return m
+
+    def timed(cls, i, **kw):
+        sync()
+        t0 = time.perf_counter()
+        f = cls(toas[i], start_model(i), device=device)
+        f.fit_toas(**kw)
+        sync()
+        x = np.array([getattr(f.model, n).value for n in names])
+        s = np.array([getattr(f.model, n).uncertainty for n in names])
+        return f, x, s, time.perf_counter() - t0
+
+    walls = {}
+    _, _, _, walls["mixed cold"] = timed(GLSFitter, i_med, maxiter=2,
+                                         precision="mixed")
+    fm, xm, sm, walls["mixed warm"] = timed(GLSFitter, i_med, maxiter=2,
+                                            precision="mixed")
+    _, _, _, walls["f64 cold"] = timed(GLSFitter, i_med, maxiter=2)
+    f64, x64, s64, walls["f64 warm"] = timed(GLSFitter, i_med, maxiter=2)
+    fd, xd, sd, walls["DownhillGLSFitter"] = timed(DownhillGLSFitter, i_med)
+    t0 = time.perf_counter()
+    noise = fd.get_noise_resids()
+    walls["get_noise_resids"] = time.perf_counter() - t0
+    n_med = len(toas[i_med])
+    n_epochs = int(fm._noise_basis_segments[0][1].shape[1])
+    d_mixed = float(np.max(np.abs(xm - x64) / s64))
+    d_true = float(max(np.max(np.abs(x - x_true[i_med]) / s)
+                       for x, s in ((xm, sm), (x64, s64), (xd, sd))))
+    d_fleet = float(np.max(np.abs(xm - x_fleet[i_med]) / sm))
+    log(f"[fitter] pulsar BEN{i_med} (median count): {n_med} GBT TOAs, "
+        f"{n_epochs} ECORR epochs + 60 red-noise columns dense; walls "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; Downhill iterations {len(fd.metrics['iteration_s'])}")
+    log(f"[fitter] pulsar: max |x_mixed - x_f64|/sigma {d_mixed:.3e}; max "
+        f"|x_fit - x_true|/sigma {d_true:.3e}; max |x_single - "
+        f"x_fleet|/sigma {d_fleet:.3e}; chi2 mixed {fm.chi2_whitened:.6f} "
+        f"f64 {f64.chi2_whitened:.6f}; noise realizations "
+        + ", ".join(f"{k} rms {np.std(v) * 1e6:.4f} us"
+                    for k, v in noise.items()))
+    if device == "cuda":
+        profile_run(torch, "[fitter] profile: the median pulsar's warm mixed "
+                    "GLSFitter", lambda: timed(GLSFitter, i_med, maxiter=2,
+                                               precision="mixed"), top=8)
+        torch.cuda.reset_peak_memory_stats()
+    fb, xb, sb, big_s = timed(GLSFitter, i_big, maxiter=2, precision="mixed")
+    peak = (torch.cuda.max_memory_allocated() if device == "cuda" else None)
+    big_epochs = int(fb._noise_basis_segments[0][1].shape[1])
+    d_big = float(np.max(np.abs(xb - x_true[i_big]) / sb))
+    log(f"[fitter] pulsar BEN{i_big} (largest): {len(toas[i_big])} TOAs, "
+        f"{big_epochs} ECORR epochs, Mfull {len(toas[i_big])} x "
+        f"{3 + 1 + big_epochs + 60}; GLSFitter mixed maxiter=2 "
+        f"{big_s:.3f} s (cold), max_memory_allocated "
+        f"{peak if peak is None else f'{peak / 2**30:.3f} GiB'}; "
+        f"|x_fit - x_true|/sigma {d_big:.3e}")
+    check("fitter pulsar", {
+        "mixed vs f64 <= 1e-6 sigma": d_mixed <= TOL_MIXED,
+        "recovery <= 0.01 sigma": d_true <= TOL_RECOVER,
+        "single pulsar vs the fleet's row <= 1e-2 sigma":
+            d_fleet <= TOL_SINGLE_FLEET,
+        "finite noise realizations": set(noise) == {
+            "EcorrNoise", "PLRedNoise"} and all(
+            v.shape == (n_med,) and np.all(np.isfinite(v))
+            for v in noise.values()),
+        "largest pulsar finite and recovered": np.all(np.isfinite(xb))
+            and d_big <= TOL_RECOVER,
+    })
+
+
+def fleet_modes(models, toas, plan_fleet, x_start, x_plan, sig, device="cuda"):
+    """``[fleet] modes`` on the read-back pulsars already in memory:
+    ``toa_bucket="pow2"`` and ``"split4"`` in mixed and f64 held to the
+    plan fleet's warm mixed fit within 1e-6 sigma; ``precision="auto"``
+    on the plan fleet (verdicts printed); ``method="auto"`` on the
+    noise-free ``lane_par_text`` models, which routes through WLS
+    (each cuSOLVER SVD driver timed and held to the GLS fit of the same
+    models within 1e-6 sigma); ``ecorr_mode="dense"`` against "auto"
+    on the 8 smallest pulsars (rtol 1e-9 on the updates, 1e-12 on
+    chi2). Every fit from the 3-sigma-off start, cold then warm."""
+    import torch
+
+    from pint_tpu_torch import fitter as tfit
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel.pta import PTABatch, PTAFleet
+
+    def cold_warm(fleet, method="gls", **kw):
+        x, c, cov, cold, r1 = timed_fit(fleet, torch, method=method, **kw)
+        x2, c2, cov2, warm, r2 = timed_fit(fleet, torch, method=method, **kw)
+        return x2, c2, cov2, cold, warm, r1 or r2
+
+    gaps, refits = {}, False
+    for mode in ("pow2", "split4"):
+        t0 = time.perf_counter()
+        fl = PTAFleet(models, toas, toa_bucket=mode, device=device)
+        sync()
+        pack_s = time.perf_counter() - t0
+        set_start(fl, x_start)
+        widths = sorted(int(np.max(b.n_toas)) for b in fl.batches.values())
+        for prec in ("mixed", "f64"):
+            x, _, _, cold, warm, refit = cold_warm(fl, precision=prec)
+            refits |= refit
+            gaps[f"{mode} {prec}"] = float(np.max(np.abs(x - x_plan) / sig))
+            log(f"[fleet] {mode} {prec}: cold {cold:.3f} s, warm "
+                f"{warm:.3f} s; max |x - x_plan|/sigma "
+                f"{gaps[f'{mode} {prec}']:.3e}")
+        log(f"[fleet] {mode}: {len(fl.batches)} buckets (max counts "
+            f"{widths}), padding x{fl.padding_ratio:.4f}, pack "
+            f"{pack_s:.2f} s")
+        del fl
+    x, _, _, cold, warm, refit = cold_warm(plan_fleet, precision="auto")
+    refits |= refit
+    gaps["plan auto"] = float(np.max(np.abs(x - x_plan) / sig))
+    verdicts = {str(k[1][1]): getattr(b, "precision_auto", None)
+                for k, b in plan_fleet.batches.items()}
+    log(f"[fleet] precision=auto on the plan fleet: cold (probes "
+        f"included) {cold:.3f} s, warm {warm:.3f} s; max |x - "
+        f"x_plan|/sigma {gaps['plan auto']:.3e}; verdicts by width "
+        f"{verdicts}")
+
+    nf_models = [get_model(lane_par_text(i)) for i in range(len(toas))]
+    t0 = time.perf_counter()
+    nf = PTAFleet(nf_models, toas, toa_bucket="plan", device=device)
+    sync()
+    log(f"[fleet] noise-free lane models: {len(nf.batches)} buckets, pack "
+        f"{time.perf_counter() - t0:.2f} s")
+    set_start(nf, x_start)
+    xg, _, covg, gcold, gwarm, _ = cold_warm(nf, method="gls")
+    sig_nf = np.sqrt(np.array([np.diag(c) for c in covg]))
+    drivers = {}
+    default = tfit.SVD_DRIVER
+    for drv in (SVD_DRIVERS if device == "cuda" else (default,)):
+        tfit.SVD_DRIVER = drv
+        try:
+            xw, cw, _, cold, warm, _ = cold_warm(nf, method="auto")
+        finally:
+            tfit.SVD_DRIVER = default
+        drivers[str(drv)] = {
+            "cold_s": cold, "warm_s": warm,
+            "dx_gls_sigma": float(np.max(np.abs(xw - xg) / sig_nf)),
+            "finite": bool(np.all(np.isfinite(xw)) and np.all(np.isfinite(cw)))}
+        log(f"[fleet] method=auto (WLS), svd driver {drv}: cold "
+            f"{cold:.3f} s, warm {warm:.3f} s; max |x_wls - x_gls|/sigma "
+            f"{drivers[str(drv)]['dx_gls_sigma']:.3e}")
+    routed = {m["method"] for m in nf.fit_metrics.values()}
+    log(f"[fleet] same models by method=gls: cold {gcold:.3f} s, warm "
+        f"{gwarm:.3f} s; method=auto ran {sorted(routed)}; the default "
+        f"driver is {default}")
+    del nf
+
+    small = [int(i) for i in np.argsort([len(t) for t in toas],
+                                        kind="stable")[:8]]
+    b = PTABatch([get_model(par_text(i)) for i in small],
+                 [toas[i] for i in small], device=device)
+    b.set_start_vector(x_start[small])
+    out = {}
+    for mode in ("auto", "dense"):
+        walls = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            out[mode] = b.gls_fit(maxiter=2, ecorr_mode=mode)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        log(f"[fleet] ecorr_mode={mode}, the 8 smallest pulsars "
+            f"({int(np.sum(b.n_toas))} TOAs): cold {walls[0]:.3f} s, warm "
+            f"{walls[1]:.3f} s")
+    x0 = x_start[small]
+    (xa, ca, _), (xd, cd, _) = out["auto"], out["dense"]
+    upd = np.abs((xa - x0) - (xd - x0)) / (np.abs(xd - x0) + 1e-300)
+    log(f"[fleet] dense vs auto: max relative update gap {upd.max():.3e}; "
+        f"max chi2 gap {np.max(np.abs(ca - cd) / np.abs(cd)):.3e}")
+    check("fleet modes", {
+        "pow2/split4/auto within 1e-6 sigma of the plan fit": all(
+            g <= TOL_MIXED for g in gaps.values()),
+        "no f64 refit taken": not refits,
+        "method=auto routed the noise-free buckets through WLS":
+            routed == {"wls"},
+        "WLS (default driver) within 1e-6 sigma of GLS":
+            drivers[str(default)]["dx_gls_sigma"] <= TOL_MIXED
+            and drivers[str(default)]["finite"],
+        "dense vs auto ECORR updates (rtol 1e-9) and chi2 (1e-12)":
+            np.allclose(xa - x0, xd - x0, rtol=1e-9, atol=1e-18)
+            and np.allclose(ca, cd, rtol=1e-12, atol=0),
+    })
+    return drivers
 
 
 def gw_fleet(fleet, xs):
@@ -1784,7 +2130,8 @@ def run():
     }
     check("main path", checks)
 
-    profile_fit(fleet, torch)
+    profile_run(torch, "[profile] warm mixed fit",
+                lambda: fleet.fit(method="gls", maxiter=2, precision="mixed"))
     seen = capture_inputs(fleet, torch)
     entries = [
         kernel_record(torch, "fused_block_gls",
@@ -1796,6 +2143,16 @@ def run():
                       block_grams_cuda, block_grams_plain, *seen["K2"],
                       False, launches["K2"]),
     ]
+
+    t0 = time.perf_counter()
+    fitter_ngc6440e()
+    names = [n for n, _, _ in
+             fleet.batches[next(iter(fleet.batches))].free_map()]
+    fitter_pulsar(toas, names, x_true, x_start, xm2)
+    log(f"[fitter] phases took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    fleet_modes(models, toas, fleet, x_start, xm2, sig_m)
+    log(f"[fleet] modes took {time.perf_counter() - t0:.2f} s")
 
     fleet_lat, k3_launches = gw_fleet(fleet, xm2)
     gw_injected()

@@ -46,3 +46,11 @@ def resolve_device(device="cuda") -> torch.device:
             "pint_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run on the CPU")
     return dev
+
+
+
+def get_model_and_toas(parfile, timfile, **kw):
+    """(reference: pint.models.get_model_and_toas)"""
+    from .models.builder import get_model_and_toas as _gmt
+
+    return _gmt(parfile, timfile, **kw)

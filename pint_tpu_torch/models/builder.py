@@ -24,8 +24,10 @@ from .dispersion import DispersionDM
 from .noise import EcorrNoise, PLRedNoise, ScaleToaError
 from .parameter import MJDParameter, floatParameter, strParameter
 from .solar_system_shapiro import SolarSystemShapiro
+from .solar_wind import SolarWindDispersion
 from .spindown import Spindown
 from .timing_model import TimingModel
+from .troposphere import TroposphereDelay
 
 # par-file key aliases -> canonical names (reference: each Parameter's aliases)
 ALIASES = {
@@ -59,9 +61,7 @@ def _unported_components(keys, repeats):
     rep = {c for c, _ in repeats}
     checks = [
         ("DispersionDMX", "DMX" in keys or has(lambda k: k.startswith("DMX_"))),
-        ("SolarWindDispersion", "NE_SW" in keys or "SWM" in keys
-         or has(lambda k: k.startswith("TNSW"))),
-        ("TroposphereDelay", "CORRECT_TROPOSPHERE" in keys),
+        ("PLSWNoise", has(lambda k: k.startswith("TNSW"))),
         ("Glitch", has(lambda k: k.startswith("GLEP_"))),
         ("Wave", "WAVE_OM" in keys
          or has(lambda k: k.startswith("WAVE") and k[4:].isdigit())),
@@ -104,8 +104,8 @@ def parse_parfile(parfile) -> list[tuple[str, list[str]]]:
 def get_model(parfile) -> TimingModel:
     """(reference: model_builder.py::get_model) for the ported
     components: Spindown, AstrometryEquatorial/Ecliptic, DispersionDM,
-    SolarSystemShapiro, AbsPhase, ScaleToaError, EcorrNoise and
-    PLRedNoise."""
+    SolarSystemShapiro, SolarWindDispersion, TroposphereDelay, AbsPhase,
+    ScaleToaError, EcorrNoise and PLRedNoise."""
     entries = parse_parfile(parfile)
     keys = {}
     repeats = []
@@ -133,6 +133,10 @@ def get_model(parfile) -> TimingModel:
     if "DM" in keys or "DM1" in keys:
         model.add_component(DispersionDM())
     model.add_component(SolarSystemShapiro())
+    if "NE_SW" in keys or "SWM" in keys:
+        model.add_component(SolarWindDispersion())
+    if "CORRECT_TROPOSPHERE" in keys:
+        model.add_component(TroposphereDelay())
     if "TZRMJD" in keys:
         model.add_component(AbsPhase())
     rep = {c for c, _ in repeats}
@@ -220,3 +224,24 @@ def get_model(parfile) -> TimingModel:
         raise ValueError(f"unrecognized UNITS {units!r} in par file "
                          "(expected TDB, TCB, or SI)")
     return model
+
+
+def get_model_and_toas(parfile, timfile, allow_tcb=False, **kw):
+    """(reference: model_builder.py::get_model_and_toas): the model,
+    and the TOAs of ``timfile`` read by ``get_TOAs`` with the model's
+    EPHEM and PLANET_SHAPIRO; ``**kw`` goes to ``get_TOAs``. UNITS TCB
+    is not ported, so ``allow_tcb`` must stay False."""
+    from ..toa import get_TOAs
+
+    if allow_tcb:
+        raise NotImplementedError(
+            "allow_tcb: TCB->TDB conversion is not ported to "
+            "pint_tpu_torch yet")
+    model = get_model(parfile)
+    ephem = "de440s"
+    if "EPHEM" in model.params and model.EPHEM.value:
+        ephem = model.EPHEM.value.lower()
+    planets = (bool(model.PLANET_SHAPIRO.value)
+               if "PLANET_SHAPIRO" in model.params else False)
+    toas = get_TOAs(timfile, ephem=ephem, planets=planets, **kw)
+    return model, toas

@@ -160,16 +160,21 @@ class EcorrNoise(NoiseComponent):
             eidx[members] = groups
             prep["ecorr_eidx"] = eidx
 
+    @staticmethod
+    def dense_U(prep):
+        """The (n_toa, k) 0/1 quantization basis, reconstructed from
+        the epoch index when only the sparse form is packed."""
+        if "ecorr_U" in prep:
+            return prep["ecorr_U"]
+        k = prep["ecorr_owner"].shape[-1]
+        eidx = torch.as_tensor(prep["ecorr_eidx"])
+        return (eidx[:, None] == torch.arange(k, device=eidx.device)
+                ).to(torch.float64)
+
     def basis_weight(self, params, prep):
         """(U, w): covariance contribution U diag(w) U^T, w in us^2
         (dense form; owner < 0 marks padding columns, weight 0)."""
-        if "ecorr_U" in prep:
-            U = prep["ecorr_U"]
-        else:
-            k = prep["ecorr_owner"].shape[-1]
-            eidx = prep["ecorr_eidx"]
-            U = (eidx[:, None] == torch.arange(k, device=eidx.device)
-                 ).to(torch.float64)
+        U = self.dense_U(prep)
         if not U.shape[1]:
             return U, U.new_zeros(0)
         owner = prep["ecorr_owner"]

@@ -232,6 +232,13 @@ class AngleParameter(Parameter):
         return (f"{sign}{int(d):02d}:{int(m):02d}:"
                 f"{int(s_int):02d}.{int(s_frac):0{ndec}d}")
 
+    def _format_unc(self):
+        # seconds of time (hour angle) or of arc, the unit
+        # from_parfile_fields reads (the JAX package writes radians
+        # here, which its reader takes as seconds)
+        scale = 15.0 if self.angle_unit == "hourangle" else 1.0
+        return f"{float(self.uncertainty) / (scale / 3600.0 * _D2R):.5g}"
+
 
 class prefixParameter(floatParameter):
     """One member of a numbered family F0..Fn, DMX_0001.. (reference: prefixParameter)."""

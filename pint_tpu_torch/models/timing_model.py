@@ -317,6 +317,11 @@ class PreparedTiming:
             out.append((pname, key, idx))
         return out
 
+    def params_with_vector(self, x):
+        """The params dict with the flat free-param vector x overlaid
+        (see _overlay_params)."""
+        return _overlay_params(x, self.params0, tuple(self.free_param_map()))
+
     def vector_from_params(self, params=None):
         p = self.params0 if params is None else params
         vals = [p[key] if idx is None else p[key][idx]

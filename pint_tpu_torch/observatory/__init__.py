@@ -71,6 +71,11 @@ class TopoObs(Observatory):
         self._clock: list[ClockFile] | None = None
         self._warned = False
 
+    def earth_location_itrf(self):
+        """The site's ITRF position [m] (TroposphereDelay reads its
+        latitude and height from it)."""
+        return self.itrf_xyz
+
     def _load_clock(self):
         if self._clock is None:
             self._clock = []

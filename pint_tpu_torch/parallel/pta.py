@@ -9,23 +9,30 @@ noise-basis and jacobian evaluations of the timing model — never around
 a kernel call: the packed program hands all rows of a bucket to ONE
 kernel launch, with segment ids ``row * S + slot``.
 
-Two GLS programs, as in the JAX package:
+Three programs, as in the JAX package:
 
 - :meth:`PTABatch._build_gls_packed` — the shape-planned layout where
   several pulsars share a padded row (``stack_packed``); fused and
   classic, f64 and mixed. Under ``precision="mixed"`` it runs the two
   hand-written kernels (kernels/fusedgls.py, kernels/seggram.py).
-- :meth:`PTABatch._build_gls` — one pulsar per row, for
-  ``ecorr_mode="auto"``: analytically marginalised sparse ECORR (with
-  the noise hoist), or no ECORR. The dense-ECORR solve is not ported.
+- :meth:`PTABatch._build_gls` — one pulsar per row: analytically
+  marginalised sparse ECORR (with the noise hoist), or the dense solve
+  over every basis column (``ecorr_mode="dense"``, overlapping ECORR
+  masks, or no ECORR).
+- :meth:`PTABatch._build_wls` — the column-normalised SVD step for
+  structures without correlated noise (``PTAFleet.fit`` method "wls",
+  or "auto" on such a bucket).
+
+``precision="auto"`` times one warm mixed and one warm f64 fit of a
+bucket structure and keeps the faster (:meth:`PTABatch._resolve_precision`).
 
 :meth:`PTAFleet.gw_stage` runs the GW detection stage (``gw/``) on the
 fitted fleet: :meth:`PTABatch.gw_arrays` evaluates post-fit residuals
 in both layouts, the packed one through the packed fit's own slot
 machinery (:meth:`PTABatch._slots`).
 
-The WLS program, the pipelined executor, compile caches, the pack store
-and the observability hooks of the JAX package are not ported yet.
+The pipelined executor, compile caches, the pack store and the
+observability hooks of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,9 +49,10 @@ from .. import DTYPE, gw, resolve_device
 from ..fitter import (_mtv, _mv, check_precision, gls_eigh_refine,
                       gls_eigh_solve, gls_fused_normal, gls_gram, gls_whiten,
                       relres_failed, seg_gls_eigh_refine, seg_gls_norm,
-                      seg_gls_whiten, stack_noise_bases)
+                      seg_gls_whiten, stack_noise_bases, wls_step)
 from ..kernels.fusedgls import fused_segment_gls
 from ..kernels.seggram import segment_gram
+from ..models.noise import EcorrNoise
 from ..models.timing_model import _overlay_params, host_to_device
 from ..segment import block_segment_sum, segment_sum
 from ..toa import TOABatch
@@ -64,11 +72,22 @@ def _np(v):
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def _no_dense_ecorr(preps):
-    if any("ecorr_U" in p.prep for p in preps):
-        raise NotImplementedError(
-            "overlapping ECORR masks need the dense ECORR basis, whose GLS "
-            "solve is not ported to pint_tpu_torch yet")
+# precision="auto" verdicts per (structure, shapes, fit options), kept
+# for the process (PTABatch._resolve_precision)
+_PRECISION_AUTO_CACHE = {}
+
+
+def _uniform_ecorr(preps):
+    """One ECORR representation across a batch: pulsars with
+    overlapping masks pack the dense U, disjoint ones the O(n) epoch
+    index (models/noise.py::EcorrNoise.pack); a mixed batch densifies
+    the sparse ones, as the JAX package does."""
+    if (any("ecorr_U" in p.prep for p in preps)
+            and any("ecorr_eidx" in p.prep for p in preps)):
+        for p in preps:
+            if "ecorr_eidx" in p.prep:
+                p.prep["ecorr_U"] = EcorrNoise.dense_U(p.prep)
+                del p.prep["ecorr_eidx"]
 
 
 def _toa_dim_pad(arr, n_toa, n_max):
@@ -142,7 +161,7 @@ def stack_prepared(preps, pad_toas=None):
     (>= the batch max count). Returns (params, prep, batch_fields,
     static, n_toas).
     """
-    _no_dense_ecorr(preps)
+    _uniform_ecorr(preps)
     n_max = max(p.batch.n_toas for p in preps)
     if pad_toas is not None:
         if int(pad_toas) < n_max:
@@ -195,7 +214,7 @@ def stack_packed(preps, bucket, e_quantum=32):
 
     Returns (params, prep, batch_fields, static, n_toas, pack).
     """
-    _no_dense_ecorr(preps)
+    _uniform_ecorr(preps)
     W = int(bucket.width)
     rows = bucket.rows
     R = len(rows)
@@ -288,6 +307,19 @@ def stack_packed(preps, bucket, e_quantum=32):
                 eoff, _, espan = epoch_info[i]
                 ebs[eoff // int(e_quantum):(eoff + espan) // int(e_quantum)] = s_i
             comb["_pack_eblock_slot"] = ebs
+        elif "ecorr_owner" in preps[i0].prep:
+            # dense-U bucket: the owner stays local per slot (the
+            # columns are shared across slots; each slot's rows carry
+            # its own U)
+            kU = max(int(_np(p.prep["ecorr_owner"]).shape[0]) for p in preps)
+            owners = []
+            for i, _ in r:
+                ow = np.full(kU, -1, dtype=np.int64)
+                o = _np(preps[i].prep["ecorr_owner"])
+                ow[:o.shape[0]] = o
+                owners.append(ow)
+            owners += [np.full(kU, -1, dtype=np.int64)] * (S - len(owners))
+            comb["ecorr_owner"] = np.stack(owners)
         bs = np.zeros(W // Q, dtype=np.int64)
         off = 0
         for s_i, (i, w) in enumerate(r):
@@ -621,16 +653,92 @@ class PTABatch:
         return bool(free_names & noise)
 
     def _marginalize(self, ecorr_mode):
+        """True when the ECORR epochs are marginalized analytically:
+        ``ecorr_mode="auto"`` on disjoint epochs. ``"dense"``,
+        overlapping masks (only the dense U is packed) and zero epochs
+        take the dense solve over every basis column instead."""
         if ecorr_mode not in ("auto", "dense"):
             raise ValueError(
                 f"ecorr_mode must be 'auto' or 'dense', got {ecorr_mode!r}")
-        if "EcorrNoise" not in self.template.components:
+        if ("EcorrNoise" not in self.template.components
+                or ecorr_mode == "dense"):
             return False
-        if ecorr_mode == "dense":
-            raise NotImplementedError(
-                "ecorr_mode='dense' is not ported to pint_tpu_torch yet")
         return bool("ecorr_eidx" in self.prep
                     and self.prep["ecorr_owner"].shape[-1] > 0)
+
+    def _design_fn(self):
+        """(x, p) -> (B, n, 1 + k) time design matrix of every pulsar:
+        the offset column, then d(phase)/dx / F0 by jacfwd."""
+        vmap = torch.func.vmap
+        phase_fn = self._phase_fn()
+        params, batch = self.params, self.batch
+        prep = _tensor_tree(self.prep)
+
+        def design(x, p):
+            def phase_of(xv, ps, b, pr):
+                return phase_fn(self._overlay(ps, xv), b, pr)
+
+            M = vmap(torch.func.jacfwd(phase_of))(x, params, batch, prep)
+            M = M / p["F"][:, 0, None, None]
+            return torch.cat([torch.ones_like(M[..., :1]), M], dim=-1)
+
+        return design
+
+    # -- the WLS program --
+
+    def _build_wls(self, maxiter=3, threshold=1e-12):
+        """fit(x0) -> (x, chi2, (covn, norm)) for the whole batch — the
+        JAX package's ``_build_wls`` with the pulsar axis written out:
+        per iteration the column-normalized whitened SVD step
+        (fitter.wls_step, batched) and chi2 at the linearization,
+        |rw - Mw dx|^2. Unpacked batches only: the planner gives
+        structures without correlated noise singleton rows."""
+        if self._pack:
+            raise RuntimeError(
+                "WLS is not supported on packed plan batches; the "
+                "planner gives WLS structures singleton rows "
+                "(PTABatch(..., pad_toas=width)) instead")
+        resid = self._resid_fn()
+        design = self._design_fn()
+        params = self.params
+
+        def one_step(x):
+            p = self._overlay(params, x)
+            r, sig = resid(p)
+            sigma_s = sig * 1e-6
+            Mw = design(x, p) / sigma_s[..., None]
+            rw = r / sigma_s
+            dx, covn, norm = wls_step(Mw, rw, threshold)
+            chi2 = torch.sum(torch.square(rw - _mv(Mw, dx)), dim=-1)
+            return x - dx[..., 1:], chi2, (covn[..., 1:, 1:], norm[..., 1:])
+
+        def fit(x0):
+            x = x0
+            for _ in range(maxiter):
+                x, chi2, cov = one_step(x)
+            return x, chi2, cov
+
+        return fit
+
+    def wls_fit(self, maxiter=3, threshold=1e-12):
+        """Multi-pulsar WLS fit of the whole batch (see _build_wls).
+
+        Returns numpy (x_fit (n_psr, n_free), chi2 (n_psr,), cov
+        (n_psr, k, k)); diverged pulsars are reported via self.diverged
+        and returned with their starting vectors."""
+        t0 = time.perf_counter()
+        fit = self._build_wls(maxiter, threshold)
+        x0 = self._x0()
+        with torch.no_grad():
+            x, chi2, (covn, norm) = fit(x0)
+        x, chi2, covn, norm, x0 = (_np(v) for v in (x, chi2, covn, norm, x0))
+        cov = covn / (norm[:, :, None] * norm[:, None, :])
+        x, chi2 = self._isolate_diverged(x0, x, chi2)
+        self.metrics = {"method": "wls", "device": str(self.device),
+                        "fit_wall_s": time.perf_counter() - t0,
+                        "maxiter": maxiter, "n_pulsars": self.n_pulsars,
+                        "n_toas_total": int(np.sum(self.n_toas))}
+        return x, chi2, cov
 
     # -- the two GLS programs --
 
@@ -641,8 +749,10 @@ class PTABatch:
         axis written out. ECORR epochs are marginalized analytically
         (per-epoch Sherman-Morrison through segment sums); with every
         noise parameter frozen the x-independent blocks are hoisted out
-        of the Gauss-Newton loop. No ECORR: the dense solve over the
-        parameter + red-noise columns."""
+        of the Gauss-Newton loop. ``ecorr_mode="dense"``, overlapping
+        ECORR masks or no ECORR: the dense solve over the parameter and
+        every basis column (ECORR's U and the red-noise Fourier
+        columns), ``one_step_dense``."""
         if self._pack:
             return self._build_gls_packed(
                 maxiter, threshold, ecorr_mode, precision,
@@ -651,7 +761,6 @@ class PTABatch:
         marginalize = self._marginalize(ecorr_mode)
         hoist = marginalize and not self._noise_params_free()
         vmap = torch.func.vmap
-        phase_fn = self._phase_fn()
         sigma_fn = self._sigma_fn()
         noise_bw = self._noise_bw_fn(exclude_ecorr=marginalize)
         ecorr = (self.template.components["EcorrNoise"] if marginalize
@@ -662,14 +771,7 @@ class PTABatch:
         Bn_ = batch.tdb_sec.shape[0]
         dev = self.device
         resid = self._resid_fn()
-
-        def design(x, p):
-            def phase_of(xv, ps, b, pr):
-                return phase_fn(self._overlay(ps, xv), b, pr)
-
-            M = vmap(torch.func.jacfwd(phase_of))(x, params, batch, prep)
-            M = M / p["F"][:, 0, None, None]
-            return torch.cat([torch.ones_like(M[..., :1]), M], dim=-1)
+        design = self._design_fn()
 
         def bases(p):
             if noise_bw is None:
@@ -1009,12 +1111,15 @@ class PTABatch:
         in f32 — the hand-written kernels on a packed batch on the card —
         and recovers f64 accuracy by refinement; if any pulsar's
         refinement fails to contract the batch is refit in f64 with a
-        warning.
+        warning. ``precision="auto"`` takes the measured faster mode of
+        this bucket structure (:meth:`_resolve_precision`).
 
         Returns numpy (x_fit (n_psr, n_free), chi2 (n_psr,), cov
         (n_psr, k, k)); diverged pulsars are reported via self.diverged
         and returned with their starting vectors.
         """
+        precision = self._resolve_precision(precision, maxiter, threshold,
+                                            ecorr_mode, fused)
         t0 = time.perf_counter()
         fit = self._build_gls(maxiter, threshold, ecorr_mode, precision,
                               fused=fused)
@@ -1051,6 +1156,76 @@ class PTABatch:
                         "relres_max": float(np.max(relres)) if len(relres) else 0.0,
                         "refit_f64": False}
         return x, chi2, cov
+
+    @staticmethod
+    def _precision_verdict(timings, mixed_failed):
+        """The decision rule behind precision="auto": f64 wins when the
+        mixed probe's refinement diagnostic failed (a mode that would
+        fall back at once is never faster) or when the timed warm run
+        says f64 is at least as fast; ties go to f64. Mixed has to earn
+        its place with a strictly faster measured run."""
+        if mixed_failed:
+            return "f64"
+        return "f64" if timings["f64"] <= timings["mixed"] else "mixed"
+
+    def _resolve_precision(self, precision, maxiter=2, threshold=1e-12,
+                           ecorr_mode="auto", fused=None):
+        """Resolve precision="auto" to the measured winner of "f64" and
+        "mixed" for this bucket structure: each program runs once to
+        warm up and once timed (host clock after a device
+        synchronize), and the faster wins unless the mixed run's
+        refinement diagnostic failed. The verdict is cached for the
+        process, keyed on (structure, shapes, fit options), and kept
+        with its timings in ``self.precision_auto``. Explicit "f64" and
+        "mixed" pass through."""
+        check_precision(precision, allow_auto=True)
+        if precision != "auto":
+            return precision
+        if self._pack and fused is not None and not fused:
+            # the classic packed program is f64-only
+            return "f64"
+        key = (self.structure_key(self.template), self.shape_signature(),
+               maxiter, threshold, ecorr_mode, fused)
+        choice = _PRECISION_AUTO_CACHE.get(key)
+        if choice is not None:
+            return choice
+        x0 = self._x0()
+        timings = {}
+        mixed_failed = False
+        for mode in ("f64", "mixed"):
+            fit = self._build_gls(maxiter, threshold, ecorr_mode, mode,
+                                  fused=fused)
+            with torch.no_grad():
+                out = fit(x0)  # warm-up
+                if mode == "mixed":
+                    mixed_failed = relres_failed(_np(out[2][2]))
+                self._sync()
+                t0 = time.perf_counter()
+                fit(x0)
+                self._sync()
+            timings[mode] = time.perf_counter() - t0
+        choice = _PRECISION_AUTO_CACHE.setdefault(
+            key, self._precision_verdict(timings, mixed_failed))
+        self.precision_auto = {"choice": choice, "f64_s": timings["f64"],
+                               "mixed_s": timings["mixed"],
+                               "mixed_relres_failed": mixed_failed}
+        return choice
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def shape_signature(self):
+        """Hashable fingerprint of every array's (shape, dtype) across
+        (params, prep, batch): with structure_key, what makes two
+        batches run the same programs (ECORR epoch counts and param
+        vector lengths that the structure key cannot see)."""
+        leaves = ([self.params[k] for k in sorted(self.params)]
+                  + [self.prep[k] for k in sorted(self.prep)]
+                  + list(self.batch))
+        return tuple((tuple(getattr(v, "shape", np.shape(v))),
+                      str(getattr(v, "dtype", type(v).__name__)))
+                     for v in leaves)
 
     def _isolate_diverged(self, x0, x, chi2):
         """Per-pulsar fault isolation: a diverged pulsar (non-finite
@@ -1164,20 +1339,59 @@ class PTAFleet:
     """Mixed-structure PTA fitting: bucket pulsars by model structure
     (and TOA count), one PTABatch per bucket, fit buckets in order."""
 
+    @staticmethod
+    def optimal_split_bounds(counts, k):
+        """Upper bounds (inclusive pad targets) of the <= k contiguous
+        segments over sorted TOA counts that minimize the total padded
+        area sum(len(segment) * max(segment)) — an exact O(n^2 k)
+        dynamic program (the JAX package's ``optimal_split_bounds``)."""
+        c = np.sort(np.asarray(counts, dtype=np.int64))
+        n = len(c)
+        if n == 0:
+            return []
+        k = min(int(k), n)  # segments beyond n are useless
+        cost = np.full((n + 1, k + 1), np.inf)
+        cost[0, 0] = 0.0
+        back = np.zeros((n + 1, k + 1), dtype=np.int64)
+        for i in range(1, n + 1):
+            for j in range(1, k + 1):
+                for p in range(i):
+                    v = cost[p, j - 1] + (i - p) * c[i - 1]
+                    if v < cost[i, j]:
+                        cost[i, j] = v
+                        back[i, j] = p
+        j = int(np.argmin(cost[n, 1:])) + 1
+        bounds = []
+        i = n
+        while j > 0:
+            bounds.append(int(c[i - 1]))
+            i = int(back[i, j])
+            j -= 1
+        return sorted(bounds)
+
     @classmethod
     def plan_groups(cls, models, toas_list, toa_bucket=None,
-                    plan_compile_budget=None, plan_max_pack=None,
-                    plan_quantum=None, plan_min_width=None):
+                    bucket_floor=256, plan_compile_budget=None,
+                    plan_max_pack=None, plan_quantum=None,
+                    plan_min_width=None):
         """Bucket assignment without building any PTABatch: (groups,
         build_kwargs, plans) — groups maps bucket key -> pulsar indices,
         build_kwargs the PTABatch kwargs (plan= / pad_toas=) a bucket
         needs, plans structure key -> ShapePlan (toa_bucket="plan")."""
         from . import shapeplan
 
-        if toa_bucket not in (None, "plan"):
-            raise NotImplementedError(
-                f"toa_bucket={toa_bucket!r}: only None and 'plan' are "
-                "ported to pint_tpu_torch")
+        split_k = None
+        if isinstance(toa_bucket, str) and toa_bucket.startswith("split"):
+            try:
+                split_k = int(toa_bucket[5:])
+            except ValueError:
+                split_k = 0
+            if split_k < 1:
+                raise ValueError(f"toa_bucket {toa_bucket!r}: 'split<k>' "
+                                 f"needs a positive integer k")
+        elif toa_bucket not in (None, "pow2", "plan"):
+            raise ValueError(f"toa_bucket must be None, 'pow2', 'plan', "
+                             f"or 'split<k>', got {toa_bucket!r}")
         plans, build_kwargs, groups = {}, {}, {}
         if toa_bucket == "plan":
             plan_kw = {}
@@ -1211,19 +1425,43 @@ class PTAFleet:
                     else:
                         build_kwargs[key] = {"pad_toas": bucket.width}
         else:
-            for i, m in enumerate(models):
-                groups.setdefault(PTABatch.structure_key(m), []).append(i)
+            split_bounds = {}
+            if split_k is not None:
+                by_struct = {}
+                for m, t in zip(models, toas_list):
+                    by_struct.setdefault(PTABatch.structure_key(m),
+                                         []).append(len(t))
+                split_bounds = {sk: cls.optimal_split_bounds(cs, split_k)
+                                for sk, cs in by_struct.items()}
+            for i, (m, t) in enumerate(zip(models, toas_list)):
+                key = PTABatch.structure_key(m)
+                if toa_bucket == "pow2":
+                    key = (key, shapeplan.pow2_width(len(t), bucket_floor))
+                elif split_k is not None:
+                    for b in split_bounds[key]:
+                        if len(t) <= b:
+                            break
+                    key = (key, b)
+                groups.setdefault(key, []).append(i)
         return groups, build_kwargs, plans
 
     def __init__(self, models, toas_list, toa_bucket=None,
-                 plan_compile_budget=None, plan_max_pack=None,
-                 plan_quantum=None, plan_min_width=None, device="cuda"):
-        """toa_bucket=None groups by model structure only; "plan" by the
-        shape planner (shapeplan.plan_shapes), which packs small pulsars
-        several to a row. Every bucket's batch lives on ``device``."""
+                 bucket_floor=256, plan_compile_budget=None,
+                 plan_max_pack=None, plan_quantum=None,
+                 plan_min_width=None, device="cuda"):
+        """toa_bucket=None groups by model structure only (each batch
+        pads to its own max TOA count); "pow2" also buckets pulsars by
+        the next power of two >= their TOA count (from
+        ``bucket_floor``), capping padding at 2x per pulsar;
+        "split<k>" cuts each structure into at most k buckets at the
+        thresholds of the minimum-padded-area program
+        (:meth:`optimal_split_bounds`); "plan" uses the shape planner
+        (shapeplan.plan_shapes), which packs small pulsars several to a
+        row. Every bucket's batch lives on ``device``."""
         self.device = resolve_device(device)
         groups, build_kwargs, self.plans = self.plan_groups(
             models, toas_list, toa_bucket=toa_bucket,
+            bucket_floor=bucket_floor,
             plan_compile_budget=plan_compile_budget,
             plan_max_pack=plan_max_pack, plan_quantum=plan_quantum,
             plan_min_width=plan_min_width)
@@ -1242,10 +1480,19 @@ class PTAFleet:
                          for idxs in groups.values())
         self.padding_ratio = padded / max(real, 1)
 
+    @staticmethod
+    def _use_gls(batch, method):
+        if method not in ("auto", "gls", "wls"):
+            raise ValueError(f"method must be 'auto', 'gls' or 'wls', "
+                             f"got {method!r}")
+        return (method == "gls"
+                or (method == "auto" and batch._noise_bw_fn() is not None))
+
     def fit(self, method="auto", maxiter=3, **kw):
         """Fit every bucket in order; returns per-pulsar lists (x, chi2,
-        cov) in the original pulsar order. method "gls" (or "auto" on
-        structures with correlated noise); WLS is not ported yet."""
+        cov) in the original pulsar order. method: "wls", "gls", or
+        "auto" (gls when the bucket has correlated-noise components,
+        wls otherwise); ``**kw`` goes to the bucket's fit."""
         xs = [None] * self.n
         chi2s = np.zeros(self.n)
         covs = [None] * self.n
@@ -1253,12 +1500,8 @@ class PTAFleet:
         self.fit_metrics = {}
         for key, idxs in self.group_indices.items():
             batch = self.batches[key]
-            if method != "gls" and not (method == "auto"
-                                        and batch._noise_bw_fn() is not None):
-                raise NotImplementedError(
-                    f"method={method!r} on this bucket needs WLS, which is "
-                    "not ported to pint_tpu_torch yet")
-            x, chi2, cov = batch.gls_fit(maxiter=maxiter, **kw)
+            fit = batch.gls_fit if self._use_gls(batch, method) else batch.wls_fit
+            x, chi2, cov = fit(maxiter=maxiter, **kw)
             for j, i in enumerate(idxs):
                 xs[i], chi2s[i], covs[i] = x[j], chi2[j], cov[j]
             self.diverged.extend(idxs[j] for j in batch.diverged)

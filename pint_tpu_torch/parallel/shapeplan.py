@@ -19,7 +19,7 @@ which row of which bucket, at which offset — plus a stable
 ``signature()``. The planner never touches device arrays.
 
 (Host numpy copied from the JAX package's ``parallel/shapeplan.py``;
-``pow2_width`` carries its own copy of the pow2 convention.)
+``pow2_width`` wraps the port's ``serve/batcher.py::pow2_bucket``.)
 """
 
 from __future__ import annotations
@@ -67,13 +67,11 @@ _QUANTUM_PENALTY = 1.0
 
 def pow2_width(n, floor=256):
     """Smallest power-of-two >= n, starting at ``floor`` (the legacy
-    ladder; same convention as the JAX package's
-    serve/batcher.py::pow2_bucket, copied here so the port stands
-    alone)."""
-    b = int(floor)
-    while b < n:
-        b *= 2
-    return b
+    ladder): the port's serve/batcher.py::pow2_bucket, so fleet buckets
+    and the pow2 convention cannot desynchronize."""
+    from ..serve.batcher import pow2_bucket
+
+    return pow2_bucket(n, floor)
 
 
 def align_up(n, quantum):

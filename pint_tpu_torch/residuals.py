@@ -36,6 +36,8 @@ class Residuals:
                          else model.prepare(toas, device=device))
         self._phase_resids = None
         self._time_resids = None
+        # per-component noise realizations a GLS-family fit attaches
+        self.noise_resids = None
 
     # ---- core ----
 
@@ -84,12 +86,21 @@ class Residuals:
         return float(np.sqrt(np.sum(w * (r - mean) ** 2) / np.sum(w)))
 
     def calc_whitened_resids(self, params=None):
-        """Residuals divided by the scaled uncertainties (reference:
-        residuals.py::Residuals.calc_whitened_resids, without the
-        correlated-noise realizations a GLS fitter would attach; the
-        port's fitter classes are not ported)."""
+        """Residuals divided by the scaled uncertainties — dimensionless,
+        unit variance when the noise model is right (reference:
+        residuals.py::Residuals.calc_whitened_resids). When a GLS fit
+        attached ``noise_resids`` (per-component correlated-noise
+        realizations [s], host arrays), they are subtracted first, so
+        the result is whitened against the full noise model.
+        ``calc_chi2``/``lnlikelihood`` deliberately do not subtract
+        them: the realization-conditioned sum of squares lacks the
+        amplitude-prior term and would read biased-low; the marginalized
+        statistic is the GLS fitter's ``chi2_whitened``."""
+        r = self.calc_time_resids(params)
+        for v in (self.noise_resids or {}).values():
+            r = r - torch.as_tensor(v, dtype=r.dtype, device=r.device)
         sigma_s = self.prepared.scaled_sigma_us(params) * 1e-6
-        return self.calc_time_resids(params) / sigma_s
+        return r / sigma_s
 
     def calc_chi2(self, params=None):
         r = self.calc_time_resids(params)

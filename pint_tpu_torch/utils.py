@@ -1,7 +1,8 @@
 """Helpers the slice uses from the JAX package's ``utils.py``.
 
-``PosVel``, ``interesting_lines``, ``split_prefixed_name`` and
-``compute_hash`` are host numpy/str code copied as they are; ``weighted_mean`` is the torch form.
+``PosVel``, ``interesting_lines``, ``split_prefixed_name``,
+``compute_hash`` and ``ftest`` are host numpy/str code copied as they
+are; ``weighted_mean`` is the torch form.
 (The JAX module imports JAX at top level, so it cannot be copied whole.)
 """
 
@@ -32,6 +33,22 @@ def weighted_mean(x, sigma, axis=None):
     if axis is None:
         return torch.sum(x * w) / torch.sum(w)
     return torch.sum(x * w, dim=axis) / torch.sum(w, dim=axis)
+
+
+def ftest(chi2_1, dof_1, chi2_2, dof_2):
+    """F-test probability that the parameter addition is NOT needed.
+
+    (reference: src/pint/utils.py::FTest). Returns the p-value of the
+    F statistic for nested models; small p => added params significant.
+    """
+    from scipy.stats import f as fdist
+
+    delta_chi2 = chi2_1 - chi2_2
+    delta_dof = dof_1 - dof_2
+    if delta_chi2 <= 0 or delta_dof <= 0 or dof_2 <= 0:
+        return 1.0
+    fstat = (delta_chi2 / delta_dof) / (chi2_2 / dof_2)
+    return float(fdist.sf(fstat, delta_dof, dof_2))
 
 
 class PosVel:
@@ -68,6 +85,10 @@ class PosVel:
 
     def __repr__(self):
         return f"PosVel({self.origin}->{self.obj}, pos~{self.pos.ravel()[:3]})"
+
+
+# upstream spelling (reference: src/pint/utils.py::FTest)
+FTest = ftest
 
 
 def interesting_lines(lines, comments=("#", "C ")):

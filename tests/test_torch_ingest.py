@@ -571,17 +571,11 @@ def test_get_toas_bitwise(which, planets, paths):
 
 
 def _ngc_model():
+    """The port's NGC6440E.par as it is (SolarWindDispersion and
+    TroposphereDelay included)."""
     from pint_tpu_torch.models import get_model
 
-    return get_model(stripped_ngc_par())
-
-
-def stripped_ngc_par():
-    """The port's NGC6440E.par without SOLARN0 and CORRECT_TROPOSPHERE
-    (SolarWindDispersion and TroposphereDelay are not ported; both
-    delays are exactly zero at these values)."""
-    return "".join(line + "\n" for line in NGC_PAR.read_text().splitlines()
-                   if not line.startswith(("SOLARN0", "CORRECT_TROPOSPHERE")))
+    return get_model(str(NGC_PAR))
 
 
 def test_pickle_cache_hit_equals_miss(tmp_path):

@@ -192,8 +192,9 @@ def test_fake_toas_have_zero_residuals():
 def test_builder_names_unported_components():
     from pint_tpu_torch.models import get_model
 
-    with pytest.raises(NotImplementedError, match="SolarWindDispersion"):
-        get_model(str(ROOT / "pint_tpu" / "data" / "examples" / "NGC6440E.par"))
+    with pytest.raises(NotImplementedError, match="DispersionDMX"):
+        get_model(EQUATORIAL + "DMX 14.0\nDMX_0001 0.001 1\n"
+                  "DMXR1_0001 54000\nDMXR2_0001 55000\n")
     with pytest.raises(NotImplementedError, match="binary model"):
         get_model(EQUATORIAL + "BINARY ELL1\nPB 1.5\nA1 2.0\n")
 

@@ -249,21 +249,3 @@ def test_solve_core_matches_jax():
     assert np.abs(dt.numpy() - np.asarray(dj)).max() <= 1e-9 * np.abs(np.asarray(dj)).max()
     assert tf.relres_failed(np.array([1e-12, np.nan]))
     assert not tf.relres_failed(rt.numpy())
-
-
-def test_dense_ecorr_is_not_ported(bench_fleets):
-    _, tf, _ = bench_fleets
-    b = next(iter(tf.batches.values()))
-    with pytest.raises(NotImplementedError, match="dense"):
-        b.gls_fit(ecorr_mode="dense")
-    assert torch.get_default_dtype() == torch.float32  # no global change
-
-
-@pytest.mark.parametrize("mode", ["pow2", "split2"])
-def test_unported_bucket_modes_raise(mode):
-    """Only toa_bucket=None and "plan" are ported; the JAX package's
-    other bucket modes raise instead of bucketing some other way."""
-    from pint_tpu_torch.parallel.pta import PTAFleet
-
-    with pytest.raises(NotImplementedError, match=mode):
-        PTAFleet.plan_groups([], [], toa_bucket=mode)

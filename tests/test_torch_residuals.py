@@ -9,19 +9,25 @@ largest term, delay x F0 ~ 3e4 cycles, carries ~1e-11 cycles of
 rounding) and time residuals to 1e-9 cycles / F0; the golden NGC6440E
 prefit residuals are held to their own 1e-3 us, and sums over the
 residuals (chi2, the weighted rms, the epoch averages) to 1e-9
-relative. The par file drops SOLARN0 and CORRECT_TROPOSPHERE, whose
-components are not ported; the first test shows that this changes
-nothing in the JAX package.
+relative. The par file is the unmodified example (SolarWindDispersion
+and TroposphereDelay with zero delays); the first test shows that
+dropping those two lines changes nothing in the JAX package.
 """
 
 import numpy as np
 import pytest
 
-from test_torch_ingest import NGC_TIM, ROOT, stripped_ngc_par
+from test_torch_ingest import NGC_PAR, NGC_TIM, ROOT
 
 JAX_PAR = ROOT / "pint_tpu" / "data" / "examples" / "NGC6440E.par"
 JAX_TIM = ROOT / "pint_tpu" / "data" / "examples" / "NGC6440E.tim"
 GOLDEN = ROOT / "pint_tpu_torch" / "data" / "examples" / "NGC6440E_prefit_resids_us.npy"
+
+
+def stripped_ngc_par():
+    """NGC6440E.par without SOLARN0 and CORRECT_TROPOSPHERE."""
+    return "".join(line + "\n" for line in NGC_PAR.read_text().splitlines()
+                   if not line.startswith(("SOLARN0", "CORRECT_TROPOSPHERE")))
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +39,7 @@ def ngc():
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.toa import get_TOAs
 
-    m = get_model(stripped_ngc_par())
+    m = get_model(str(NGC_PAR))
     jm = jget_model(str(JAX_PAR))
     return m, get_TOAs(NGC_TIM, model=m), jm, jget_TOAs(JAX_TIM, model=jm)
 
@@ -67,9 +73,10 @@ def test_ngc6440e_residuals_match_jax_and_golden(ngc):
     from pint_tpu_torch.residuals import Residuals
 
     m, t, jm, jt = ngc
-    assert list(m.components) == ["Spindown", "AstrometryEquatorial",
-                                  "DispersionDM", "SolarSystemShapiro",
-                                  "AbsPhase"]
+    assert list(m.components) == list(jm.components) == [
+        "Spindown", "AstrometryEquatorial", "DispersionDM",
+        "SolarSystemShapiro", "SolarWindDispersion", "TroposphereDelay",
+        "AbsPhase"]
     r, jr = Residuals(t, m, device="cpu"), JResiduals(jt, jm)
     assert np.abs(r.phase_resids - np.asarray(jr.phase_resids)).max() <= 1e-9
     f0 = m.F0.value
