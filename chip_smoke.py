@@ -42,7 +42,8 @@ these phases:
    refit taken), |x_mixed - x_f64| <= 1e-6 sigma, |x_fit - x_true| <=
    0.01 sigma for all 68 pulsars, finite chi2;
 5. the kernel phase: each GLS kernel on the inputs the main path gave
-   it (recorded in one more mixed fit), held against its plain f32
+   it (recorded in one more mixed fit; the ``[zoo] fleet``'s shapes
+   under the record's ``zoo`` key), held against its plain f32
    version (max |G_kernel - G_plain| <= 1e-5 max|G| over the entries the
    fit reads) and against the f64 plain version; CUDA-event times of
    the kernel, the plain version and one ``torch.bmm`` in f32 (TF32
@@ -70,6 +71,31 @@ these phases:
    cuSOLVER SVD driver timed (held to GLS within 1e-6 sigma), and
    dense against marginalized ECORR on the 8 smallest pulsars (rtol
    1e-9 on the updates, 1e-12 on chi2), each cold then warm;
+5d. ``[zoo] b1855``: the repo's second golden pack (ELL1H + DMX +
+   EFAC/EQUAD/ECORR + red noise, 300 Arecibo TOAs; the port's copy)
+   through ``get_model_and_toas`` -> ``Residuals`` on the card (golden
+   prefit residuals within 1e-3 us), then GLSFitter (f64, mixed),
+   DownhillGLSFitter and WLSFitter (without the correlated noise, which
+   it must refuse), held to the JAX package's fits in
+   ``B1855SIM_postfit.json`` (values 1e-6 sigma, uncertainties 1e-5,
+   mixed 3e-4, chi2 1e-7) and chi2_whitened within 0.01 of 207.511488;
+   ``[zoo] components``: one small par per zoo class (``ZOO_COMPONENTS``,
+   from the JAX package's tests) on 200 noisy TOAs from the port's
+   maker, card vs CPU: delay 1e-12 s, phase 1e-9 cycles, design columns
+   1e-9 of their max, chi2 2e-7 relative;
+   ``[zoo] fleet``: the main path's counts and epochs (669,488 GBT TOAs
+   made on the card) with ``zoo_par_text``: DMX_0001..0017 (180-day
+   windows), FD1/FD2 and a JUMP on the 800 MHz receiver free, and by
+   ``i % 4`` isolated, ELL1 (J1909-BENCH), ELL1H (b1855sim) or DD
+   orbits; TOAs on three sub-bands per receiver with ``-fe`` flags.
+   ``PTAFleet(toa_bucket="plan")`` mixed cold (K1/K2 counts set to 0
+   just before and read just after, per bucket), warm (profiled), f64,
+   from 3 sigma off; checks a packed bucket per structure with K1 and
+   K2 launched in each, relres <= 1e-8 with no refit, mixed vs f64 <=
+   1e-6 sigma, recovery <= 0.01 sigma, and one single-pulsar
+   GLSFitter per structure within 1e-4 sigma of its fleet row; the
+   kernels' inputs of each bucket shape are recorded for the kernel
+   line;
 6. ``[gw] fleet``: the GW stage on the main path's fleet at its warm
    mixed-fit vectors: assemble and regrid at 30 days (timed), then the
    optimal statistic with the pair products in mixed (the K3 kernel;
@@ -161,6 +187,7 @@ no CUDA card, or a directory without the rest of the repository.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -242,24 +269,89 @@ def par_text(i):
             "RNAMP 1e-14\nRNIDX -3.1\nTNREDC 30\n")
 
 
-def build_pta(counts, device, seed=0, iterations=2):
+# [zoo] fleet: 17 disjoint 180-day DMX windows over MJD 54000-57060 and
+# the orbits of the four structures (i % 4): isolated; J1909-BENCH's
+# ELL1 (benchmarks/baseline_configs.py); b1855sim's ELL1H (H3/STIGMA
+# frozen); the DD orbit of tests/test_binary_variants.py
+ZOO_DMX_EDGES = [54000.0 + 180.0 * k for k in range(18)]
+ZOO_ORBITS = (
+    "",
+    "BINARY ELL1\nPB 1.533449 1\nA1 1.89799 1\nTASC 55001.0 1\n"
+    "EPS1 2e-8 1\nEPS2 -8e-8 1\nM2 0.21\nSINI 0.998\n",
+    "BINARY ELL1H\nPB 12.32717 1\nA1 9.230780 1\nTASC 53601.0 1\n"
+    "EPS1 -2.15e-5 1\nEPS2 -3.1e-6 1\nH3 2.7e-7\nSTIGMA 0.72\n",
+    "BINARY DD\nPB 8.0 1\nA1 12.0 1\nT0 55300 1\nECC 0.12 1\nOM 45.0 1\n"
+    "M2 0.35\nSINI 0.92\n")
+ZOO_STRUCTURES = ("isolated", "ELL1", "ELL1H", "DD")
+# three sub-bands in each GBT receiver of the main path's two (Rcvr_800:
+# 720-920 MHz, Rcvr1_2: 1150-1880 MHz), as NANOGrav's GBT TOAs are
+# split in frequency. Two frequencies alone span only two functions of
+# frequency, so FD1, FD2, the receiver JUMP and the DMX windows' common
+# 1/f^2 mode would be degenerate with the offset.
+ZOO_BANDS = {"Rcvr_800": (730.0, 820.0, 910.0),
+             "Rcvr1_2": (1150.0, 1500.0, 1850.0)}
+
+
+def zoo_par_text(i):
+    """The zoo fleet's pulsar i: par_text's spin, position, noise and
+    flags, DM frozen, DMX_0001..0017 free, FD1/FD2 free, a free JUMP on
+    the 800 MHz receiver (true value 0) and structure i % 4's orbit."""
+    dm = f"DM {8 + i}.21 1\n"
+    text = par_text(i).replace(dm, dm[:-3] + "\n")
+    edges = ZOO_DMX_EDGES
+    text += "".join(f"DMX_{k + 1:04d} 0.0 1\nDMXR1_{k + 1:04d} {edges[k]}\n"
+                    f"DMXR2_{k + 1:04d} {edges[k + 1] - 0.001}\n"
+                    for k in range(len(edges) - 1))
+    text += "FD1 1.5e-5 1\nFD2 -4e-6 1\nJUMP -fe Rcvr_800 0.0 1\n"
+    return text + ZOO_ORBITS[i % 4]
+
+
+def zoo_freqs(n):
+    """Frequencies of n TOAs, 4 per epoch 0.5 s apart: the TOAs
+    alternate between the receivers (800 MHz, 1400 MHz), as build_pta's
+    do, and at each pair step to the next sub-band."""
+    j = np.arange(n)
+    bands = np.array([ZOO_BANDS["Rcvr_800"], ZOO_BANDS["Rcvr1_2"]])
+    return bands[j % 2, (j // 2) % 3]
+
+
+def zoo_flags(freq_mhz):
+    """par_text's -f flag and the GBT receiver of a TOA's frequency."""
+    fe = next(name for name, sub in ZOO_BANDS.items()
+              if sub[0] - 100.0 <= freq_mhz <= sub[-1] + 100.0)
+    return {"f": "L-wide", "fe": fe}
+
+
+def alternating_freqs(n):
+    """build_pta's frequencies: 800 and 1400 MHz in turn."""
+    return np.where(np.arange(n) % 2, 1400.0, 800.0)
+
+
+def build_pta(counts, device, seed=0, iterations=2, par_fn=None,
+              freq_fn=alternating_freqs, flag_fn=None):
     """Models and zero-residual TOAs at GBT (bench.py's site, the fake
     maker's default): epochs uniform over MJD 54000-57000, 4 TOAs per
-    epoch 0.5 s apart, 1 us errors, alternating 800/1400 MHz, all
-    flagged -f L-wide."""
+    epoch 0.5 s apart, 1 us errors, frequencies ``freq_fn(n)``
+    (alternating 800/1400 MHz), all flagged -f L-wide plus
+    ``flag_fn(freq)``; pulsar i's par file is ``par_fn(i)``
+    (``par_text``)."""
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
 
     rng = np.random.default_rng(seed)
     models, toas = [], []
     for i, n in enumerate(counts):
-        m = get_model(par_text(i))
+        m = get_model((par_fn or par_text)(i))
         days = np.sort(rng.uniform(54000, 57000, max(1, int(n) // 4)))
         mjds = (days[:, None] + np.arange(4) * 0.5 / 86400.0).reshape(-1)
-        freqs = np.where(np.arange(len(mjds)) % 2, 1400.0, 800.0)
-        toas.append(make_fake_toas_fromMJDs(
+        freqs = freq_fn(len(mjds))
+        t = make_fake_toas_fromMJDs(
             mjds, m, error_us=1.0, freq_mhz=freqs, flags={"f": "L-wide"},
-            iterations=iterations, device=device))
+            iterations=iterations, device=device)
+        if flag_fn is not None:
+            for f, nu in zip(t.flags, freqs):
+                f.update(flag_fn(nu))
+        toas.append(t)
         models.append(m)
     return models, toas
 
@@ -605,15 +697,15 @@ def add_bound_share(rec):
 
 
 def profile_run(torch, tag, fn, top=10):
-    """One run of ``fn`` under torch.profiler; prints the device-busy
-    share of the host wall and the ops with the most device time.
-    Diagnostic only: prints "not measured" when the profiler records no
-    device time."""
+    """One run of ``fn`` under torch.profiler, recording the device's
+    activity alone (the report reads only the CUDA events); prints the
+    device-busy share of the host wall and the ops with the most device
+    time. Diagnostic only: prints "not measured" when the profiler
+    records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -646,17 +738,22 @@ def profile_run(torch, tag, fn, top=10):
         log(f"{tag.split()[0]}   {ms:9.3f} ms  {n:5d}x  {name[:90]}")
 
 
-def capture_inputs(fleet, torch):
-    """One more mixed fit that records the first input each kernel
-    wrapper receives (the main path's real tensors)."""
+def capture_inputs(fleet, torch, tag=None):
+    """One more mixed fit that records the first input each GLS kernel
+    wrapper receives (the main path's real tensors): {"K1": (x, block),
+    "K2": ...}. With ``tag`` (a label of a bucket's key), one mixed fit
+    per bucket, recording the first input of each distinct shape:
+    {"K1": {f"{tag(key)} {shape}": (x, block)}, "K2": ...}."""
     from pint_tpu_torch.kernels import fusedgls, seggram
 
-    seen = {}
+    seen = {"K1": {}, "K2": {}}
     orig = (fusedgls.fused_block_gls_f32, seggram.block_grams_f32)
+    current = [""]
 
     def rec(key, fn):
         def wrapper(x, block):
-            seen.setdefault(key, (x.to(torch.float32).contiguous().clone(),
+            seen[key].setdefault(f"{current[0]} {tuple(x.shape)}",
+                                 (x.to(torch.float32).contiguous().clone(),
                                   block))
             return fn(x, block)
         return wrapper
@@ -664,9 +761,16 @@ def capture_inputs(fleet, torch):
     fusedgls.fused_block_gls_f32 = rec("K1", orig[0])
     seggram.block_grams_f32 = rec("K2", orig[1])
     try:
-        fleet.fit(method="gls", maxiter=2, precision="mixed")
+        if tag is None:
+            fleet.fit(method="gls", maxiter=2, precision="mixed")
+        else:
+            for key, b in fleet.batches.items():
+                current[0] = tag(key)
+                b.gls_fit(maxiter=2, precision="mixed")
     finally:
         fusedgls.fused_block_gls_f32, seggram.block_grams_f32 = orig
+    if tag is None:
+        return {k: next(iter(v.values())) for k, v in seen.items()}
     return seen
 
 
@@ -997,6 +1101,409 @@ def fleet_modes(models, toas, plan_fleet, x_start, x_plan, sig, device="cuda"):
             and np.allclose(ca, cd, rtol=1e-12, atol=0),
     })
     return drivers
+
+
+# ---- [zoo]: the model zoo on the card ----
+
+B1855_PAR = os.path.join(EXAMPLES, "b1855sim.par")
+B1855_TIM = os.path.join(EXAMPLES, "b1855sim.tim")
+B1855_CHI2_WHITENED = 207.511488  # tests/test_golden.py's frozen value
+TOL_B1855_CHI2W = 0.01  # ... and its tier
+TOL_GOLDEN_US = 1e-3  # prefit residuals vs the golden, us
+TOL_B1855_CHI2 = 1e-7  # chi2 vs the JAX fixture, relative (1 us errors)
+TOL_MIXED_UNC = 3e-4  # mixed uncertainties vs the JAX fixture (ROADMAP §3)
+TOL_CROSS_CHI2 = 2e-7  # card vs CPU chi2, relative (test_torch_fleet_modes.py)
+TOL_CROSS_DELAY_S = 1e-12  # card vs CPU delay, s
+TOL_CROSS_PHASE = 1e-9  # card vs CPU phase, cycles
+TOL_CROSS_COL = 1e-9  # card vs CPU design column, of its max |entry|
+TOL_ZOO_SINGLE = 1e-4  # single-pulsar GLSFitter row vs the fleet's, sigma
+B1855_FITTERS = (("GLSFitter", False), ("GLSFitter_mixed", False),
+                 ("DownhillGLSFitter", False), ("WLSFitter_white", True))
+
+
+def zoo_b1855(device="cuda"):
+    """``[zoo] b1855``: the repo's second golden pack (ELL1H + DMX +
+    EFAC/EQUAD/ECORR + red noise, 300 Arecibo TOAs) from the port's copy
+    through ``get_model_and_toas`` -> ``Residuals`` on ``device`` (held
+    to the golden prefit residuals within 1e-3 us), then GLSFitter
+    (maxiter=2, f64 and mixed), DownhillGLSFitter and WLSFitter (on the
+    model without ECORR and red noise; with them it must refuse),
+    each timed and held to the JAX package's fits in
+    ``B1855SIM_postfit.json``: values 1e-6 sigma, uncertainties 1e-5
+    relative (3e-4 in mixed, ROADMAP §3), chi2 1e-7 relative, and the
+    f64 GLS chi2_whitened within 0.01 of 207.511488."""
+    import pint_tpu_torch
+    from pint_tpu_torch import fitter as tfit
+    from pint_tpu_torch.residuals import Residuals
+
+    with open(os.path.join(EXAMPLES, "B1855SIM_postfit.json")) as f:
+        fx = json.load(f)["fitters"]
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m, t = pint_tpu_torch.get_model_and_toas(B1855_PAR, B1855_TIM,
+                                                 usepickle=False)
+    load_s = time.perf_counter() - t0
+    golden = np.load(os.path.join(EXAMPLES, "b1855sim_prefit_resids_us.npy"))
+    r = Residuals(t, m, device=device)
+    d_golden = float(np.max(np.abs(
+        r.calc_time_resids().cpu().numpy() * 1e6 - golden)))
+    log(f"[zoo] b1855: get_model_and_toas {load_s:.2f} s, {len(t)} TOAs, "
+        f"components {list(m.components)}; prefit residuals on {device} vs "
+        f"the golden: max |d| {d_golden:.3e} us")
+    gaps, refused = {}, False
+    for key, white in B1855_FITTERS:
+        ref = fx[key]
+        mm = copy.deepcopy(m)
+        if white:
+            try:
+                tfit.WLSFitter(t, mm, device=device).fit_toas()
+            except tfit.CorrelatedErrors:
+                refused = True
+            for name in ("EcorrNoise", "PLRedNoise"):
+                mm.remove_component(name)
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            f = getattr(tfit, ref["class"])(t, mm, device=device)
+            chi2 = float(f.fit_toas(**ref["kwargs"]))
+        sync()
+        wall = time.perf_counter() - t0
+        unc = ref["uncertainties"]
+        gap = {"dx_sigma": max(abs(getattr(f.model, n).value - v) / unc[n]
+                               for n, v in ref["values"].items()),
+               "unc_rel": max(abs(getattr(f.model, n).uncertainty / u - 1)
+                              for n, u in unc.items()),
+               "chi2_rel": abs(chi2 - ref["chi2"]) / ref["chi2"]}
+        cw = getattr(f, "chi2_whitened", None)
+        if key == "GLSFitter":
+            gap["chi2_whitened"] = cw
+        gaps[key] = gap
+        log(f"[zoo] b1855 {key}: {wall:.3f} s on {device} "
+            f"({f.metrics['n_free']} free); chi2 {chi2:.9f}; vs the JAX "
+            f"fixture: {gap}")
+    check("zoo b1855", {
+        "prefit residuals within 1e-3 us of the golden":
+            d_golden <= TOL_GOLDEN_US,
+        "GLS chi2_whitened within 0.01 of 207.511488":
+            abs(gaps["GLSFitter"]["chi2_whitened"] - B1855_CHI2_WHITENED)
+            <= TOL_B1855_CHI2W,
+        "values within 1e-6 sigma of the JAX fixture":
+            all(g["dx_sigma"] <= TOL_MIXED for g in gaps.values()),
+        "uncertainties within their tiers of the JAX fixture": all(
+            g["unc_rel"] <= (TOL_MIXED_UNC if k.endswith("mixed")
+                             else TOL_FIT_UNC) for k, g in gaps.items()),
+        "chi2 within 1e-7 of the JAX fixture":
+            all(g["chi2_rel"] <= TOL_B1855_CHI2 for g in gaps.values()),
+        "WLSFitter refuses ECORR and red noise": refused,
+    })
+
+
+# one small par per component class, each from the JAX package's tests
+# (file::test in the comment); the TOAs come from the port's maker
+_TB = ("PSR TESTB\nRAJ 10:22:57.9\nDECJ 10:01:52.8\nF0 100.5 1\n"
+       "F1 -5e-16 1\nPEPOCH 55000\nDM 20.0\n")  # tests/test_binary.py BASE
+_TC = ("PSR TESTC\nRAJ 05:00:00.0\nDECJ 15:00:00.0\nF0 100.0 1\n"
+       "F1 -1e-14 1\nPEPOCH 55500\nDM 20.0\n")  # tests/test_components.py
+_TC2 = ("PSR TESTC2\nRAJ 12:10:00.0\nDECJ 09:00:00.0\nF0 218.8 1\n"
+        "F1 -4e-16 1\nPEPOCH 55300\nDM 15.0 1\n")  # tests/test_components2.py
+_TCH = ("PSR TESTCHROM\nRAJ 16:00:51.9\nDECJ -30:53:49.3\nF0 277.94 1\n"
+        "F1 -7.3e-16 1\nPEPOCH 55300\nDM 52.33 1\n")  # tests/test_chromatic.py
+_TBV = ("PSR TESTBV\nRAJ 06:30:00.0\nDECJ -05:00:00.0\nF0 315.4 1\n"
+        "F1 -6e-16 1\nPEPOCH 55500\nDM 12.4 1\n")  # test_binary_variants.py
+ZOO_COMPONENTS = (
+    ("BinaryELL1", _TB + "BINARY ELL1\nPB 1.53 1\nA1 1.898 1\n"  # ell1_fit_recovery
+     "TASC 55001.0 1\nEPS1 2e-8 1\nEPS2 -8e-8 1\nM2 0.21\nSINI 0.998\n", {}),
+    ("BinaryELL1H", _TB + "BINARY ELL1H\nPB 1.5 1\nA1 2.0 1\nTASC 55001.0\n"
+     "EPS1 1e-7\nEPS2 2e-7\nH3 3.638e-07\nSTIGMA 0.62679\n", {}),  # ell1h_shapiro
+    ("BinaryELL1k", _TB + "BINARY ELL1K\nPB 1.5 1\nA1 2.0 1\nTASC 55001.0\n"
+     "EPS1 1e-7\nEPS2 2e-7\nOMDOT 1.0\n", {}),  # ell1k_matches_ell1
+    ("BinaryBT", _TB + "BINARY BT\nPB 10.5 1\nA1 12.3 1\nT0 55005.5 1\n"
+     "ECC 0.21 1\nOM 75.3 1\nGAMMA 0.002\n", {}),  # bt_fit_recovery
+    ("BinaryBTX", _TB + "BINARY BTX\nFB0 1.102292768959436e-06 1\n"
+     "A1 12.3 1\nT0 55005.5\nECC 0.21\nOM 75.3\nGAMMA 0.002\n", {}),  # btx
+    ("BinaryBTPiecewise", _TC2 + "BINARY BT_piecewise\nPB 8.0\nA1 12.0\n"
+     "T0 55300\nECC 0.12\nOM 45.0\nT0X_0001 55300.0002 1\nA1X_0001 12.05 1\n"
+     "XR1_0001 55350\nXR2_0001 55400\n", {}),  # bt_piecewise_matches_bt
+    ("BinaryDD", _TB + "BINARY DD\nPB 0.40 1\nA1 2.34 1\nT0 55005.5 1\n"
+     "ECC 0.17 1\nOM 120.0 1\nOMDOT 4.22 1\nGAMMA 0.004\nM2 1.3\n"
+     "SINI 0.95\n", {}),  # dd_fit_recovery
+    ("BinaryDDS", _TB + "BINARY DDS\nPB 0.4 1\nA1 2.34 1\nT0 55005.5 1\n"
+     "ECC 0.01 1\nOM 120.0 1\nM2 1.3\nSHAPMAX 3.0\n", {}),  # dds_shapmax
+    ("BinaryDDH", _TC2 + "BINARY DDH\nPB 8.0\nA1 12.0\nT0 55300\nECC 0.12\n"
+     "OM 45.0\nH3 2.8685e-07 1\nSTIGMA 0.55 1\n", {}),  # ddh_h4_fallback
+    ("BinaryDDGR", _TB + "BINARY DDGR\nPB 0.323 1\nA1 2.34 1\nT0 55005.0 1\n"
+     "ECC 0.617 1\nOM 226.0 1\nMTOT 2.83 1\nM2 1.39\n", {}),  # ddgr_fit
+    ("BinaryDDK", _TBV + "PMDEC 30.0\nPX 1.0\nBINARY DDK\nPB 10.0 1\n"
+     "A1 20.0 1\nT0 55500.0 1\nECC 0.01 1\nOM 45.0 1\nM2 0.2\nKIN 60.0\n"
+     "KOM 0.0\nK96 1\n", {}),  # ddk_proper_motion / annual_orbital_parallax
+    ("BINARY T2", _TB + "BINARY T2\nPB 10.0\nA1 5.0\nTASC 55000\nEPS1 1e-5\n"
+     "EPS2 1e-5\nH3 1e-7\nSTIG 0.5\n", {}),  # binary_t2_container
+    ("DispersionDMX", _TC2 + "DMX 14.0\nDMX_0001 1e-3 1\nDMXR1_0001 55000\n"
+     "DMXR2_0001 55300\nDMX_0002 -2e-3 1\nDMXR1_0002 55300.5\n"
+     "DMXR2_0002 55600\n", {}),  # test_breadth.py::dmxparse_and_ranges
+    ("DispersionJump", _TC2 + "DMJUMP -fe Rcvr_800 0.002\n", {}),
+    ("PhaseJump", _TC + "JUMP -fe Rcvr_800 1e-4 1\n", {}),
+    ("FD", _TC + "FD1 1e-5 1\nFD2 -2e-6\n", {}),  # test_components.py fd
+    ("FDJump", _TC + "FD1JUMP freq 1000 1500 3e-5 1\n", {}),  # fdjump
+    ("PhaseOffset", _TC + "PHOFF 0.1 1\n", {}),  # phase_offset
+    ("Glitch", _TC + "GLEP_1 55400\nGLPH_1 0.3 1\nGLF0_1 3e-9 1\n"
+     "GLF0D_1 1e-9 1\nGLTD_1 30 1\n", {}),  # glitch
+    ("PiecewiseSpindown", _TC2 + "PWEP_0001 55100\nPWSTART_0001 55000\n"
+     "PWSTOP_0001 55200\nPWPH_0001 0.0\nPWF0_0001 1e-8 1\nPWF1_0001 0\n",
+     {}),  # test_components2.py piecewise
+    ("IFunc", _TC + "SIFUNC 2\nIFUNC1 55000 0\nIFUNC2 55500 1e-4\n"
+     "IFUNC3 56000 0\n", {}),  # ifunc
+    ("Wave", _TC + "WAVEEPOCH 55500\nWAVE_OM 0.01 1\nWAVE1 1e-5 -2e-5\n"
+     "WAVE2 5e-6 0\n", {}),  # wave
+    ("WaveX", _TCH + "WXEPOCH 55300\nWXFREQ_0001 0.004\nWXSIN_0001 1e-6 1\n"
+     "WXCOS_0001 2e-6 1\n", {}),
+    ("DMWaveX", _TCH + "DMWXEPOCH 55300\nDMWXFREQ_0001 0.004\n"
+     "DMWXSIN_0001 1e-4 1\nDMWXCOS_0001 -1e-4 1\n", {}),
+    ("ChromaticCM", _TCH + "CM 0.5 1\nCM1 0.05 1\nCMEPOCH 55300\n"
+     "TNCHROMIDX 4\n", {}),  # test_chromatic.py cm_taylor_term
+    ("ChromaticCMX", _TCH + "CM 0.0\nTNCHROMIDX 4\nCMX_0001 0.02 1\n"
+     "CMXR1_0001 55100\nCMXR2_0001 55300\n", {}),  # cmx window
+    ("CMWaveX", _TCH + "CMWXEPOCH 55300\nCMWXFREQ_0001 0.004\n"
+     "CMWXSIN_0001 0.01 1\nTNCHROMIDX 4\n", {}),  # cmwavex
+    ("PLDMNoise", _TC2 + "EFAC -f L-wide 1.1\nTNDMAMP -13.0\nTNDMGAM 3.0\n"
+     "TNDMC 10\n", {}),  # test_components2.py pldm
+    ("PLChromNoise", _TCH + "TNCHROMIDX 4\nTNCHROMAMP -13.2\nTNCHROMGAM 3.0\n"
+     "TNCHROMC 8\n", {}),  # test_chromatic.py plchrom
+    ("PLSWNoise", _TC2 + "NE_SW 8.0\nTNSWAMP -5.5\nTNSWGAM 2.0\nTNSWC 8\n",
+     {}),  # test_noise_gls.py plsw
+    ("SolarWindDispersionX", _TC2 + "NE_SW 7.9\nSWXDM_0001 2.5e-4 1\n"
+     "SWXR1_0001 54990\nSWXR2_0001 55300\n", {}),  # test_components2.py swx
+    ("UNITS TCB", "PSR TCB1\nRAJ 05:00:00\nDECJ 10:00:00\nF0 100.0 1\n"
+     "F1 -1e-15 1\nPEPOCH 55000\nDM 10.0 1\nUNITS TCB\n",
+     {"allow_tcb": True}),  # test_edge_cases.py TestTCBConversion
+)
+
+
+def zoo_components(device="cuda"):
+    """``[zoo] components``: each zoo class on ``device`` against the
+    port on the CPU, on the same 200 noisy TOAs from the port's maker
+    (MJD 54990-56990, 800/1400 MHz with -f L-wide and the GBT receiver
+    -fe flags): the total delay (1e-12 s), the phase (1e-9 cycles), the
+    design matrix (1e-9 of each column's max |entry|) and the prefit
+    chi2 (2e-7 relative, the cross-device tier of
+    tests/test_torch_fleet_modes.py); the largest gap of
+    each over all classes is printed beside its tier."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    mjds = np.linspace(54990.0, 56990.0, 200)
+    freqs = np.where(np.arange(len(mjds)) % 2, 1400.0, 800.0)
+    worst = {"delay_s": 0.0, "phase": 0.0, "column": 0.0, "chi2_rel": 0.0}
+    t0 = time.perf_counter()
+    for name, par, kw in ZOO_COMPONENTS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m = get_model(par, **kw)
+            t = make_fake_toas_fromMJDs(mjds, m, error_us=1.0,
+                                        freq_mhz=freqs, add_noise=True,
+                                        seed=1, flags={"f": "L-wide"},
+                                        device="cpu")
+        for f, nu in zip(t.flags, freqs):
+            f.update(zoo_flags(nu))
+        got = {}
+        for dev in ("cpu", device):
+            p = m.prepare(t, device=dev)
+            M, labels = p.designmatrix()
+            got[dev] = (p.delay().cpu(), p.phase_frac_and_int()[0].cpu(),
+                        M.cpu(), Residuals(t, m, device=dev).chi2)
+        (dc, pc, Mc, cc), (dg, pg, Mg, cg) = got["cpu"], got[device]
+        gap = {"delay_s": float((dg - dc).abs().max()),
+               "phase": float((pg - pc).abs().max()),
+               "column": float(((Mg - Mc).abs().amax(0)
+                                / Mc.abs().amax(0).clamp(min=1e-300)).max()),
+               "chi2_rel": abs(cg - cc) / cc}
+        worst = {k: max(v, gap[k]) for k, v in worst.items()}
+        log(f"[zoo] components {name}: {list(m.components)[-1]} "
+            f"({len(labels)} columns) on {device} vs cpu: {gap}")
+    log(f"[zoo] components: {len(ZOO_COMPONENTS)} classes in "
+        f"{time.perf_counter() - t0:.2f} s; largest gaps {worst} against "
+        f"tiers delay {TOL_CROSS_DELAY_S} s, phase {TOL_CROSS_PHASE}, "
+        f"column {TOL_CROSS_COL}, chi2 {TOL_CROSS_CHI2}")
+    check("zoo components", {
+        "delays within 1e-12 s": worst["delay_s"] <= TOL_CROSS_DELAY_S,
+        "phases within 1e-9 cycles": worst["phase"] <= TOL_CROSS_PHASE,
+        "design columns within 1e-9": worst["column"] <= TOL_CROSS_COL,
+        "chi2 within 2e-7": worst["chi2_rel"] <= TOL_CROSS_CHI2,
+    })
+
+
+def zoo_structure(key):
+    """The structure name of a fleet bucket key."""
+    comps = key[0][0]
+    for name, binary in (("ELL1H", "BinaryELL1H"), ("ELL1", "BinaryELL1"),
+                         ("DD", "BinaryDD")):
+        if binary in comps:
+            return name
+    return "isolated"
+
+
+def zoo_fleet(torch, counts, device="cuda"):
+    """``[zoo] fleet``: the zoo fleet at the main path's counts through
+    ``PTAFleet(toa_bucket="plan")`` and ``fit(method="gls", maxiter=2,
+    precision="mixed")``, cold then warm, then "f64", from a start 3
+    sigma off the truth; K1/K2 launches counted per bucket in the cold
+    mixed fit; one single-pulsar GLSFitter per structure against its
+    fleet row; the K1/K2 inputs of one more mixed fit recorded per
+    shape. Returns {"K1": {structure: (x, block)}, "K2": ...} and the
+    launch totals of the cold mixed fit."""
+    from pint_tpu_torch.fitter import GLSFitter
+    from pint_tpu_torch.kernels import fusedgls, seggram
+    from pint_tpu_torch.parallel.pta import PTAFleet
+
+    k1, k2 = fusedgls.fused_block_gls_cuda, seggram.block_grams_cuda
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        models, toas = build_pta(counts, device, par_fn=zoo_par_text,
+                                 freq_fn=zoo_freqs, flag_fn=zoo_flags)
+    sync()
+    make_s = time.perf_counter() - t0
+    n_toa = sum(len(t) for t in toas)
+    t0 = time.perf_counter()
+    fleet = PTAFleet(models, toas, toa_bucket="plan", device=device)
+    sync()
+    pack_s = time.perf_counter() - t0
+    log(f"[zoo] fleet: {len(models)} pulsars, {n_toa} GBT TOAs made on "
+        f"{device} in {make_s:.2f} s; plan pack {pack_s:.2f} s, padding "
+        f"x{fleet.padding_ratio:.4f}, {len(fleet.batches)} buckets:")
+    for key, b in fleet.batches.items():
+        k = len(b.free_map())
+        desc = (f"packed R={b._pack['n_rows']} S={b._pack['n_slots']} "
+                f"Q={b._pack['quantum']} NE={b._pack['n_epochs']}"
+                if b._pack else f"unpacked B={b.n_pulsars}")
+        log(f"[zoo]   {zoo_structure(key)} width {key[1][1]}: "
+            f"{b.n_pulsars} pulsars, {int(np.sum(b.n_toas))} TOAs, {k} free "
+            f"+ offset, {desc}")
+
+    names = {i: [n for n, _, _ in fleet.batches[key].free_map()]
+             for key, idxs in fleet.group_indices.items() for i in idxs}
+    x_true = [np.array([getattr(models[i], n).value for n in names[i]])
+              for i in range(len(models))]
+
+    def fit(precision):
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as wl:
+            warnings.simplefilter("always")
+            xs, chi2, covs = fleet.fit(method="gls", maxiter=2,
+                                       precision=precision)
+        sync()
+        refit = any("refitting in f64" in str(w.message) for w in wl)
+        return ([np.asarray(x) for x in xs], np.asarray(chi2), covs,
+                time.perf_counter() - t0, refit)
+
+    xs, _, covs, wall_truth, _ = fit("f64")
+    sig = [np.sqrt(np.diag(c)) for c in covs]
+    x_start = [x + START_OFFSET_SIGMA * s * np.where(np.arange(len(x)) % 2,
+                                                     1, -1)
+               for x, s in zip(x_true, sig)]
+    for key, idxs in fleet.group_indices.items():
+        fleet.batches[key].set_start_vector(np.array([x_start[i]
+                                                      for i in idxs]))
+    log(f"[zoo] fleet: f64 at the truth {wall_truth:.3f} s, max "
+        f"|x - x_true|/sigma {max(np.max(np.abs(a - b) / s) for a, b, s in zip(xs, x_true, sig)):.3e}")
+
+    per_bucket = {}
+    for key, b in fleet.batches.items():
+        def counted(*a, _fit=b.gls_fit, _key=key, **kw):
+            before = (k1.launches, k2.launches)
+            out = _fit(*a, **kw)
+            per_bucket[_key] = (k1.launches - before[0],
+                                k2.launches - before[1])
+            return out
+        b.gls_fit = counted
+    k1.launches = 0
+    k2.launches = 0
+    xm, cm, cov_m, cold, refit_cold = fit("mixed")
+    launches = {"K1": k1.launches, "K2": k2.launches}
+    bucket_launches = dict(per_bucket)
+    relres = max(m["relres_max"] for m in fleet.fit_metrics.values())
+    refit = refit_cold or any(m["refit_f64"]
+                              for m in fleet.fit_metrics.values())
+    xm2, _, _, warm, refit_warm = fit("mixed")
+    for b in fleet.batches.values():
+        del b.gls_fit  # the class's method again
+    x64, c64, _, wall64, _ = fit("f64")
+    sig_m = [np.sqrt(np.diag(c)) for c in cov_m]
+    d_mixed = max(np.max(np.abs(a - b) / s) for a, b, s in zip(xm, x64, sig_m))
+    d_true = max(np.max(np.abs(a - b) / s) for a, b, s in zip(xm, x_true, sig_m))
+    d_warm = max(np.max(np.abs(a - b) / s) for a, b, s in zip(xm2, xm, sig_m))
+    log(f"[zoo] fleet: mixed cold {cold:.3f} s ({n_toa / cold:.0f} TOAs/s), "
+        f"warm {warm:.3f} s ({n_toa / warm:.0f} TOAs/s); f64 {wall64:.3f} s "
+        f"({n_toa / wall64:.0f} TOAs/s)")
+    log(f"[zoo] fleet: launches in the cold mixed fit {launches}, per "
+        f"bucket (K1, K2): "
+        + ", ".join(f"{zoo_structure(k)} {k[1][1]}: {v}"
+                    for k, v in bucket_launches.items())
+        + f"; max relres {relres:.3e}; f64 refit taken: {refit or refit_warm}")
+    worst = max(range(len(models)),
+                key=lambda i: np.max(np.abs(xm[i] - x64[i]) / sig_m[i]))
+    log(f"[zoo] fleet: max |x_mixed - x_f64|/sigma {d_mixed:.3e} (pulsar "
+        f"{worst}, {ZOO_STRUCTURES[worst % 4]}, {len(toas[worst])} TOAs, "
+        f"{names[worst][int(np.argmax(np.abs(xm[worst] - x64[worst]) / sig_m[worst]))]}"
+        f"); max |x_fit - x_true|/sigma {d_true:.3e} (start "
+        f"{START_OFFSET_SIGMA} sigma off)")
+    t0 = time.perf_counter()
+    profile_run(torch, "[zoo] profile: warm mixed fit",
+                lambda: fleet.fit(method="gls", maxiter=2, precision="mixed"))
+    log(f"[zoo] fleet: the profiled fit and its report took "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # one single-pulsar GLSFitter (f64) per structure, the median-count
+    # pulsar of each, from the fleet's start, against its f64 fleet row
+    d_single = {}
+    for s_idx, s_name in enumerate(ZOO_STRUCTURES):
+        idxs = [i for i in range(len(models)) if i % 4 == s_idx]
+        i = sorted(idxs, key=lambda j: len(toas[j]))[len(idxs) // 2]
+        m = copy.deepcopy(models[i])
+        for n, v in zip(names[i], x_start[i]):
+            getattr(m, n).value = float(v)
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            f = GLSFitter(toas[i], m, device=device)
+            f.fit_toas(maxiter=2)
+        sync()
+        xf = np.array([getattr(f.model, n).value for n in names[i]])
+        sf = np.array([getattr(f.model, n).uncertainty for n in names[i]])
+        d_single[s_name] = float(np.max(np.abs(xf - x64[i]) / sf))
+        log(f"[zoo] fleet: {s_name} pulsar {i} ({len(toas[i])} TOAs) "
+            f"GLSFitter f64 {time.perf_counter() - t0:.3f} s, max |x_single "
+            f"- x_fleet|/sigma {d_single[s_name]:.3e}")
+    packed = [k for k, b in fleet.batches.items() if b._pack]
+    check("zoo fleet", {
+        "four structures": {zoo_structure(k) for k in fleet.batches}
+            == set(ZOO_STRUCTURES),
+        "a packed bucket per structure":
+            {zoo_structure(k) for k in packed} == set(ZOO_STRUCTURES),
+        "K1 and K2 launched in every packed bucket": all(
+            bucket_launches.get(k, (0, 0))[0] > 0
+            and bucket_launches.get(k, (0, 0))[1] > 0 for k in packed),
+        "refinement contracted (relres <= 1e-8)": relres <= TOL_RELRES,
+        "no f64 refit taken": not (refit or refit_warm),
+        "mixed vs f64 <= 1e-6 sigma": d_mixed <= TOL_MIXED,
+        "recovery <= 0.01 sigma": d_true <= TOL_RECOVER,
+        "warm mixed fit reproduces the cold one": d_warm <= TOL_MIXED,
+        "finite chi2": bool(np.all(np.isfinite(cm))
+                            and np.all(np.isfinite(c64))),
+        "single-pulsar GLSFitter within 1e-4 sigma of the fleet's row":
+            max(d_single.values()) <= TOL_ZOO_SINGLE,
+    })
+    t0 = time.perf_counter()
+    seen = capture_inputs(fleet, torch, tag=zoo_structure)
+    log(f"[zoo] fleet: kernel inputs of {sum(map(len, seen.values()))} "
+        f"shapes recorded in {time.perf_counter() - t0:.2f} s")
+    del fleet
+    return seen, launches
 
 
 def gw_fleet(fleet, xs):
@@ -2153,6 +2660,24 @@ def run():
     t0 = time.perf_counter()
     fleet_modes(models, toas, fleet, x_start, xm2, sig_m)
     log(f"[fleet] modes took {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    zoo_b1855()
+    zoo_components()
+    log(f"[zoo] b1855 and components took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    zoo_seen, zoo_launches = zoo_fleet(torch, counts)
+    torch.cuda.empty_cache()
+    log(f"[zoo] fleet took {time.perf_counter() - t0:.2f} s")
+    for entry, key, kern, plain, whiten in (
+            (entries[0], "K1", fused_block_gls_cuda, fused_block_gls_plain,
+             True),
+            (entries[1], "K2", block_grams_cuda, block_grams_plain, False)):
+        entry["zoo"] = {
+            tag: kernel_record(torch, f"{entry['name']} [zoo] {tag}",
+                               entry["replaces"], kern, plain, x, block,
+                               whiten, zoo_launches[key])
+            for tag, (x, block) in zoo_seen[key].items()}
 
     fleet_lat, k3_launches = gw_fleet(fleet, xm2)
     gw_injected()

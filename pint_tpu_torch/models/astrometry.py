@@ -53,6 +53,17 @@ class Astrometry(DelayComponent):
         """Unit vector SSB->pulsar (ICRS) at each TOA; differentiable."""
         raise NotImplementedError
 
+    def psb_xyz_host(self, params0, prep):
+        """:meth:`ssb_to_psb_xyz` at pack time, on the host: the
+        numpy (n_toa, 3) directions from the packed params0/prep (for
+        components whose pack needs the line of sight: DDK, PLSWNoise)."""
+        params = {k: torch.as_tensor(np.asarray(v, np.float64))
+                  for k, v in params0.items()}
+        host = {"posepoch_dt": torch.as_tensor(prep["posepoch_dt"])}
+        if "obliquity" in prep:
+            host["obliquity"] = prep["obliquity"]
+        return self.ssb_to_psb_xyz(params, host).numpy()
+
     def delay(self, params, batch, prep, delay_accum):
         n = self.ssb_to_psb_xyz(params, prep)  # (ntoa, 3)
         r = batch.obs_pos_ls

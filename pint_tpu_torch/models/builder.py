@@ -1,12 +1,14 @@
 """Par file -> TimingModel construction (the JAX package's
-``models/builder.py``, for the components this package has ported).
+``models/builder.py``).
 
 (reference: src/pint/models/model_builder.py — parse par lines, resolve
-aliases, choose components from content.)
+aliases, choose components from content (BINARY line, DMX_* ->
+DispersionDMX, GLEP_* -> Glitch, ...), report unrecognized lines.)
 
-A par file that needs a component the port does not have yet raises
-``NotImplementedError`` naming it: no line is silently dropped into a
-model that would then fit the wrong physics.
+A par file that needs what the port does not have yet (the tempo1
+P0/P1 spin spelling, ROADMAP §1 item 2) raises ``NotImplementedError``
+naming it: no line is silently dropped into a model that would then
+fit the wrong physics.
 """
 
 from __future__ import annotations
@@ -17,17 +19,27 @@ import os
 import re
 import warnings
 
-from ..utils import interesting_lines
+from ..utils import interesting_lines, split_prefixed_name
 from .absolute_phase import AbsPhase
 from .astrometry import AstrometryEcliptic, AstrometryEquatorial
-from .dispersion import DispersionDM
-from .noise import EcorrNoise, PLRedNoise, ScaleToaError
+from .binary import add_binary_component, choose_t2_model
+from .chromatic import ChromaticCM, ChromaticCMX, CMWaveX
+from .dispersion import DispersionDM, DispersionDMX, DispersionJump
+from .frequency_dependent import FD, FDJump
+from .glitch import Glitch
+from .ifunc import IFunc
+from .jump import PhaseJump
+from .noise import (EcorrNoise, PLChromNoise, PLDMNoise, PLRedNoise,
+                    PLSWNoise, ScaleToaError)
 from .parameter import MJDParameter, floatParameter, strParameter
+from .phase_offset import PhaseOffset
+from .piecewise import PiecewiseSpindown
 from .solar_system_shapiro import SolarSystemShapiro
-from .solar_wind import SolarWindDispersion
+from .solar_wind import SolarWindDispersion, SolarWindDispersionX
 from .spindown import Spindown
 from .timing_model import TimingModel
 from .troposphere import TroposphereDelay
+from .wave import DMWaveX, Wave, WaveX
 
 # par-file key aliases -> canonical names (reference: each Parameter's aliases)
 ALIASES = {
@@ -38,6 +50,8 @@ ALIASES = {
     "TNEF": "EFAC", "TNECORR": "ECORR", "TNGLOBALEF": "EFAC",
 }
 
+# FD1JUMP (canonical) or FDJUMP1 (tempo2 alias); order 0 is not an FD
+# term and falls through to the unrecognized-line report
 _FDJUMP_RE = re.compile(r"^FD([1-9]\d*)JUMP$|^FDJUMP([1-9]\d*)$")
 
 TOP_LEVEL_STR = ("PSR", "EPHEM", "CLOCK", "UNITS", "TIMEEPH", "T2CMETHOD",
@@ -51,35 +65,9 @@ _REPEATED = ("JUMP", "EFAC", "EQUAD", "ECORR", "DMEFAC", "DMEQUAD",
 
 
 def _unported_components(keys, repeats):
-    """Components of the JAX package's builder that this par file would
-    need and the port does not have yet, by the same key tests."""
-    need = []
-
-    def has(pred):
-        return any(pred(k) for k in keys)
-
-    rep = {c for c, _ in repeats}
+    """What this par file would need of the JAX package's builder that
+    the port does not have yet, by the same key tests."""
     checks = [
-        ("DispersionDMX", "DMX" in keys or has(lambda k: k.startswith("DMX_"))),
-        ("PLSWNoise", has(lambda k: k.startswith("TNSW"))),
-        ("Glitch", has(lambda k: k.startswith("GLEP_"))),
-        ("Wave", "WAVE_OM" in keys
-         or has(lambda k: k.startswith("WAVE") and k[4:].isdigit())),
-        ("WaveX", has(lambda k: k.startswith("WXFREQ_"))),
-        ("FD", has(lambda k: k.startswith("FD") and k[2:].isdigit())),
-        ("IFunc", "SIFUNC" in keys
-         or has(lambda k: k.startswith("IFUNC") and k[5:].isdigit())),
-        ("PhaseOffset", "PHOFF" in keys),
-        ("PhaseJump", "JUMP" in rep),
-        ("FDJump", any(_FDJUMP_RE.match(c) for c in rep)),
-        ("DispersionJump", "DMJUMP" in rep),
-        ("binary model", "BINARY" in keys),
-        ("PLDMNoise", has(lambda k: k.startswith("TNDM"))),
-        ("DMWaveX", has(lambda k: k.startswith("DMWXFREQ_"))),
-        ("ChromaticCM", "CM" in keys or "CM1" in keys or "TNCHROMIDX" in keys
-         or has(lambda k: k.startswith(("CMX_", "CMWXFREQ_", "TNCHROM")))),
-        ("SolarWindDispersionX", has(lambda k: k.startswith(("SWXDM_", "SWX_")))),
-        ("PiecewiseSpindown", has(lambda k: k.startswith("PWEP_"))),
         ("P0/P1 spin conversion", "P0" in keys and "F0" not in keys),
     ]
     return [name for name, hit in checks if hit]
@@ -101,11 +89,197 @@ def parse_parfile(parfile) -> list[tuple[str, list[str]]]:
     return out
 
 
-def get_model(parfile) -> TimingModel:
-    """(reference: model_builder.py::get_model) for the ported
-    components: Spindown, AstrometryEquatorial/Ecliptic, DispersionDM,
-    SolarSystemShapiro, SolarWindDispersion, TroposphereDelay, AbsPhase,
-    ScaleToaError, EcorrNoise and PLRedNoise."""
+def _window_ids(keys, *stems):
+    """Sorted window indices of the keys starting with any of ``stems``."""
+    return sorted({int(k.split("_")[1]) for k in keys if k.startswith(stems)})
+
+
+def _add_components(model, keys, repeats):
+    """Choose the components from the par file's content, in the JAX
+    package's order."""
+    rep = {c for c, _ in repeats}
+    model.add_component(Spindown())
+    if "RAJ" in keys or "DECJ" in keys:
+        model.add_component(AstrometryEquatorial())
+    elif "ELONG" in keys or "ELAT" in keys:
+        model.add_component(AstrometryEcliptic())
+    if "DM" in keys or "DM1" in keys:
+        model.add_component(DispersionDM())
+    if "DMX" in keys or any(k.startswith("DMX_") for k in keys):
+        model.add_component(DispersionDMX())
+    model.add_component(SolarSystemShapiro())
+    has_tnsw = any(k.startswith("TNSW") for k in keys)
+    if "NE_SW" in keys or "SWM" in keys or has_tnsw:
+        model.add_component(SolarWindDispersion())
+    if has_tnsw:
+        model.add_component(PLSWNoise())
+    if "CORRECT_TROPOSPHERE" in keys:
+        model.add_component(TroposphereDelay())
+    if any(k.startswith("GLEP_") for k in keys):
+        model.add_component(Glitch())
+    if "WAVE_OM" in keys or any(k.startswith("WAVE") and k[4:].isdigit()
+                                for k in keys):
+        model.add_component(Wave())
+    if any(k.startswith("WXFREQ_") for k in keys):
+        model.add_component(WaveX())
+    if any(k.startswith("FD") and k[2:].isdigit() for k in keys):
+        model.add_component(FD())
+    if "SIFUNC" in keys or any(k.startswith("IFUNC") and k[5:].isdigit()
+                               for k in keys):
+        model.add_component(IFunc())
+    if "PHOFF" in keys:
+        model.add_component(PhaseOffset())
+    if "JUMP" in rep:
+        model.add_component(PhaseJump())
+    if any(_FDJUMP_RE.match(c) for c in rep):
+        model.add_component(FDJump())
+    if "DMJUMP" in rep:
+        model.add_component(DispersionJump())
+    if "BINARY" in keys:
+        if keys["BINARY"][0].upper() == "T2":
+            # tempo2's universal container: pick the concrete model
+            # from the par keys present
+            chosen = choose_t2_model(set(keys))
+            warnings.warn(
+                f"BINARY T2 is a tempo2 container model; selected "
+                f"BINARY {chosen} from the parameters present")
+            keys["BINARY"] = [chosen]
+        add_binary_component(model, keys["BINARY"][0], keys)
+    if "TZRMJD" in keys:
+        model.add_component(AbsPhase())
+    if rep & {"EFAC", "EQUAD", "DMEFAC", "DMEQUAD", "TNEQ", "TNGLOBALEQ"}:
+        model.add_component(ScaleToaError())
+    if "ECORR" in rep:
+        model.add_component(EcorrNoise())
+    if any(k.startswith(("RNAMP", "RNIDX", "TNRED")) for k in keys):
+        model.add_component(PLRedNoise())
+    if any(k.startswith("TNDM") for k in keys):
+        model.add_component(PLDMNoise())
+    if any(k.startswith("DMWXFREQ_") for k in keys):
+        model.add_component(DMWaveX())
+    chrom_noise = any(k in ("TNCHROMAMP", "TNCHROMGAM", "TNCHROMC")
+                      for k in keys)
+    if ("CM" in keys or "CM1" in keys or "TNCHROMIDX" in keys
+            or any(k.startswith(("CMX_", "CMWXFREQ_")) for k in keys)
+            or chrom_noise):
+        # ChromaticCM always rides along: it owns TNCHROMIDX, the one
+        # home of the chromatic index CMX/CMWaveX/PLChromNoise read
+        cm_comp = ChromaticCM()
+        if "CM" not in keys:
+            cm_comp.CM.value = 0.0
+        model.add_component(cm_comp)
+        if any(k.startswith("CMX_") for k in keys):
+            model.add_component(ChromaticCMX())
+        if any(k.startswith("CMWXFREQ_") for k in keys):
+            model.add_component(CMWaveX())
+    if chrom_noise:
+        model.add_component(PLChromNoise())
+    if any(k.startswith(("SWXDM_", "SWX_")) for k in keys):
+        # SWX_#### is tempo2's value spelling of SWXDM_####; the piecewise
+        # wind replaces the plain one
+        if "SolarWindDispersion" in model.components:
+            model.remove_component("SolarWindDispersion")
+        model.add_component(SolarWindDispersionX())
+    if any(k.startswith("PWEP_") for k in keys):
+        model.add_component(PiecewiseSpindown())
+
+
+def _add_prefix_families(model, keys):
+    """Create the numbered and windowed parameter families the par file
+    names, before values are assigned."""
+    comps = model.components
+
+    def run(prefix, add):
+        i = 1
+        while f"{prefix}{i}" in keys:
+            add(i)
+            i += 1
+
+    run("F", comps["Spindown"].add_fterm)
+    if "DispersionDM" in comps:
+        run("DM", comps["DispersionDM"].add_dmterm)
+    if "Glitch" in comps:
+        for idx in _window_ids(keys, "GLEP_"):
+            comps["Glitch"].add_glitch(idx)
+    if "Wave" in comps:
+        run("WAVE", comps["Wave"].add_wave)
+    if "WaveX" in comps:
+        for idx in _window_ids(keys, "WXFREQ_"):
+            comps["WaveX"].add_wavex(idx)
+    if "DMWaveX" in comps:
+        for idx in _window_ids(keys, "DMWXFREQ_"):
+            comps["DMWaveX"].add_dmwavex(idx)
+    if "ChromaticCM" in comps:
+        run("CM", comps["ChromaticCM"].add_cmterm)
+    if "ChromaticCMX" in comps:
+        for idx in _window_ids(keys, "CMX_"):
+            lo = float(keys.get(f"CMXR1_{idx:04d}", ["0"])[0])
+            hi = float(keys.get(f"CMXR2_{idx:04d}", ["0"])[0])
+            comps["ChromaticCMX"].add_cmx_range(idx, lo, hi)
+    if "CMWaveX" in comps:
+        for idx in _window_ids(keys, "CMWXFREQ_"):
+            comps["CMWaveX"].add_cmwavex(idx)
+    if "SolarWindDispersionX" in comps:
+        # SWX_#### must create the window too, or its R1/R2 companions
+        # fall through to `unrecognized`
+        for idx in _window_ids(keys, "SWXDM_", "SWX_"):
+            lo = float(keys.get(f"SWXR1_{idx:04d}", ["0"])[0])
+            hi = float(keys.get(f"SWXR2_{idx:04d}", ["0"])[0])
+            p = float(keys.get(f"SWXP_{idx:04d}", ["2"])[0])
+            comps["SolarWindDispersionX"].add_swx_range(idx, lo, hi, p=p)
+    if "PiecewiseSpindown" in comps:
+        for idx in _window_ids(keys, "PWEP_"):
+            comps["PiecewiseSpindown"].add_segment(idx)
+    if "FD" in comps:
+        run("FD", comps["FD"].add_fd)
+    if "IFunc" in comps:
+        run("IFUNC", comps["IFunc"].add_ifunc)
+    if "DispersionDMX" in comps:
+        ids = sorted({split_prefixed_name(k)[1] for k in keys
+                      if k.startswith("DMX_")})
+        for idx in ids:
+            lo = float(keys.get(f"DMXR1_{idx:04d}", ["0"])[0])
+            hi = float(keys.get(f"DMXR2_{idx:04d}", ["0"])[0])
+            comps["DispersionDMX"].add_dmx_range(idx, lo, hi)
+
+
+def _add_repeated(model, repeats):
+    """The repeated mask lines: JUMP, FD<n>JUMP, DMJUMP, EFAC/EQUAD
+    (and their DM and temponest forms) and ECORR."""
+    comps = model.components
+    jump_comp = comps.get("PhaseJump")
+    dmjump_comp = comps.get("DispersionJump")
+    noise_comp = comps.get("ScaleToaError")
+    ecorr_comp = comps.get("EcorrNoise")
+    fdjump_comp = comps.get("FDJump")
+    for canon, fields in repeats:
+        # canon is already the canonical FD<n>JUMP here
+        m_fdj = _FDJUMP_RE.match(canon)
+        if m_fdj and fdjump_comp is not None:
+            fdjump_comp.add_fdjump(int(m_fdj.group(1))).from_parfile_fields(fields)
+        elif canon == "JUMP" and jump_comp is not None:
+            jump_comp.add_jump().from_parfile_fields(fields)
+        elif canon == "DMJUMP" and dmjump_comp is not None:
+            dmjump_comp.add_dmjump().from_parfile_fields(fields)
+        elif canon in ("EFAC", "EQUAD", "DMEFAC", "DMEQUAD") and noise_comp is not None:
+            noise_comp.add_mask_param(canon, fields)
+        elif canon in ("TNEQ", "TNGLOBALEQ") and noise_comp is not None:
+            # temponest EQUAD: log10(equad / s) -> us
+            p = noise_comp.add_mask_param("EQUAD", fields)
+            if p.value is not None:
+                p.value = 10.0**p.value * 1e6
+                if p.uncertainty is not None:
+                    p.uncertainty = math.log(10.0) * p.value * p.uncertainty
+        elif canon == "ECORR" and ecorr_comp is not None:
+            ecorr_comp.add_mask_param(fields)
+
+
+def get_model(parfile, allow_name_mixing=False, allow_tcb=False) -> TimingModel:
+    """(reference: model_builder.py::get_model)
+
+    ``allow_tcb``: a par file with UNITS TCB raises by default (the
+    package computes in TDB); ``True`` converts it to TDB on load with
+    a warning; ``"raw"`` keeps the TCB values untouched."""
     entries = parse_parfile(parfile)
     keys = {}
     repeats = []
@@ -124,41 +298,10 @@ def get_model(parfile) -> TimingModel:
             f"par file needs {', '.join(missing)}, not ported to "
             "pint_tpu_torch yet")
 
-    model = TimingModel(name=str(parfile) if "\n" not in str(parfile) else "")
-    model.add_component(Spindown())
-    if "RAJ" in keys or "DECJ" in keys:
-        model.add_component(AstrometryEquatorial())
-    elif "ELONG" in keys or "ELAT" in keys:
-        model.add_component(AstrometryEcliptic())
-    if "DM" in keys or "DM1" in keys:
-        model.add_component(DispersionDM())
-    model.add_component(SolarSystemShapiro())
-    if "NE_SW" in keys or "SWM" in keys:
-        model.add_component(SolarWindDispersion())
-    if "CORRECT_TROPOSPHERE" in keys:
-        model.add_component(TroposphereDelay())
-    if "TZRMJD" in keys:
-        model.add_component(AbsPhase())
-    rep = {c for c, _ in repeats}
-    if rep & {"EFAC", "EQUAD", "DMEFAC", "DMEQUAD", "TNEQ", "TNGLOBALEQ"}:
-        model.add_component(ScaleToaError())
-    if "ECORR" in rep:
-        model.add_component(EcorrNoise())
-    if any(k.startswith(("RNAMP", "RNIDX", "TNRED")) for k in keys):
-        model.add_component(PLRedNoise())
-
-    # dynamic prefix families before value assignment
-    sd = model.components["Spindown"]
-    i = 1
-    while f"F{i}" in keys:
-        sd.add_fterm(i)
-        i += 1
-    if "DispersionDM" in model.components:
-        dd = model.components["DispersionDM"]
-        i = 1
-        while f"DM{i}" in keys:
-            dd.add_dmterm(i)
-            i += 1
+    model = TimingModel(name=str(parfile)
+                        if isinstance(parfile, (str, os.PathLike)) else "")
+    _add_components(model, keys, repeats)
+    _add_prefix_families(model, keys)
 
     param_index = {}
     for comp in model.components.values():
@@ -170,6 +313,8 @@ def get_model(parfile) -> TimingModel:
 
     unrecognized = {}
     for key, fields in keys.items():
+        if key == "BINARY":
+            continue
         if key in TOP_LEVEL_STR:
             p = strParameter(key)
             p.value = fields[0] if fields else ""
@@ -194,21 +339,7 @@ def get_model(parfile) -> TimingModel:
         else:
             unrecognized[key] = fields
 
-    noise_comp = model.components.get("ScaleToaError")
-    ecorr_comp = model.components.get("EcorrNoise")
-    for canon, fields in repeats:
-        if canon in ("EFAC", "EQUAD", "DMEFAC", "DMEQUAD"):
-            noise_comp.add_mask_param(canon, fields)
-        elif canon in ("TNEQ", "TNGLOBALEQ"):
-            # temponest EQUAD: log10(equad / s) -> us
-            p = noise_comp.add_mask_param("EQUAD", fields)
-            if p.value is not None:
-                p.value = 10.0**p.value * 1e6
-                if p.uncertainty is not None:
-                    p.uncertainty = math.log(10.0) * p.value * p.uncertainty
-        elif canon == "ECORR":
-            ecorr_comp.add_mask_param(fields)
-
+    _add_repeated(model, repeats)
     model.unrecognized = unrecognized
     if unrecognized:
         warnings.warn(f"unrecognized par lines: {sorted(unrecognized)}")
@@ -216,11 +347,22 @@ def get_model(parfile) -> TimingModel:
     model.validate()
     units = ((model.UNITS.value or "").upper()
              if "UNITS" in model.params else "")
-    if units in ("TCB", "SI"):
-        raise NotImplementedError(
-            "par file has UNITS TCB; TCB->TDB conversion is not ported "
-            "to pint_tpu_torch yet")
-    if units not in ("", "TDB"):
+    if units in ("TCB", "SI"):  # tempo2 'UNITS SI' = TCB timescale
+        if allow_tcb == "raw":
+            pass
+        elif allow_tcb:
+            warnings.warn("par file is in TCB units; converting to TDB "
+                          "on load (reference: model_builder.py allow_tcb)")
+            from .tcb_conversion import convert_tcb_tdb
+
+            convert_tcb_tdb(model)
+        else:
+            raise ValueError(
+                "par file has UNITS TCB but the package computes in "
+                "TDB. Pass allow_tcb=True to convert on load, "
+                "allow_tcb='raw' to keep TCB values, or convert the "
+                "file with the tcb2tdb script.")
+    elif units not in ("", "TDB"):
         raise ValueError(f"unrecognized UNITS {units!r} in par file "
                          "(expected TDB, TCB, or SI)")
     return model
@@ -229,15 +371,10 @@ def get_model(parfile) -> TimingModel:
 def get_model_and_toas(parfile, timfile, allow_tcb=False, **kw):
     """(reference: model_builder.py::get_model_and_toas): the model,
     and the TOAs of ``timfile`` read by ``get_TOAs`` with the model's
-    EPHEM and PLANET_SHAPIRO; ``**kw`` goes to ``get_TOAs``. UNITS TCB
-    is not ported, so ``allow_tcb`` must stay False."""
+    EPHEM and PLANET_SHAPIRO; ``**kw`` goes to ``get_TOAs``."""
     from ..toa import get_TOAs
 
-    if allow_tcb:
-        raise NotImplementedError(
-            "allow_tcb: TCB->TDB conversion is not ported to "
-            "pint_tpu_torch yet")
-    model = get_model(parfile)
+    model = get_model(parfile, allow_tcb=allow_tcb)
     ephem = "de440s"
     if "EPHEM" in model.params and model.EPHEM.value:
         ephem = model.EPHEM.value.lower()

@@ -1,5 +1,6 @@
 """White/correlated noise components (torch counterpart of the JAX
-package's ``models/noise.py``: ScaleToaError, EcorrNoise, PLRedNoise).
+package's ``models/noise.py``: ScaleToaError, EcorrNoise, PLRedNoise,
+PLDMNoise, PLChromNoise and PLSWNoise).
 
 (reference: src/pint/models/noise_model.py — ScaleToaError (EFAC/EQUAD
 maskParameters), EcorrNoise (epoch-correlated, quantization basis),
@@ -16,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from ..constants import SECS_PER_DAY
+from ..constants import C_M_S, DMconst, SECS_PER_DAY
 from .parameter import floatParameter, maskParameter
 from .timing_model import Component
 
@@ -261,3 +262,151 @@ class PLRedNoise(NoiseComponent):
             gamma = -params["RNIDX"]
         return prep["rn_F"], powerlaw_phi(A, gamma, prep["rn_freqs"],
                                           prep["rn_tspan_s"])
+
+
+class _PLScaledNoise(NoiseComponent):
+    """Power-law noise whose Fourier basis is row-scaled per TOA:
+    PLDMNoise and PLChromNoise by (f_ref/nu)^alpha, PLSWNoise by the
+    solar-wind delay per unit NE_SW. The basis/weight math has one
+    home, as in the JAX package."""
+
+    F_REF_MHZ = 1400.0
+    AMP = GAM = NHARM = PREP = None  # subclass config
+    PHI_SCALE = 1.0  # basis-weight unit conversion (see PLSWNoise)
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(floatParameter(self.AMP, units="log10",
+                                      description="log10 noise amplitude"))
+        self.add_param(floatParameter(self.GAM, units="",
+                                      description="Noise spectral index"))
+        p = floatParameter(self.NHARM, units="",
+                           description="Number of harmonics")
+        p.value = 30
+        self.add_param(p)
+
+    def device_slot(self, pname):
+        return pname, None
+
+    def _alpha(self, model):
+        raise NotImplementedError
+
+    def _row_scale(self, model, toas, prep, params0):
+        """Per-TOA multiplier on the Fourier basis rows: the chromatic
+        factor (f_ref/nu)^alpha; infinite-frequency TOAs see none of
+        this noise."""
+        alpha = self._alpha(model)
+        with np.errstate(divide="ignore"):
+            return np.where(np.isfinite(toas.freq_mhz),
+                            (self.F_REF_MHZ / toas.freq_mhz) ** alpha, 0.0)
+
+    def pack(self, model, toas, prep, params0, device=None):
+        F, freqs, tspan_s = fourier_basis(
+            toas, int(getattr(self, self.NHARM).value or 30))
+        scale = self._row_scale(model, toas, prep, params0)
+        prep[f"{self.PREP}_F"] = F * scale[:, None]
+        prep[f"{self.PREP}_freqs"] = freqs
+        prep[f"{self.PREP}_tspan_s"] = np.asarray(tspan_s, np.float64)
+        for pname in (self.AMP, self.GAM):
+            params0[pname] = getattr(self, pname).value or 0.0
+
+    def basis_weight(self, params, prep):
+        A = 10.0 ** params[self.AMP]
+        gamma = params[self.GAM]
+        return prep[f"{self.PREP}_F"], self.PHI_SCALE * powerlaw_phi(
+            A, gamma, prep[f"{self.PREP}_freqs"],
+            prep[f"{self.PREP}_tspan_s"])
+
+
+class PLDMNoise(_PLScaledNoise):
+    """Power-law DM noise (reference: noise_model.py::PLDMNoise): the
+    PLRedNoise Fourier machinery with the basis scaled per TOA by
+    (f_ref/nu)^2, f_ref = 1400 MHz. Params TNDMAMP (log10), TNDMGAM,
+    TNDMC."""
+
+    category = "pl_dm_noise"
+    order = 93
+    AMP, GAM, NHARM, PREP = "TNDMAMP", "TNDMGAM", "TNDMC", "dmrn"
+
+    def _alpha(self, model):
+        return 2.0
+
+
+class PLChromNoise(_PLScaledNoise):
+    """Power-law chromatic noise (reference: noise_model.py::
+    PLChromNoise): the basis scaled by (f_ref/nu)^alpha with alpha the
+    model's TNCHROMIDX (owned by ChromaticCM, default 4). Params
+    TNCHROMAMP (log10), TNCHROMGAM, TNCHROMC."""
+
+    category = "pl_chrom_noise"
+    order = 94
+    AMP, GAM, NHARM, PREP = "TNCHROMAMP", "TNCHROMGAM", "TNCHROMC", "chromrn"
+
+    def _alpha(self, model):
+        # static at pack time, like the basis span
+        cm = model.components.get("ChromaticCM")
+        if cm is not None and cm.TNCHROMIDX.value is not None:
+            return float(cm.TNCHROMIDX.value)
+        return 4.0
+
+
+class PLSWNoise(_PLScaledNoise):
+    """Power-law solar-wind (NE_SW) noise (reference:
+    noise_model.py::PLSWNoise *(version-dependent; Susarla et al.
+    2024)*): a Gaussian process on NE_SW(t) whose basis rows carry the
+    delay of a unit NE_SW change, DMconst * geom_pc(t) / nu^2 [us per
+    cm^-3] (the geometry of SolarWindDispersion, at the wind's own
+    power index). PHI_SCALE takes out powerlaw_phi's s^2 -> us^2
+    factor: the basis already carries the us. Params TNSWAMP (log10),
+    TNSWGAM, TNSWC."""
+
+    category = "pl_sw_noise"
+    order = 95
+    AMP, GAM, NHARM, PREP = "TNSWAMP", "TNSWGAM", "TNSWC", "swrn"
+    PHI_SCALE = 1e-12
+
+    def _row_scale(self, model, toas, prep, params0):
+        from .solar_wind import solar_wind_geometry_p
+
+        astrom = next((c for c in model.delay_components()
+                       if c.category == "astrometry"), None)
+        has_sw = ("SolarWindDispersion" in model.components
+                  or "SolarWindDispersionX" in model.components)
+        if not has_sw or astrom is None:
+            raise ValueError(
+                "PLSWNoise needs a solar-wind component (NE_SW or SWX) "
+                "and an astrometry component to evaluate the "
+                "line-of-sight geometry")
+        # geometry per unit NE_SW at the start-of-fit position (static
+        # during a fit, like the basis span)
+        n_hat = astrom.psb_xyz_host(params0, prep)
+        sun_ls = toas.obs_sun.pos / C_M_S
+        # the effective wind index: under SWM 1 the deterministic
+        # d(delay)/d(NE_SW) is the r^-SWP geometry, and the basis must
+        # match it
+        sw = model.components.get("SolarWindDispersionX",
+                                  model.components.get(
+                                      "SolarWindDispersion"))
+        p_base = 2.0
+        if int(sw.SWM.value or 0) == 1 and sw.SWP.value is not None:
+            p_base = float(sw.SWP.value)
+        swx_ids = getattr(sw, "swx_ids", ())
+        if swx_ids:
+            # under SWX each window has its own index (SWXP_####)
+            mjd = toas.get_mjds()
+            p_eff = np.full(len(toas), p_base, dtype=np.float64)
+            for i in swx_ids:
+                lo = getattr(sw, f"SWXR1_{i:04d}").value
+                hi = getattr(sw, f"SWXR2_{i:04d}").value
+                pv = getattr(sw, f"SWXP_{i:04d}").value
+                m = (mjd >= lo) & (mjd < hi)
+                p_eff[m] = 2.0 if pv is None else float(pv)
+            p_eff = torch.as_tensor(p_eff)
+        else:
+            p_eff = p_base
+        geom_pc = solar_wind_geometry_p(torch.as_tensor(sun_ls),
+                                        torch.as_tensor(n_hat), p_eff).numpy()
+        with np.errstate(divide="ignore"):
+            per_f2 = np.where(np.isfinite(toas.freq_mhz),
+                              1.0 / np.square(toas.freq_mhz), 0.0)
+        return 1e6 * DMconst * geom_pc * per_f2

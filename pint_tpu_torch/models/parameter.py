@@ -178,7 +178,10 @@ class MJDParameter(Parameter):
         self._value = self.day + self.sec / SECS_PER_DAY
 
     def _format_value(self):
-        return format_mjd(self.day, self.sec, 11)
+        # 16 decimals of a day (~4e-12 s): the (day, sec) pair reads
+        # back to the f64 resolution of its seconds (the JAX package
+        # writes 11, half a microsecond)
+        return format_mjd(self.day, self.sec, 16)
 
 
 class AngleParameter(Parameter):
@@ -278,9 +281,17 @@ class pairParameter(Parameter):
         self.value = (self.value[0] if self.value else 0.0, v)
 
     def as_parfile_line(self):
+        # the fit flag and uncertainty follow the pair when there are
+        # any, so a free IFUNC node reads back free (the JAX package
+        # writes the pair alone)
         if self.value is None:
             return ""
-        return f"{self.name:<15} {self._format_value()}\n"
+        line = f"{self.name:<15} {self._format_value()}"
+        if not self.frozen or self.uncertainty is not None:
+            line += f" {'0' if self.frozen else '1'}"
+            if self.uncertainty is not None:
+                line += f" {self._format_unc()}"
+        return line + "\n"
 
 
 class maskParameter(floatParameter):

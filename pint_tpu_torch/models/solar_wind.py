@@ -14,8 +14,7 @@ infinity along the line of sight,
 where r = |observatory -> Sun| and theta is the angle between the
 observatory->Sun vector and the pulsar direction (elongation). All on
 the device and differentiable in NE_SW, SWP and the pulsar position.
-The piecewise ``SolarWindDispersionX`` is not ported (ROADMAP §1
-item 4).
+``SolarWindDispersionX`` adds the piecewise SWX windows.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ import numpy as np
 import torch
 
 from ..constants import AU_LS, DMconst, ONE_AU_PC
-from .parameter import floatParameter
+from .parameter import MJDParameter, floatParameter, prefixParameter
 from .timing_model import DelayComponent
 
 
@@ -174,3 +173,100 @@ def solar_wind_geometry_p(sun_ls, n_hat, p):
     F_z = _cospow_integral(torch.arctan(z0_ls / b_ls) * ones, p * ones)
     I_ls = AU_LS**p / b_ls ** (p - 1.0) * (F_inf + F_z)
     return I_ls * (ONE_AU_PC / AU_LS)  # ls -> pc
+
+
+class SolarWindDispersionX(SolarWindDispersion):
+    """Piecewise solar wind (reference: solar_wind_dispersion.py::
+    SolarWindDispersionX *(version-dependent)*).
+
+    SWXDM_#### is the window's maximum solar-wind DM [pc cm^-3] over
+    [SWXR1_####, SWXR2_####); the per-TOA contribution is
+    SWXDM * g_p(t) / max_window(g_p) with g_p the r^-p geometry factor
+    and p = SWXP_#### (default 2). Outside all windows the base NE_SW
+    density applies."""
+
+    category = "solar_windx"
+
+    def __init__(self):
+        super().__init__()
+        self.swx_ids: list[int] = []
+
+    def add_swx_range(self, index, mjd_lo, mjd_hi, dm=0.0, p=2.0):
+        pdm = prefixParameter(f"SWXDM_{index:04d}", "SWXDM_", index,
+                              units="pc cm^-3",
+                              aliases=(f"SWX_{index:04d}",))
+        pdm.value = dm
+        self.add_param(pdm)
+        pp = prefixParameter(f"SWXP_{index:04d}", "SWXP_", index, units="")
+        pp.value = p
+        self.add_param(pp)
+        r1 = MJDParameter(f"SWXR1_{index:04d}", units="MJD")
+        r1.value = mjd_lo
+        self.add_param(r1)
+        r2 = MJDParameter(f"SWXR2_{index:04d}", units="MJD")
+        r2.value = mjd_hi
+        self.add_param(r2)
+        self.swx_ids.append(index)
+
+    def validate(self):
+        super().validate()
+        for i in self.swx_ids:
+            pp = getattr(self, f"SWXP_{i:04d}")
+            if not pp.frozen:
+                raise ValueError(
+                    f"SWXP_{i:04d}: fitting the solar-wind power index is "
+                    "not supported (static per-window quadrature)")
+            # the base SWP's divergence guard (no falsy-zero fallback)
+            pv = 2.0 if pp.value is None else float(pp.value)
+            if not pv > 1.0:
+                raise ValueError(
+                    f"SWXP_{i:04d} must be > 1 (the line-of-sight "
+                    f"integral diverges otherwise), got {pv}")
+
+    def device_slot(self, pname):
+        if pname.startswith("SWXDM_"):
+            return "SWXDM", self.swx_ids.index(int(pname[6:]))
+        return super().device_slot(pname)
+
+    def pack(self, model, toas, prep, params0, device=None):
+        super().pack(model, toas, prep, params0, device)
+        params0["SWXDM"] = np.array(
+            [getattr(self, f"SWXDM_{i:04d}").value or 0.0
+             for i in self.swx_ids], dtype=np.float64)
+        mjd = toas.get_mjds()
+        prep["swx_masks"] = np.stack([
+            ((mjd >= getattr(self, f"SWXR1_{i:04d}").value)
+             & (mjd < getattr(self, f"SWXR2_{i:04d}").value)).astype(np.float64)
+            for i in self.swx_ids]) if self.swx_ids else np.zeros((0, len(toas)))
+        prep["swx_p"] = np.array(
+            [2.0 if getattr(self, f"SWXP_{i:04d}").value is None
+             else float(getattr(self, f"SWXP_{i:04d}").value)
+             for i in self.swx_ids], dtype=np.float64)
+
+    def delay(self, params, batch, prep, delay_accum):
+        dm = self.swx_dm(params, batch, prep)
+        f2 = torch.square(batch.freq_mhz)
+        return torch.where(torch.isfinite(f2), DMconst * dm / f2, 0.0)
+
+    def swx_dm(self, params, batch, prep):
+        """Per-TOA solar-wind DM [pc cm^-3]: SWX windows (max-DM
+        convention) + NE_SW base outside every window. Shared by
+        delay() and TimingModel.total_dm."""
+        astrom = next((c for c in self._parent.delay_components()
+                       if c.category == "astrometry"), None)
+        masks = prep["swx_masks"]
+        base_dm = self.solar_wind_dm(params, batch, prep)
+        if masks.shape[-2] == 0 or astrom is None:
+            return base_dm
+        n_hat = astrom.ssb_to_psb_xyz(params, prep)
+        # per-window geometry (k, n): window j uses its own power index
+        G = solar_wind_geometry_p(batch.obs_sun_ls[..., None, :, :],
+                                  n_hat[..., None, :, :],
+                                  prep["swx_p"][..., :, None])
+        # normalize each window by its in-window maximum
+        gmax = torch.amax(G * masks, dim=-1)
+        gmax = torch.where(gmax > 0, gmax, 1.0)
+        dm_x = torch.sum((params["SWXDM"] / gmax)[..., :, None] * G * masks,
+                         dim=-2)
+        in_any = torch.clip(torch.sum(masks, dim=-2), 0.0, 1.0)
+        return dm_x + base_dm * (1.0 - in_any)

@@ -59,11 +59,21 @@ class Component:
         par._component = self
         self.params.append(par.name)
 
+    def remove_param(self, name: str):
+        """Drop a parameter inherited from a superclass that this
+        variant does not support (reference: Component.remove_param)."""
+        self.params.remove(name)
+        delattr(self, name)
+
     def setup(self):
         pass
 
     def validate(self):
         pass
+
+    @property
+    def free_params_component(self):
+        return [p for p in self.params if not getattr(self, p).frozen]
 
     # --- device hooks ---
     def pack(self, model, toas, prep: dict, params0: dict, device=None):
@@ -135,6 +145,21 @@ class TimingModel:
         return [p for p in self.params if p not in self.top_params
                 and not getattr(self, p).frozen]
 
+    @free_params.setter
+    def free_params(self, names):
+        # check every name before touching a frozen flag: a typo must
+        # not leave a half-rewritten free-parameter set
+        missing = set(names) - set(self.params)
+        if missing:
+            raise KeyError(f"unknown params {missing}")
+        for p in self.params:
+            if p in self.top_params:
+                continue
+            getattr(self, p).frozen = p not in names
+
+    def get_params_dict(self):
+        return {p: getattr(self, p).value for p in self.params}
+
     def delay_components(self):
         return sorted([c for c in self.components.values() if c.kind == "delay"],
                       key=lambda c: c.order)
@@ -166,19 +191,194 @@ class TimingModel:
         (reference: TimingModel.phase)."""
         return self.prepare(toas, device=device).phase()
 
-    def as_parfile(self) -> str:
+    def delay(self, toas, device="cuda"):
+        """Total delay [s] at each TOA, a tensor on ``device``."""
+        return self.prepare(toas, device=device).delay()
+
+    def designmatrix(self, toas, incoffset=True, device="cuda"):
+        """(M, labels): d(phase)/d(param) [cycles per unit], by
+        forward-mode autodiff on ``device``."""
+        return self.prepare(toas, device=device).designmatrix(
+            incoffset=incoffset)
+
+    def scaled_toa_uncertainty(self, toas, device="cuda"):
+        """EFAC/EQUAD-scaled sigma [us] (reference: noise_model scaled
+        sigma)."""
+        return self.prepare(toas, device=device).scaled_sigma_us()
+
+    # ---- par file round trip (reference: TimingModel.as_parfile) ----
+
+    def as_parfile(self, format="pint") -> str:
         """Serialize the model in ``pint`` format (reference:
-        TimingModel.as_parfile with format="pint"): the top-level
-        lines, then every delay and phase component's parameters, then
-        the noise components' (EFAC/EQUAD/ECORR/red noise are model
-        state too). The tempo/tempo2 spellings are not ported."""
+        TimingModel.as_parfile): the top-level lines, then every delay
+        and phase component's parameters, then the noise components'
+        (EFAC/EQUAD/ECORR/red noise are model state too). A binary
+        component writes its BINARY line first, so the file rebuilds
+        the same model. The tempo/tempo2 spellings are not ported
+        (ROADMAP §1 item 4)."""
+        if format != "pint":
+            raise NotImplementedError(
+                f"as_parfile(format={format!r}): the tempo/tempo2 "
+                "spellings are not ported to pint_tpu_torch yet "
+                "(ROADMAP §1 item 4)")
         lines = [self._top[p].as_parfile_line() for p in self.top_params]
         ordered = list(self.delay_components()) + list(self.phase_components())
         ordered += [c for c in self.components.values() if c not in ordered]
         for comp in ordered:
+            name = getattr(comp, "binary_model_name", None)
+            if name is not None:
+                lines.append(f"{'BINARY':<15} {name}\n")
             lines.extend(getattr(comp, p).as_parfile_line()
                          for p in comp.params)
-        return "".join(lines)
+        return "".join(l for l in lines if l)
+
+    def write_parfile(self, path, format="pint"):
+        with open(path, "w") as f:
+            f.write(self.as_parfile(format=format))
+
+    def compare(self, other: "TimingModel", sigma=None) -> str:
+        """Pre/post-fit comparison table (reference: TimingModel.compare).
+
+        ``sigma``: only list parameters whose difference exceeds this
+        many combined uncertainties (parameters with no uncertainty on
+        either side are shown when their values differ)."""
+        rows = [f"{'PARAM':<12} {'SELF':>20} {'OTHER':>20} {'DIFF/UNC':>10}"]
+        for p in self.params:
+            a = getattr(self, p)
+            b = getattr(other, p, None) if p in other.params else None
+            if a.kind in ("str",) or a.value is None or b is None or b.value is None:
+                continue
+            try:
+                diff = float(b.value) - float(a.value)
+            except (TypeError, ValueError):
+                continue
+            # combined (quadrature) uncertainty when both sides have one
+            ua, ub = a.uncertainty or 0.0, b.uncertainty or 0.0
+            unc = float(np.hypot(ua, ub)) or None
+            if sigma is not None:
+                if unc:
+                    if abs(diff) < sigma * unc:
+                        continue
+                elif diff == 0.0:
+                    continue
+            rel = f"{diff / unc:.2f}" if unc else "-"
+            rows.append(f"{p:<12} {float(a.value):>20.12g} {float(b.value):>20.12g} {rel:>10}")
+        return "\n".join(rows)
+
+    # ---- host diagnostics (reference: TimingModel conveniences) ----
+
+    def total_dm(self, toas, device="cuda"):
+        """Model DM at each TOA [pc/cm^3], numpy: every nu^-2
+        dispersion term — the DM Taylor series, DMX windows, DMWaveX
+        and solar wind (reference: TimingModel.total_dm). DMJUMP
+        offsets are left out: they apply to wideband DM measurements."""
+        prepared = self.prepare(toas, device=device)
+        return _model_dm(self, prepared.params0, prepared.prep,
+                         prepared.batch).cpu().numpy()
+
+    def d_phase_d_toa(self, toas, sample_step_s=1.0, device="cuda"):
+        """Instantaneous topocentric spin frequency [Hz] at each TOA
+        (reference: TimingModel.d_phase_d_toa): a central difference
+        through the whole pipeline, so every delay's time dependence
+        (Doppler from the observatory's motion included) is in it."""
+        h = float(sample_step_s)
+        keep = np.ones(len(toas), dtype=bool)
+        tp = toas.mask(keep)
+        tp.adjust_times(+h)
+        tm = toas.mask(keep)
+        tm.adjust_times(-h)
+        php = self.prepare(tp, device=device).phase()
+        phm = self.prepare(tm, device=device).phase()
+        dint = (php.int_ - phm.int_).cpu().numpy()
+        dfrac = (php.frac - phm.frac).cpu().numpy()
+        return (dint + dfrac) / (2.0 * h)
+
+    def _delay_contributions(self, prepared):
+        """(component, contribution) over delay_components() with the
+        chain's accumulation convention (as in _delay_impl)."""
+        d = torch.zeros_like(prepared.batch.tdb_sec)
+        for comp in self.delay_components():
+            di = comp.delay(prepared.params0, prepared.batch,
+                            prepared.prep, d)
+            d = d + di
+            yield comp, di
+
+    def _delay_until(self, prepared, stop_comp):
+        """Accumulated delay up to but excluding ``stop_comp``
+        (None = all components)."""
+        d = torch.zeros_like(prepared.batch.tdb_sec)
+        for comp, di in self._delay_contributions(prepared):
+            if comp is stop_comp:
+                break
+            d = d + di
+        return d
+
+    def delay_breakdown(self, toas, device="cuda"):
+        """{component name: per-TOA delay [s], numpy} in evaluation
+        order, each with the accumulated upstream delay exactly as in
+        the full chain, so the values sum to ``delay(toas)``."""
+        prepared = self.prepare(toas, device=device)
+        return {type(comp).__name__: di.cpu().numpy()
+                for comp, di in self._delay_contributions(prepared)}
+
+    def get_barycentric_toas(self, toas, cutoff_component=None,
+                             device="cuda"):
+        """Barycentric arrival times [TDB MJD, float64 numpy]: the TDB
+        TOA times minus every delay up to but excluding
+        ``cutoff_component`` (default: the binary component, so binary
+        pulsars get infinite-frequency barycentric orbital times)
+        (reference: TimingModel.get_barycentric_toas)."""
+        prepared = self.prepare(toas, device=device)
+        delays = self.delay_components()
+        if cutoff_component is None:
+            stop = next((c for c in delays
+                         if c.category == "pulsar_system"), None)
+        else:
+            stop = next((c for c in delays
+                         if c.__class__.__name__ == cutoff_component), None)
+            if stop is None:
+                raise KeyError(f"no delay component named "
+                               f"{cutoff_component!r} (have "
+                               f"{[c.__class__.__name__ for c in delays]})")
+        d = self._delay_until(prepared, stop).cpu().numpy()
+        return (prepared.batch.tdb_day.cpu().numpy()
+                + (prepared.batch.tdb_sec.cpu().numpy() - d) / SECS_PER_DAY)
+
+    def orbital_phase(self, toas, radians=False, device="cuda"):
+        """Mean orbital phase at each TOA, numpy — cycles in [0, 1) by
+        default, radians in [0, 2 pi) with ``radians=True`` — from the
+        binary epoch (T0, or TASC for ELL1 models) (reference:
+        TimingModel.orbital_phase)."""
+        binary = next((c for c in self.delay_components()
+                       if c.category == "pulsar_system"), None)
+        if binary is None:
+            raise AttributeError("model has no binary component")
+        prepared = self.prepare(toas, device=device)
+        d = self._delay_until(prepared, binary)
+        phi = binary.orbital_phase(prepared.params0, prepared.prep,
+                                   d).cpu().numpy()
+        cycles = (phi / (2.0 * np.pi)) % 1.0
+        return cycles * (2.0 * np.pi) if radians else cycles
+
+
+def _model_dm(model, params, prep, batch):
+    """Per-TOA model DM: DM(t) Taylor series + DMX windows + DMWaveX
+    Fourier terms + solar wind (the JAX package's
+    ``residuals.wideband_dm_model`` without the DMJUMP offsets)."""
+    comp = model.components.get("DispersionDM")
+    dm = (comp.dm_value(params, prep) if comp is not None
+          else torch.zeros_like(prep["T_hi"]))
+    if "DispersionDMX" in model.components:
+        dm = dm + params["DMX"] @ prep["dmx_masks"]
+    if "DMWaveX" in model.components:
+        dm = dm + model.components["DMWaveX"].dm_value(params, prep)
+    sw = (model.components.get("SolarWindDispersionX")
+          or model.components.get("SolarWindDispersion"))
+    if sw is not None:
+        dm = dm + (sw.swx_dm(params, batch, prep)
+                   if hasattr(sw, "swx_dm")
+                   else sw.solar_wind_dm(params, batch, prep))
+    return dm
 
 
 def _delay_impl(model, params, batch, prep):
@@ -228,9 +428,9 @@ def _overlay_params(x, params0, free_map):
 
 def host_to_device(tree, device):
     """Move the numeric numpy leaves of a prep/params dict to ``device``:
-    floats as float64, integers as int64 (torch indexes with int64).
-    Python scalars, strings and longdouble arrays stay on the host
-    untouched."""
+    floats as float64, integers as int64 (torch indexes with int64),
+    booleans as bool. Python scalars, tuples, strings and longdouble
+    arrays stay on the host untouched."""
     out = {}
     for k, v in tree.items():
         kind = (v.dtype.kind if isinstance(v, (np.ndarray, np.generic))
@@ -241,6 +441,8 @@ def host_to_device(tree, device):
             out[k] = torch.as_tensor(np.array(v, np.float64), device=device)
         elif kind in ("i", "u"):
             out[k] = torch.as_tensor(np.array(v, np.int64), device=device)
+        elif kind == "b":
+            out[k] = torch.as_tensor(np.array(v, bool), device=device)
         else:
             out[k] = v
     return out
@@ -387,6 +589,10 @@ class PreparedTiming:
         forward-mode autodiff (``torch.func.jacfwd`` in place of the JAX
         package's ``jax.jacfwd``)."""
         labels = [n for n, _, _ in self.free_param_map()]
+        # PHOFF free is the offset column: drop the implicit one
+        # (reference: phase_offset.py PhaseOffset vs 'Offset')
+        if incoffset and "PHOFF" in labels:
+            incoffset = False
         model, prep, batch = self.model, self.prep, self.batch
         params0 = self.params0
         free_map = tuple(self.free_param_map())

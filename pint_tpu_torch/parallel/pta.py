@@ -59,7 +59,7 @@ from ..toa import TOABatch
 
 _EXCLUDE_KEYS = ("T_ld", "pepoch_day", "pepoch_sec")
 _STATIC_KEYS = ("orb_mode_fb", "planet_shapiro", "obliquity",
-                "tropo_on", "ifunc_mode")
+                "tropo_on", "ifunc_mode", "fdjump_orders")
 _PAD_SIGMA = 1e30
 
 
@@ -1325,13 +1325,19 @@ class PTABatch:
     @staticmethod
     def structure_key(model):
         """Hashable model-structure signature: component set, free
-        parameters and the par values that become static prep config."""
+        parameters and the par values that become static prep config
+        (uniform within a batch, so part of the bucket key)."""
         comps = tuple(sorted(model.components))
         free = tuple(sorted(model.free_params))
         static_cfg = []
-        for pname in ("PLANET_SHAPIRO", "ECL"):
+        for pname in ("PLANET_SHAPIRO", "ECL", "CORRECT_TROPOSPHERE",
+                      "SIFUNC"):
             if pname in model.params:
                 static_cfg.append((pname, getattr(model, pname).value))
+        # FB-mode vs PB-mode orbits differ in the static orb_mode_fb
+        if "FB0" in model.params:
+            static_cfg.append(("FB0?", getattr(model, "FB0").value
+                               is not None))
         return (comps, free, tuple(static_cfg))
 
 

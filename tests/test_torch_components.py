@@ -129,7 +129,7 @@ def test_cospow_quadrature_matches_jax():
 def test_solar_wind_validation_matches_jax():
     """SWM outside {0, 1}, SWM 1 with SWP <= 1, and a free SWP under
     SWM 0 are refused by both packages; TNSW keys (PLSWNoise) and SWX
-    windows (SolarWindDispersionX) are named as not ported."""
+    windows (SolarWindDispersionX) build the same components in both."""
     from pint_tpu.models import get_model as jget_model
     from pint_tpu_torch.models import get_model
 
@@ -141,8 +141,9 @@ def test_solar_wind_validation_matches_jax():
     for extra, name in (("TNSWAMP -3\n", "PLSWNoise"),
                         ("SWXDM_0001 0.1\nSWXR1_0001 53000\n"
                          "SWXR2_0001 54000\n", "SolarWindDispersionX")):
-        with pytest.raises(NotImplementedError, match=name):
-            get_model(base + extra)
+        m, jm = get_model(base + extra), jget_model(base + extra)
+        assert name in m.components
+        assert list(m.components) == list(jm.components)
 
 
 def test_troposphere_zero_off_site():

@@ -190,13 +190,17 @@ def test_fake_toas_have_zero_residuals():
 
 
 def test_builder_names_unported_components():
+    """What the port does not build yet raises, naming it; DMX and the
+    binary models build since the model zoo was ported."""
     from pint_tpu_torch.models import get_model
 
-    with pytest.raises(NotImplementedError, match="DispersionDMX"):
-        get_model(EQUATORIAL + "DMX 14.0\nDMX_0001 0.001 1\n"
-                  "DMXR1_0001 54000\nDMXR2_0001 55000\n")
-    with pytest.raises(NotImplementedError, match="binary model"):
-        get_model(EQUATORIAL + "BINARY ELL1\nPB 1.5\nA1 2.0\n")
+    with pytest.raises(NotImplementedError, match="P0/P1 spin conversion"):
+        get_model(EQUATORIAL.replace("F0 155.318 1\nF1 -3e-16 1\n",
+                                     "P0 0.006438 1\nP1 1.2e-20 1\n"))
+    m = get_model(EQUATORIAL + "DMX 14.0\nDMX_0001 0.001 1\n"
+                  "DMXR1_0001 54000\nDMXR2_0001 55000\n"
+                  "BINARY ELL1\nPB 1.5\nA1 2.0\nTASC 55000\n")
+    assert {"DispersionDMX", "BinaryELL1"} <= set(m.components)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
