@@ -96,6 +96,32 @@ these phases:
    GLSFitter per structure within 1e-4 sigma of its fleet row; the
    kernels' inputs of each bucket shape are recorded for the kernel
    line;
+5e. ``[wideband] pack``: the port's wideband pack (``wb_sim.par/.tim``,
+   300 wideband GBT TOAs at two receivers written by the JAX package:
+   ELL1, DM and 3 DMX windows, EFAC/EQUAD/ECORR, red noise, DMEFAC/
+   DMEQUAD, a free DMJUMP) through ``get_model_and_toas`` ->
+   ``WidebandTOAResiduals`` on the card, then WidebandTOAFitter (f64 and
+   mixed), WidebandDownhillFitter and WidebandLMFitter, each timed with
+   its summary, held to the JAX package's fits in ``WB_postfit.json``
+   (values 1e-6 sigma, LM by its stopping rule; uncertainties 1e-10,
+   mixed 1e-4, LM 1e-5; chi2 1e-7; DM residuals 1e-12 of the DM), and
+   ``auto_fitter`` picks WidebandDownhillFitter;
+   ``[wideband] pulsar``: the main path's largest pulsar's 7,500 epochs
+   with one wideband TOA per GBT receiver (820/1500 MHz): 15,000 TOAs
+   and 15,000 DM rows made on the card by ``make_fake_toas_fromMJDs(...,
+   wideband=True)``, ``wb_pulsar_par()`` (zoo_par_text(1) without ECORR,
+   FD frozen, DMEFAC/DMEQUAD, a free DMJUMP at 2e-4): an f64 fit at the
+   truth for sigma, then from 3 sigma off WidebandTOAFitter mixed (cold,
+   warm) and f64 (cold, warm), WidebandDownhillFitter and
+   WidebandLMFitter; recovery <= 0.01 sigma, mixed vs f64 <= 1e-6
+   sigma, no f64 Gram fallback, finite chi2; walls, the warm mixed
+   fit's peak device memory and profile, and where an f64 fit's time
+   goes;
+   ``[cli]``: zima --wideband, pintempo --fitter auto (through
+   WidebandDownhillFitter, DM and DMJUMP within 5 sigma of the truth),
+   convert_parfile -f tempo2/-f tempo (read back alike, T2EFAC and
+   UNITS), compare_parfiles, tcb2tdb, t2binary2pint, pintbary (three
+   MJDs) and pintpublish, each ``main([...])`` in-process, exit 0;
 6. ``[gw] fleet``: the GW stage on the main path's fleet at its warm
    mixed-fit vectors: assemble and regrid at 30 days (timed), then the
    optimal statistic with the pair products in mixed (the K3 kernel;
@@ -1506,6 +1532,348 @@ def zoo_fleet(torch, counts, device="cuda"):
     return seen, launches
 
 
+WB_PAR = os.path.join(EXAMPLES, "wb_sim.par")
+WB_TIM = os.path.join(EXAMPLES, "wb_sim.tim")
+WB_FITTERS = ("WidebandTOAFitter", "WidebandTOAFitter_mixed",
+              "WidebandDownhillFitter", "WidebandLMFitter")
+TOL_WB_CHI2 = 1e-7  # chi2 vs the JAX fixture, relative (ROADMAP §3)
+TOL_WB_COV = 1e-10  # f64 uncertainties vs the JAX fixture, relative
+TOL_WB_LM_UNC = 1e-5  # LM at its default maxiter (its stopping rule)
+TOL_WB_DM = 1e-12  # DM residuals vs the JAX fixture, of the DM
+WB_LM_TOL = 1e-9  # WidebandLMFitter.fit_toas's default tol
+# [wideband] pulsar: zoo_par_text(1) (J1909-BENCH's ELL1, 17 DMX windows,
+# EFAC/EQUAD, 30-harmonic red noise, a free JUMP on Rcvr_800) without
+# ECORR, FD1/FD2 frozen, DMEFAC per receiver and DMEQUAD on Rcvr_800
+# frozen, and a free DMJUMP on Rcvr_800 (true value 2e-4; selected by its
+# band, 720-920 MHz, so the fake maker sees it when it draws the DM flags,
+# before the -fe flags are set); one wideband TOA per receiver per epoch
+WB_BANDS = (820.0, 1500.0)  # the middle sub-bands of ZOO_BANDS
+WB_DMJUMP = 2e-4
+WB_DM_ERROR = 1e-4
+
+
+def wb_pulsar_par():
+    text = zoo_par_text(1).replace("ECORR -f L-wide 0.8\n", "")
+    text = text.replace("FD1 1.5e-5 1\nFD2 -4e-6 1\n", "FD1 1.5e-5\nFD2 -4e-6\n")
+    return text + ("DMEFAC -fe Rcvr_800 1.1\nDMEFAC -fe Rcvr1_2 1.05\n"
+                   "DMEQUAD -fe Rcvr_800 2e-5\n"
+                   f"DMJUMP freq 720 920 {WB_DMJUMP} 1\n")
+
+
+def wideband_pack(device="cuda"):
+    """``[wideband] pack``: the port's wideband pack (``wb_sim.par/.tim``,
+    a J1909-like ELL1 pulsar with DMX, EFAC/EQUAD/ECORR, red noise,
+    DMEFAC/DMEQUAD and a free DMJUMP; 300 wideband GBT TOAs written by
+    the JAX package) through ``get_model_and_toas`` ->
+    ``WidebandTOAResiduals`` on ``device`` (DM residuals within 1e-12 of
+    the DM of the JAX package's, time residuals within 1e-3 us), then
+    WidebandTOAFitter in f64 and mixed, WidebandDownhillFitter and
+    WidebandLMFitter, each timed with its summary printed and held to
+    the JAX package's fits in ``WB_postfit.json``: values 1e-6 sigma (LM
+    within sqrt(tol chi2) sigma, its stopping rule), uncertainties 1e-10
+    (mixed 1e-4, LM 1e-5), chi2 1e-7 (ROADMAP §3); and ``auto_fitter``
+    picks WidebandDownhillFitter."""
+    import pint_tpu_torch
+    from pint_tpu_torch import fitter as tfit
+    from pint_tpu_torch.residuals import WidebandTOAResiduals
+
+    with open(os.path.join(EXAMPLES, "WB_postfit.json")) as f:
+        fx = json.load(f)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m, t = pint_tpu_torch.get_model_and_toas(WB_PAR, WB_TIM,
+                                                 usepickle=False)
+    load_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    wb = WidebandTOAResiduals(t, m, device=device)
+    d_dm = float(np.max(np.abs(wb.dm.resids - fx["prefit"]["dm_resids"])))
+    d_t = float(np.max(np.abs(wb.time_resids
+                              - fx["prefit"]["time_resids_s"]))) * 1e6
+    resid_s = time.perf_counter() - t0
+    log(f"[wideband] pack: get_model_and_toas {load_s:.2f} s, {len(t)} TOAs "
+        f"with {int(wb.dm.valid.sum())} DM measurements, components "
+        f"{list(m.components)}; WidebandTOAResiduals on {device} "
+        f"{resid_s:.3f} s; vs the JAX package's: DM max |d| {d_dm:.3e} "
+        f"pc cm^-3, time {d_t:.3e} us, chi2 {wb.chi2:.9f} (JAX "
+        f"{fx['prefit']['chi2']:.9f})")
+    gaps = {}
+    for key in WB_FITTERS:
+        ref = fx["fitters"][key]
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as wl:
+            warnings.simplefilter("always")
+            f = getattr(tfit, ref["class"])(t, copy.deepcopy(m),
+                                            device=device)
+            chi2 = float(f.fit_toas(**ref["kwargs"]))
+        sync()
+        wall = time.perf_counter() - t0
+        unc = ref["uncertainties"]
+        gaps[key] = {
+            "dx_sigma": max(abs(getattr(f.model, n).value - v) / unc[n]
+                            for n, v in ref["values"].items()),
+            "unc_rel": max(abs(getattr(f.model, n).uncertainty / u - 1)
+                           for n, u in unc.items()),
+            "chi2_rel": abs(chi2 - ref["chi2"]) / ref["chi2"],
+            "f64 fallback": any("f64" in str(w.message) for w in wl)}
+        log(f"[wideband] pack {key}: {wall:.3f} s on {device} "
+            f"({f.metrics['n_free']} free, iterations "
+            f"{f.metrics['iteration_s']}); chi2 {chi2:.9f}; vs the JAX "
+            f"fixture: {gaps[key]}")
+        for line in f.get_summary().splitlines():
+            log(f"[wideband] pack {key} | {line}")
+    auto = type(tfit.auto_fitter(t, m, device=device)).__name__
+    lm_tol = np.sqrt(WB_LM_TOL * fx["fitters"]["WidebandLMFitter"]["chi2"])
+    check("wideband pack", {
+        "DM residuals within 1e-12 of the DM of the JAX package's":
+            d_dm <= TOL_WB_DM * m.DM.value,
+        "time residuals within 1e-3 us of the JAX package's":
+            d_t <= TOL_GOLDEN_US,
+        "values within 1e-6 sigma of the JAX fixture (LM: its rule)": all(
+            g["dx_sigma"] <= (lm_tol if k == "WidebandLMFitter"
+                              else TOL_MIXED) for k, g in gaps.items()),
+        "uncertainties within their tiers of the JAX fixture": all(
+            g["unc_rel"] <= (TOL_MIXED_UNC if k.endswith("mixed")
+                             else TOL_WB_LM_UNC if k == "WidebandLMFitter"
+                             else TOL_WB_COV) for k, g in gaps.items()),
+        "chi2 within 1e-7 of the JAX fixture":
+            all(g["chi2_rel"] <= TOL_WB_CHI2 for g in gaps.values()),
+        "no f64 fallback in the mixed fit":
+            not gaps["WidebandTOAFitter_mixed"]["f64 fallback"],
+        "auto_fitter picks WidebandDownhillFitter":
+            auto == "WidebandDownhillFitter",
+    })
+
+
+def wideband_pulsar(torch, counts, device="cuda"):
+    """``[wideband] pulsar`` at full size: the epochs of the main path's
+    largest pulsar (``counts[0]`` TOAs' worth, 7,500 epochs, build_pta's
+    draw), one wideband TOA per GBT receiver per epoch at 820 and 1500
+    MHz (15,000 TOAs, 15,000 DM rows), made on ``device`` by
+    ``make_fake_toas_fromMJDs(..., wideband=True, dm_error_pccm3=1e-4)``
+    with ``wb_pulsar_par()``. An f64 WidebandTOAFitter at the truth
+    gives sigma; every start is moved 3 sigma off; then
+    WidebandTOAFitter mixed cold and warm and f64 (maxiter=2),
+    WidebandDownhillFitter and WidebandLMFitter, each timed, with where
+    one f64 fit's time goes (host prepare, the two jacfwd blocks, the
+    solve) and the warm mixed fit under the profiler. Checks recovery
+    <= 0.01 sigma (the DMJUMP included), mixed vs f64 <= 1e-6 sigma, no
+    fallback to an f64 Gram, finite chi2."""
+    from pint_tpu_torch import fitter as tfit
+    from pint_tpu_torch import pint_matrix
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    rng = np.random.default_rng(0)  # build_pta's draw for pulsar 0
+    days = np.sort(rng.uniform(54000, 57000, max(1, int(counts[0]) // 4)))
+    mjds = (days[:, None] + np.array([0.0, 0.5 / 86400.0])).reshape(-1)
+    freqs = np.tile(WB_BANDS, len(days))
+    truth = get_model(wb_pulsar_par())
+    sync()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t = make_fake_toas_fromMJDs(mjds, truth, error_us=1.0,
+                                    freq_mhz=freqs, flags={"f": "L-wide"},
+                                    iterations=2, wideband=True,
+                                    dm_error_pccm3=WB_DM_ERROR,
+                                    device=device)
+    for f, nu in zip(t.flags, freqs):
+        f.update(zoo_flags(nu))
+    make_s = time.perf_counter() - t0
+    names = list(truth.free_params)
+    x_true = np.array([getattr(truth, n).value for n in names])
+
+    def fit(cls, model, **kw):
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as wl:
+            warnings.simplefilter("always")
+            f = getattr(tfit, cls)(t, model, device=device)
+            chi2 = float(f.fit_toas(**kw))
+        sync()
+        x = np.array([getattr(f.model, n).value for n in names])
+        s = np.array([getattr(f.model, n).uncertainty for n in names])
+        fallback = any("f64" in str(w.message) for w in wl)
+        return f, x, s, chi2, time.perf_counter() - t0, fallback
+
+    f0, _, sig, _, truth_s, _ = fit("WidebandTOAFitter", copy.deepcopy(truth),
+                                    maxiter=1)
+    n_rows, n_cols = f0.design_matrix.shape
+    n_noise = sum(B.shape[1] for _, B in f0._noise_basis_segments)
+    signs = np.where(np.arange(len(names)) % 2, 1.0, -1.0)
+    x_start = x_true + START_OFFSET_SIGMA * sig * signs
+
+    def start():
+        m = copy.deepcopy(truth)
+        for n, v in zip(names, x_start):
+            getattr(m, n).value = float(v)
+        return m
+
+    runs = {}
+    for label, cls, kw in (
+            ("mixed cold", "WidebandTOAFitter",
+             {"maxiter": 2, "precision": "mixed"}),
+            ("mixed warm", "WidebandTOAFitter",
+             {"maxiter": 2, "precision": "mixed"}),
+            ("f64 cold", "WidebandTOAFitter", {"maxiter": 2}),
+            ("f64 warm", "WidebandTOAFitter", {"maxiter": 2}),
+            ("WidebandDownhillFitter", "WidebandDownhillFitter", {}),
+            ("WidebandLMFitter", "WidebandLMFitter", {})):
+        if label == "mixed warm" and device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        runs[label] = fit(cls, start(), **kw)
+        if label == "mixed warm" and device == "cuda":
+            runs[label] += (torch.cuda.max_memory_allocated(),)
+    timers = Timers()
+    for owner, attr, label in (
+            (tfit.Fitter, "_prepare", "prepare (host pack)"),
+            (pint_matrix.DesignMatrix, "from_prepared",
+             "time block (jacfwd)"),
+            (tfit.WidebandTOAFitter, "_dm_designmatrix", "DM block (jacfwd)"),
+            (tfit, "marginalized_chi2", "marginalized chi2"),
+            (tfit, "gls_solve", "GLS solve")):
+        timers.patch(owner, attr, label)
+    try:
+        breakdown = fit("WidebandTOAFitter", start(), maxiter=2)
+    finally:
+        timers.restore()
+    xm, xf = runs["mixed warm"][1], runs["f64 warm"][1]
+    d_mixed = float(np.max(np.abs(xm - xf) / sig))
+    d_true = {k: float(np.max(np.abs(r[1] - x_true) / sig))
+              for k, r in runs.items()}
+    j = names.index("DMJUMP1")
+    log(f"[wideband] pulsar: {len(t)} wideband TOAs + {len(t)} DM rows at "
+        f"GBT ({len(days)} epochs x {WB_BANDS} MHz) made on {device} in "
+        f"{make_s:.2f} s; combined design {n_rows} x {n_cols} + {n_noise} "
+        f"red-noise columns; free {names}; f64 fit at the truth "
+        f"{truth_s:.3f} s")
+    for k, r in runs.items():
+        log(f"[wideband] pulsar {k}: {r[4]:.3f} s ({len(r[0].metrics['iteration_s'])} "
+            f"iterations), chi2 {r[3]:.6e}, max |x - x_true|/sigma "
+            f"{d_true[k]:.3e} (DMJUMP {abs(r[1][j] - WB_DMJUMP) / sig[j]:.3e}), "
+            f"f64 fallback {r[5]}")
+    if device == "cuda":
+        log(f"[wideband] pulsar mixed warm: max_memory_allocated "
+            f"{runs['mixed warm'][6] / 2**30:.3f} GiB")
+    log(f"[wideband] pulsar: max |x_mixed - x_f64|/sigma {d_mixed:.3e}")
+    log(f"[wideband] pulsar breakdown of one f64 WidebandTOAFitter "
+        f"(maxiter=2) {breakdown[4]:.3f} s: " + ", ".join(
+            f"{k} {timers.total[k]:.3f} s x{timers.calls[k]}"
+            for k in timers.total))
+    if device == "cuda":
+        profile_run(torch, "[wideband] profile: warm mixed WidebandTOAFitter",
+                    lambda: fit("WidebandTOAFitter", start(), maxiter=2,
+                                precision="mixed"), top=8)
+    check("wideband pulsar", {
+        "recovery <= 0.01 sigma, the DMJUMP included":
+            max(d_true.values()) <= TOL_RECOVER,
+        "mixed vs f64 <= 1e-6 sigma": d_mixed <= TOL_MIXED,
+        "no fallback to an f64 Gram": not any(r[5] for r in runs.values()),
+        "finite chi2": all(np.isfinite(r[3]) for r in runs.values()),
+        "the offset, every free parameter and 60 red-noise columns":
+            n_cols == len(names) + 1 and n_noise == 60,
+    })
+
+
+def cli_tools(tmp, device="cuda"):
+    """``[cli]``: each command-line tool's ``main([...])`` in-process on
+    a temporary directory, as a user runs it: ``zima --wideband`` (with
+    noise, on the wideband pack's epochs and receivers) writes a tim
+    file; ``pintempo --fitter auto --outfile`` fits it through
+    WidebandDownhillFitter on ``--device``; ``convert_parfile -f tempo2``
+    and ``-f tempo`` convert the post-fit par, each read back by
+    ``get_model`` to the same values; ``compare_parfiles`` on the input
+    and output pars; ``tcb2tdb`` on a TCB par; ``t2binary2pint`` on a
+    BINARY T2 par; ``pintbary`` at three MJDs; ``pintpublish``. Checks:
+    every tool exits with 0, the post-fit DM and DMJUMP within 5 sigma
+    of the truth, the tempo2 text uses T2EFAC and has the UNITS line."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.scripts import (compare_parfiles, convert_parfile,
+                                        pintbary, pintempo, pintpublish,
+                                        t2binary2pint, tcb2tdb, zima)
+
+    def run(tag, main, argv):
+        out = io.StringIO()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rc = main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        log(f"[cli] {tag}: exit {rc}, {wall:.3f} s; " + " | ".join(
+            text.strip().splitlines()[:3]))
+        return rc, text
+
+    tim = os.path.join(tmp, "zima.tim")
+    post = os.path.join(tmp, "post.par")
+    rcs = {}
+    rcs["zima"], _ = run("zima --wideband", zima.main, [
+        WB_PAR, tim, "--inputtim", WB_TIM, "--wideband", "--addnoise",
+        "--seed", "7", "--device", device])
+    rcs["pintempo"], fit_out = run("pintempo --fitter auto", pintempo.main, [
+        WB_PAR, tim, "--fitter", "auto", "--outfile", post,
+        "--device", device])
+    truth, fitted = get_model(WB_PAR), get_model(post)
+    pulls = {n: abs(getattr(fitted, n).value - getattr(truth, n).value)
+             / getattr(fitted, n).uncertainty for n in ("DM", "DMJUMP1")}
+    texts = {}
+    for fmt in ("tempo2", "tempo"):
+        out = os.path.join(tmp, f"post_{fmt}.par")
+        rcs[f"convert_parfile {fmt}"], _ = run(
+            f"convert_parfile -f {fmt}", convert_parfile.main,
+            [post, "-f", fmt, "-o", out])
+        with open(out) as fh:
+            texts[fmt] = fh.read()
+        back = get_model(out)
+        texts[fmt + " read back"] = all(
+            getattr(back, n).value == getattr(fitted, n).value
+            for n in fitted.free_params)
+    rcs["compare_parfiles"], cmp_out = run(
+        "compare_parfiles", compare_parfiles.main, [WB_PAR, post])
+    tcb = os.path.join(tmp, "tcb.par")
+    with open(tcb, "w") as fh:
+        fh.write("PSR J1744-1134\nRAJ 17:44:29.4\nDECJ -11:34:54.7\n"
+                 "F0 245.4261196 1\nF1 -5.38e-16 1\nPEPOCH 55000\n"
+                 "POSEPOCH 55000\nDM 3.139 1\nUNITS TCB\n")
+    rcs["tcb2tdb"], _ = run("tcb2tdb", tcb2tdb.main,
+                            [tcb, os.path.join(tmp, "tdb.par")])
+    t2 = os.path.join(tmp, "t2.par")
+    with open(t2, "w") as fh:
+        fh.write("PSR J1012+5307\nRAJ 10:12:33.43\nDECJ 53:07:02.5\n"
+                 "F0 190.2678376 1\nF1 -6.2e-16\nPEPOCH 55000\nDM 9.02\n"
+                 "BINARY T2\nPB 0.60467 1\nA1 0.58181 1\nTASC 50700.08 1\n"
+                 "EPS1 1.3e-7 1\nEPS2 -4.0e-7 1\n")
+    rcs["t2binary2pint"], _ = run("t2binary2pint", t2binary2pint.main,
+                                  [t2, os.path.join(tmp, "ell1.par")])
+    rcs["pintbary"], bary = run("pintbary", pintbary.main, [
+        "56000.0", "56000.5", "58000.25", "--parfile", WB_PAR, "--obs", "gbt",
+        "--freq", "1400", "--device", device])
+    rcs["pintpublish"], tex = run("pintpublish", pintpublish.main, [post])
+    log(f"[cli] post-fit DM and DMJUMP1 vs the truth: {pulls} sigma")
+    check("cli", {
+        "every tool exits with 0": all(rc == 0 for rc in rcs.values()),
+        "pintempo fits through WidebandDownhillFitter":
+            "Fitting with WidebandDownhillFitter" in fit_out,
+        "post-fit DM and DMJUMP within 5 sigma of the truth":
+            max(pulls.values()) <= 5.0,
+        "tempo2 text uses T2EFAC and has a UNITS line":
+            "\nT2EFAC " in texts["tempo2"] and "\nUNITS " in texts["tempo2"]
+            and "\nEFAC " not in texts["tempo2"],
+        "tempo text starts with MODE 1":
+            texts["tempo"].splitlines()[0].split() == ["MODE", "1"],
+        "both conversions read back to the same values":
+            texts["tempo2 read back"] and texts["tempo read back"],
+        "compare_parfiles, pintbary and pintpublish printed":
+            "DMJUMP1" in cmp_out and len(bary.splitlines()) == 3
+            and "\\begin{table}" in tex,
+    })
+
+
 def gw_fleet(fleet, xs):
     """The GW stage on the fitted main-path fleet: assemble, regrid, and
     the optimal statistic in mixed (K3 counted) and in f64. Returns the
@@ -2678,6 +3046,15 @@ def run():
                                entry["replaces"], kern, plain, x, block,
                                whiten, zoo_launches[key])
             for tag, (x, block) in zoo_seen[key].items()}
+
+    t0 = time.perf_counter()
+    wideband_pack()
+    wideband_pulsar(torch, counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_tools(tmp)
+    torch.cuda.empty_cache()
+    log(f"[wideband] pack and pulsar and [cli] took "
+        f"{time.perf_counter() - t0:.2f} s")
 
     fleet_lat, k3_launches = gw_fleet(fleet, xm2)
     gw_injected()

@@ -2,7 +2,9 @@
 the solve core — column norms, whitening, the thresholded eigh and SVD
 solves, the mixed-precision refinement and their per-segment forms —
 and the single-pulsar fitter classes WLSFitter, DownhillWLSFitter,
-GLSFitter, DownhillGLSFitter and PowellFitter, with auto_fitter.
+GLSFitter, DownhillGLSFitter, PowellFitter and the wideband (time + DM)
+WidebandTOAFitter, WidebandDownhillFitter and WidebandLMFitter, with
+auto_fitter.
 
 (reference: src/pint/fitter.py — Fitter base, WLSFitter, GLSFitter,
 DownhillFitter family.) The design matrix comes from
@@ -16,8 +18,8 @@ the second-to-last axis of a design matrix, parameters the last. What
 the JAX package writes per pulsar and vmaps, the port writes once over
 the batch (``A`` (..., k, k), ``b`` (..., k), ``Mn`` (..., n, k)).
 
-Not ported: the wideband fitters (ROADMAP §1 item 5), ``Fitter.plot``
-(``plot_utils.py``, §1 item 8), the fit-quality probes
+Not ported: ``Fitter.plot`` (``plot_utils.py``, §1 item 8), the
+fit-quality probes
 (``obs/fitquality.py``, §1 item 7) and the AOT compile helpers (no
 torch counterpart in this slice).
 """
@@ -31,7 +33,8 @@ import warnings
 import numpy as np
 import torch
 
-from .residuals import Residuals
+from .residuals import (Residuals, WidebandDMResiduals,
+                        WidebandTOAResiduals, wideband_dm_model)
 from .segment import segment_max, segment_sum
 
 # eigh backward-error floor for the GLS eigenvalue threshold: a
@@ -410,8 +413,7 @@ def fit_metrics(t_start, prep_s, iter_s, toas, model, device):
 
 def _reject_free_dmjump(model):
     """Narrowband fitters refuse free DMJUMPs: their time-domain design
-    column is identically zero (the JAX package's check; DispersionJump
-    is not ported, so a model here never has one)."""
+    column is identically zero (the JAX package's check)."""
     comp = model.components.get("DispersionJump")
     if comp is None:
         return
@@ -425,8 +427,7 @@ def _reject_free_dmjump(model):
 def _reject_free_dm_noise(model):
     """Wideband fitters refuse free DMEFAC/DMEQUAD: the DM-error scaling
     is applied once at the start-of-fit values, so a fitted value would
-    never feed back into the weights (the JAX package's check, kept for
-    the wideband fitters to come)."""
+    never feed back into the weights (the JAX package's check)."""
     comp = model.components.get("ScaleToaError")
     free = ([] if comp is None else
             [p for p in comp.params if p.startswith(("DMEFAC", "DMEQUAD"))
@@ -1083,6 +1084,352 @@ class DownhillGLSFitter(GLSFitter):
                                 fit_quality=fit_quality)
 
 
+class WidebandTOAFitter(GLSFitter):
+    """Joint time + DM fit (reference: fitter.py::WidebandTOAFitter).
+
+    The residual vector is [time resids; DM resids]; the design matrix
+    is assembled from labeled per-quantity DesignMatrix blocks by
+    combine_design_matrices_by_quantity (pint_matrix.py), so the time
+    and DM blocks carry their own units and the column union (the time
+    block's Offset has no DM rows) is explicit. Each iteration prepares
+    the model again on the host, as the JAX package does."""
+
+    def _dm_designmatrix(self, prepared, valid):
+        """Labeled d(DM_resid)/d(param) block [pc cm^-3 / param-unit],
+        by ``torch.func.jacfwd`` over wideband_dm_model."""
+        from .pint_matrix import DesignMatrix
+
+        idx = torch.as_tensor(np.flatnonzero(valid), device=prepared.device)
+
+        def dm_model(x):
+            p = prepared.params_with_vector(x)
+            dm = wideband_dm_model(self.model, p, prepared.prep,
+                                   batch=prepared.batch)
+            return dm[idx]
+
+        x0 = prepared.vector_from_params()
+        M_dm = -torch.func.jacfwd(dm_model)(x0)  # resid = measured - model
+        names = [n for n, _, _ in prepared.free_param_map()]
+        units = [f"pc cm^-3/({getattr(self.model, n).units or '1'})"
+                 for n in names]
+        return DesignMatrix(M_dm, "dm", "pc cm^-3", names, units)
+
+    def _wideband_rstate(self):
+        """(prepared, valid, r, sigma, (B, w_us2)) at the current model
+        state: the residual/noise half of _wideband_system (no design
+        matrices), enough for the final safeguard evaluation."""
+        prepared = self._prepare()
+        wb = WidebandTOAResiduals(self.toas, self.model, prepared=prepared)
+        valid = wb.dm.valid
+        dev = prepared.device
+        r_t = wb.toa.calc_time_resids()
+        r_dm = torch.as_tensor(wb.dm.calc_dm_resids()[valid], device=dev)
+        sigma_t = prepared.scaled_sigma_us() * 1e-6
+        sigma_dm = torch.as_tensor(wb.dm.dm_error[valid], device=dev)
+        r = torch.cat([r_t, r_dm])
+        sigma = torch.cat([sigma_t, sigma_dm])
+        bases = self._noise_bases_padded(prepared, int(valid.sum()))
+        return prepared, valid, r, sigma, bases
+
+    def _wideband_system(self):
+        """(prepared, combined design, r, sigma, noff, x0, (B, w_us2))
+        at the current model state. B holds the TOA-noise basis columns
+        (ECORR/red noise) zero-padded over the DM rows: the DM
+        measurements are uncorrelated with the TOA noise processes."""
+        from .pint_matrix import (DesignMatrix,
+                                  combine_design_matrices_by_quantity)
+
+        prepared, valid, r, sigma, bases = self._wideband_rstate()
+        dm_time = DesignMatrix.from_prepared(prepared, self.model)
+        dm_dm = self._dm_designmatrix(prepared, valid)
+        combined = combine_design_matrices_by_quantity([dm_time, dm_dm])
+        self.design_matrix = combined
+        noff = _n_offset(combined.param_names)
+        return (prepared, combined, r, sigma, noff,
+                prepared.vector_from_params(), bases)
+
+    def _noise_bases_padded(self, prepared, n_dm_rows):
+        """TOA-noise bases zero-padded over the DM rows."""
+        B, w_us2 = self._noise_bases(prepared)
+        if B is not None:
+            B = torch.cat([B, B.new_zeros((n_dm_rows, B.shape[1]))], dim=0)
+        return (B, w_us2)
+
+    def _wideband_chi2_fn(self, prepared, bases=(None, None),
+                          threshold=1e-12):
+        """The GLS objective chi2(x) over [time; DM] rows: the whitened
+        chi2 with any noise-basis amplitudes marginalized at fixed x
+        (Woodbury: |rw|^2 - b.dxn), one function per outer iteration,
+        so line-search probes pay no host re-prepare. ``threshold``
+        must match the solve's, or the two chi2 measures disagree on
+        near-degenerate noise directions."""
+        wb = WidebandDMResiduals(self.toas, self.model, prepared=prepared)
+        valid = wb.valid
+        dev = prepared.device
+        idx = torch.as_tensor(np.flatnonzero(valid), device=dev)
+        dm_meas = torch.as_tensor(wb.dm_observed[valid], device=dev)
+        sigma_dm = torch.as_tensor(wb.dm_error[valid], device=dev)
+        resid_fn = prepared.residual_vector_fn(track_mode=self._track_mode())
+        B, w_us2 = bases
+        if B is not None:
+            _, sqrt_phi_inv, _ = stack_noise_bases(B[:, :0], bases)
+
+        def chi2_of(x):
+            p = prepared.params_with_vector(x)
+            r_t = resid_fn(x)
+            sig_t = prepared.scaled_sigma_us(p) * 1e-6
+            dm = wideband_dm_model(self.model, p, prepared.prep,
+                                   batch=prepared.batch)[idx]
+            r = torch.cat([r_t, dm_meas - dm])
+            sigma = torch.cat([sig_t, sigma_dm])
+            rw2 = torch.sum(torch.square(r / sigma))
+            if B is None:
+                return float(rw2)
+            A, b, _ = gls_normal(B, r, sigma, sqrt_phi_inv)
+            dxn, _ = gls_eigh_solve(A, b, threshold)
+            return float(rw2 - b @ dxn)
+
+        return chi2_of
+
+    def _wideband_chi2(self, threshold=1e-12):
+        """The GLS objective at the CURRENT model state."""
+        prepared = self._prepare()
+        valid = WidebandDMResiduals(self.toas, self.model,
+                                    prepared=prepared).valid
+        bases = self._noise_bases_padded(prepared, int(valid.sum()))
+        fn = self._wideband_chi2_fn(prepared, bases, threshold)
+        return fn(prepared.vector_from_params())
+
+    def _wideband_resids(self):
+        return WidebandTOAResiduals(self.toas, self.model,
+                                    device=self.device)
+
+    def fit_toas(self, maxiter=2, threshold=1e-12, precision="f64",
+                 fit_quality=False):
+        """``fit_quality=True`` asks for the JAX package's fit-quality
+        probes, which are not ported (it raises)."""
+        check_precision(precision)
+        _reject_free_dm_noise(self.model)
+        _reject_fit_quality(fit_quality)
+        t_start = _wall(self.device)
+        iter_s = []
+        chi2 = None
+        best = None  # (marginalized chi2, prepared, x0) of the best state
+        for _ in range(maxiter):
+            t_it = time.perf_counter()
+            prepared, combined, r, sigma, noff, x0, bases = \
+                self._wideband_system()
+            chi2_act = marginalized_chi2(r, sigma, bases, threshold)
+            if best is None or chi2_act < best[0]:
+                best = (chi2_act, prepared, x0)
+            Mfull, sqrt_phi_inv, nparam = stack_noise_bases(
+                combined.matrix, bases)
+            dx_all, cov, chi2 = gls_solve(Mfull, r, sigma, sqrt_phi_inv,
+                                          threshold, precision=precision)
+            self._sync_model_from_vector(prepared, x0 - dx_all[noff:nparam])
+            self.noise_ampls = (_host(dx_all[nparam:])
+                                if bases[0] is not None else None)
+            cov_all = cov_from_normalized(*cov)
+            self._set_uncertainties(prepared, cov_all[noff:nparam,
+                                                      noff:nparam])
+            iter_s.append(time.perf_counter() - t_it)
+        # best-iterate safeguard (see GLSFitter.fit_toas): the final
+        # state's marginalized chi2, at the in-loop threshold, against
+        # the best one; revert if an iteration diverged
+        _, _, r, sigma, bases = self._wideband_rstate()
+        final_chi2 = marginalized_chi2(r, sigma, bases, threshold)
+        if (best is not None
+                and final_chi2 - best[0] > 1e-6 * max(1.0, best[0])):
+            warnings.warn(
+                f"wideband GLS iteration increased chi2 ({best[0]:.6g} "
+                f"-> {final_chi2:.6g}); reverting to the best evaluated "
+                "iterate (reported uncertainties are from the last "
+                "solve; noise amplitudes are cleared)")
+            chi2, prepared, x0 = best
+            self._sync_model_from_vector(prepared, x0)
+            # the amplitudes solved at the diverged state do not belong
+            # to the reverted parameters
+            self.noise_ampls = None
+        else:
+            chi2 = final_chi2
+            if self.noise_ampls is not None:
+                # the loop's last prepared is the one the amplitudes
+                # were solved against
+                self._capture_noise_bases(prepared)
+        self.resids = self._wideband_resids()
+        self._attach_noise_resids()
+        self.converged = True
+        self.chi2_whitened = chi2
+        self._update_model_stats()
+        # each iteration prepares again, so the prepare time is in
+        # iteration_s and prepare_s is 0, as in the JAX package
+        self.metrics = fit_metrics(t_start, 0.0, iter_s, self.toas,
+                                   self.model, self.device)
+        # the whitened/marginalized value, like GLSFitter's
+        return chi2
+
+
+class WidebandDownhillFitter(WidebandTOAFitter):
+    """Step-halving wideband fit (reference:
+    fitter.py::WidebandDownhillFitter)."""
+
+    def fit_toas(self, maxiter=15, threshold=1e-12, min_lambda=1e-3,
+                 tol=1e-9, raise_maxiter=False, precision="f64",
+                 fit_quality=False):
+        check_precision(precision)
+        _reject_free_dm_noise(self.model)
+        _reject_fit_quality(fit_quality)
+        t_start = _wall(self.device)
+        iter_s = []
+        best_chi2 = None
+        for _ in range(maxiter):
+            t_it = time.perf_counter()
+            prepared, combined, r, sigma, noff, x0, bases = \
+                self._wideband_system()
+            # one objective per outer iteration; line-search probes
+            # marginalize the (fixed) bases on the device
+            chi2_of = self._wideband_chi2_fn(prepared, bases, threshold)
+            if best_chi2 is None:
+                best_chi2 = chi2_of(x0)
+            Mfull, sqrt_phi_inv, nparam = stack_noise_bases(
+                combined.matrix, bases)
+            dx_all, cov, _ = gls_solve(Mfull, r, sigma, sqrt_phi_inv,
+                                       threshold, precision=precision)
+            self.noise_ampls = (_host(dx_all[nparam:])
+                                if bases[0] is not None else None)
+            dx = dx_all[noff:nparam]
+            lam = 1.0
+            improved = False
+            x_new = x0
+            while lam >= min_lambda:
+                chi2 = chi2_of(x0 - lam * dx)
+                if chi2 <= best_chi2 + 1e-12:
+                    improved = chi2 < best_chi2 - tol * max(1.0, best_chi2)
+                    best_chi2 = min(best_chi2, chi2)
+                    x_new = x0 - lam * dx
+                    break
+                lam *= 0.5
+            self._sync_model_from_vector(prepared, x_new)
+            cov_all = cov_from_normalized(*cov)
+            self._set_uncertainties(prepared, cov_all[noff:nparam,
+                                                      noff:nparam])
+            iter_s.append(time.perf_counter() - t_it)
+            if lam < min_lambda or not improved:
+                break
+        else:
+            if raise_maxiter:
+                self.metrics = fit_metrics(t_start, 0.0, iter_s, self.toas,
+                                           self.model, self.device)
+                raise MaxiterReached(maxiter, best_chi2)
+        if self.noise_ampls is not None:
+            self._capture_noise_bases(prepared)
+        self.resids = self._wideband_resids()
+        self._attach_noise_resids()
+        self.converged = True
+        self.chi2_whitened = best_chi2
+        self._update_model_stats()
+        self.metrics = fit_metrics(t_start, 0.0, iter_s, self.toas,
+                                   self.model, self.device)
+        return best_chi2
+
+
+class WidebandLMFitter(WidebandTOAFitter):
+    """Levenberg-Marquardt wideband fit (reference:
+    fitter.py::WidebandLMFitter): the normalized normal matrix is
+    damped by lm_lambda * diag, the damping adapted on chi2 acceptance
+    and rejection; the covariance and the noise amplitudes come from
+    one undamped solve at the accepted solution."""
+
+    def fit_toas(self, maxiter=20, threshold=1e-12, lm_lambda0=1e-3,
+                 tol=1e-9, precision="f64", fit_quality=False):
+        check_precision(precision)
+        _reject_free_dm_noise(self.model)
+        _reject_fit_quality(fit_quality)
+        t_start = _wall(self.device)
+        iter_s = []
+        lm = lm_lambda0
+        best_chi2 = self._wideband_chi2(threshold)
+        for _ in range(maxiter):
+            t_it = time.perf_counter()
+            prepared, combined, r, sigma, noff, x0, bases = \
+                self._wideband_system()
+            Mfull, sqrt_phi_inv, nparam = stack_noise_bases(
+                combined.matrix, bases)
+            if precision == "mixed":
+                # f32 Gram + refinement against the DAMPED f64 operator
+                Mn, norm, q = gls_whiten(Mfull, sigma, sqrt_phi_inv)
+                b = _mtv(Mn, r / sigma)
+                A = gls_gram(Mn, q, "mixed")
+                dA = torch.diagonal(A)
+                A_damped = A + lm * torch.diag(dA)
+
+                def damped_mv(v, _Mn=Mn, _q=q, _dA=dA, _lm=lm):
+                    return (_mtv(_Mn, _mv(_Mn, v)) + (_q * _q) * v
+                            + _lm * _dA * v)
+
+                dxn = torch.linalg.solve(A_damped, b)
+                for _r in range(2):
+                    dxn = dxn + torch.linalg.solve(A_damped,
+                                                   b - damped_mv(dxn))
+                relres = (torch.linalg.norm(b - damped_mv(dxn))
+                          / (torch.linalg.norm(b) + 1e-300)).item()
+                if relres_failed(relres):
+                    # gls_eigh_refine's contract on the damped system:
+                    # the f32 Gram failed to precondition this step, so
+                    # redo it with the f64 Gram (A also feeds the
+                    # covariance below)
+                    warnings.warn(
+                        f"mixed-precision LM refinement did not "
+                        f"converge (rel resid {relres:.2e}); solving "
+                        "this step with the f64 Gram")
+                    A = gls_gram(Mn, q, "f64")
+                    A_damped = A + lm * torch.diag(torch.diagonal(A))
+                    dxn = torch.linalg.solve(A_damped, b)
+            else:
+                A, b, norm = gls_normal(Mfull, r, sigma, sqrt_phi_inv)
+                A_damped = A + lm * torch.diag(torch.diagonal(A))
+                dxn = torch.linalg.solve(A_damped, b)
+            dx = (dxn / norm)[noff:nparam]
+            self._sync_model_from_vector(prepared, x0 - dx)
+            chi2 = self._wideband_chi2(threshold)
+            iter_s.append(time.perf_counter() - t_it)
+            if chi2 <= best_chi2 + 1e-12:
+                accepted = chi2 < best_chi2 - tol * max(1.0, best_chi2)
+                best_chi2 = min(best_chi2, chi2)
+                lm = max(lm / 9.0, 1e-12)
+                self._lm_cov = (A, norm, noff, nparam)
+                if not accepted:
+                    break
+            else:
+                self._sync_model_from_vector(prepared, x0)
+                lm *= 11.0
+                if lm > 1e6:
+                    break
+        if getattr(self, "_lm_cov", None) is not None:
+            A, norm, noff, nparam = self._lm_cov
+            covn = np.linalg.pinv(_host(A))
+            cov_all = cov_from_normalized(covn, norm)
+            prepared, combined, r, sigma, _, _, bases = \
+                self._wideband_system()
+            Mfull, sqrt_phi_inv, nparam2 = stack_noise_bases(
+                combined.matrix, bases)
+            dx_all, _, _ = gls_solve(Mfull, r, sigma, sqrt_phi_inv)
+            self.noise_ampls = (_host(dx_all[nparam2:])
+                                if bases[0] is not None else None)
+            if self.noise_ampls is not None:
+                self._capture_noise_bases(prepared)
+            self._set_uncertainties(prepared, cov_all[noff:nparam,
+                                                      noff:nparam])
+        self.resids = self._wideband_resids()
+        self._attach_noise_resids()
+        self.converged = True
+        self.chi2_whitened = best_chi2
+        self._update_model_stats()
+        self.metrics = fit_metrics(t_start, 0.0, iter_s, self.toas,
+                                   self.model, self.device)
+        return best_chi2
+
+
 class PowellFitter(Fitter):
     """Derivative-free Powell minimization of chi2 (reference:
     fitter.py::PowellFitter): scipy's Powell drives from the host, the
@@ -1129,17 +1476,15 @@ class PowellFitter(Fitter):
 
 
 def auto_fitter(toas, model, device="cuda"):
-    """Pick a fitter like the reference's Fitter.auto(): DownhillGLS
-    with correlated noise, DownhillWLS without. Wideband TOAs need the
-    wideband fitters, which are not ported (ROADMAP §1 item 5)."""
+    """Pick a fitter like the reference's Fitter.auto():
+    WidebandDownhill for wideband TOAs (-pp_dm flags), else DownhillGLS
+    with correlated noise and DownhillWLS without."""
     has_noise = any(c.kind == "noise" and c.category != "scale_toa_error"
                     for c in model.components.values())
     wideband = (toas.has_flags()
                 and any("pp_dm" in f for f in toas.flags))
     if wideband:
-        raise NotImplementedError(
-            "wideband TOAs need WidebandDownhillFitter, which is not "
-            "ported to pint_tpu_torch yet (ROADMAP §1 item 5)")
+        return WidebandDownhillFitter(toas, model, device=device)
     if has_noise:
         return DownhillGLSFitter(toas, model, device=device)
     return DownhillWLSFitter(toas, model, device=device)

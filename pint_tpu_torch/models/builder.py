@@ -5,10 +5,8 @@
 aliases, choose components from content (BINARY line, DMX_* ->
 DispersionDMX, GLEP_* -> Glitch, ...), report unrecognized lines.)
 
-A par file that needs what the port does not have yet (the tempo1
-P0/P1 spin spelling, ROADMAP §1 item 2) raises ``NotImplementedError``
-naming it: no line is silently dropped into a model that would then
-fit the wrong physics.
+The tempo1 P0/P1/P2 spin spelling is converted to F0/F1/F2 on load
+with a warning, in the JAX package's plain-float arithmetic.
 """
 
 from __future__ import annotations
@@ -64,13 +62,45 @@ _REPEATED = ("JUMP", "EFAC", "EQUAD", "ECORR", "DMEFAC", "DMEQUAD",
              "DMJUMP", "TNEQ", "TNGLOBALEQ")
 
 
-def _unported_components(keys, repeats):
-    """What this par file would need of the JAX package's builder that
-    the port does not have yet, by the same key tests."""
-    checks = [
-        ("P0/P1 spin conversion", "P0" in keys and "F0" not in keys),
-    ]
-    return [name for name, hit in checks if hit]
+def _value_fit_unc(fields):
+    """(value, fit flag, uncertainty or None) of a par line's fields."""
+    val = float(fields[0])
+    fit, unc = "0", None
+    rest = list(fields[1:])
+    if rest and rest[0] in ("0", "1"):
+        fit = rest.pop(0)
+    if rest:
+        unc = float(rest[0])
+    return val, fit, unc
+
+
+def _convert_period_keys(keys):
+    """tempo1-style P0/P1/P2 spin parameters -> F0/F1/F2 in ``keys``,
+    with the uncertainties propagated (the JAX package's builder, with
+    its plain f64 arithmetic, so the values are bitwise the same; the
+    F1 uncertainty is written as a plain float, ROADMAP §3)."""
+    from ..utils import p_to_f, pferrs
+
+    p0, fit0, u0 = _value_fit_unc(keys.pop("P0"))
+    keys["F0"] = [repr(1.0 / p0), fit0] + (
+        [repr(u0 / p0**2)] if u0 is not None else [])
+    had_p1 = "P1" in keys
+    p1, fit1, u1 = (_value_fit_unc(keys.pop("P1")) if had_p1
+                    else (0.0, "0", None))
+    if had_p1 or "P2" in keys:
+        keys["F1"] = [repr(-p1 / p0**2), fit1]
+        if u0 is not None or u1 is not None:
+            _, _, _, f1err = pferrs(p0, u0 or 0.0, p1, u1 or 0.0)
+            # float(): numpy 2 reprs its scalars as "np.float64(...)",
+            # which the par line reader refuses (the JAX package's F1
+            # keeps no uncertainty for that)
+            keys["F1"].append(repr(float(f1err)))
+    if "P2" in keys:
+        p2, fit2, u2 = _value_fit_unc(keys.pop("P2"))
+        f2 = p_to_f(p0, p1, p2)[2]
+        keys["F2"] = [repr(f2), fit2] + (
+            [repr(u2 / p0**2)] if u2 is not None else [])
+    warnings.warn("converted P0/P1/P2 spin parameters to F0/F1/F2")
 
 
 def parse_parfile(parfile) -> list[tuple[str, list[str]]]:
@@ -292,11 +322,8 @@ def get_model(parfile, allow_name_mixing=False, allow_tcb=False) -> TimingModel:
             repeats.append((canon, fields))
         else:
             keys[canon] = fields
-    missing = _unported_components(keys, repeats)
-    if missing:
-        raise NotImplementedError(
-            f"par file needs {', '.join(missing)}, not ported to "
-            "pint_tpu_torch yet")
+    if "P0" in keys and "F0" not in keys:
+        _convert_period_keys(keys)
 
     model = TimingModel(name=str(parfile)
                         if isinstance(parfile, (str, os.PathLike)) else "")

@@ -78,6 +78,16 @@ class ScaleToaError(NoiseComponent):
         equad = params["EQUAD"] @ prep["equad_masks"]
         return torch.sqrt(torch.square(efac * sigma_us) + torch.square(equad))
 
+    def scale_dm_sigma(self, params, prep, sigma_dm):
+        """Scaled wideband DM uncertainties [pc cm^-3]:
+        sqrt((DMEFAC * sigma)^2 + DMEQUAD^2) per mask (reference:
+        noise_model.py::ScaleDmError.scale_dm_sigma — the DM-domain
+        twin of scale_sigma, consumed by WidebandDMResiduals)."""
+        dmefac = 1.0 + (params["DMEFAC"] - 1.0) @ prep["dmefac_masks"]
+        dmequad = params["DMEQUAD"] @ prep["dmequad_masks"]
+        return torch.sqrt(torch.square(dmefac * sigma_dm)
+                          + torch.square(dmequad))
+
 
 def quantize_epochs(mjds, idx, window_days=2.0 / SECS_PER_DAY):
     """Epoch groups of the TOAs ``idx``: sorted by MJD, a new epoch at

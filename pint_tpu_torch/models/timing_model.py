@@ -45,10 +45,18 @@ class MissingParameter(TimingModelError):
 
 
 class Component:
-    """Base component (reference: timing_model.py::Component)."""
+    """Base component; subclasses register themselves by class name in
+    ``component_types`` (reference: timing_model.py::Component + the
+    ModelMeta metaclass), which ``utils.list_parameters`` reads."""
 
+    component_types: dict[str, type] = {}
     category = ""
     order = 50  # delay evaluation order; lower = earlier
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        if not cls.__name__.startswith("_"):
+            Component.component_types[cls.__name__] = cls
 
     def __init__(self):
         self.params: list[str] = []
@@ -208,20 +216,40 @@ class TimingModel:
 
     # ---- par file round trip (reference: TimingModel.as_parfile) ----
 
+    # parameter spellings tempo/tempo2 expect on output; the reader
+    # accepts both, so format="pint" files stay canonical (the JAX
+    # package's tables)
+    _TEMPO2_RENAMES = {
+        "EFAC": "T2EFAC", "EQUAD": "T2EQUAD", "STIGMA": "VARSIGMA",
+        "A1DOT": "XDOT", "NE_SW": "NE1AU", "ELONG": "LAMBDA",
+        "ELAT": "BETA", "PMELONG": "PMLAMBDA", "PMELAT": "PMBETA",
+    }
+    _TEMPO_RENAMES = {
+        "ELONG": "LAMBDA", "ELAT": "BETA",
+        "PMELONG": "PMLAMBDA", "PMELAT": "PMBETA", "NE_SW": "SOLARN0",
+        "A1DOT": "XDOT", "STIGMA": "VARSIGMA",
+    }
+
     def as_parfile(self, format="pint") -> str:
-        """Serialize the model in ``pint`` format (reference:
-        TimingModel.as_parfile): the top-level lines, then every delay
-        and phase component's parameters, then the noise components'
-        (EFAC/EQUAD/ECORR/red noise are model state too). A binary
-        component writes its BINARY line first, so the file rebuilds
-        the same model. The tempo/tempo2 spellings are not ported
-        (ROADMAP §1 item 4)."""
-        if format != "pint":
-            raise NotImplementedError(
-                f"as_parfile(format={format!r}): the tempo/tempo2 "
-                "spellings are not ported to pint_tpu_torch yet "
-                "(ROADMAP §1 item 4)")
-        lines = [self._top[p].as_parfile_line() for p in self.top_params]
+        """Serialize the model (reference: TimingModel.as_parfile with
+        format in {"pint", "tempo", "tempo2"}): the top-level lines,
+        then every delay and phase component's parameters, then the
+        noise components' (EFAC/EQUAD/ECORR/red noise are model state
+        too). A binary component writes its BINARY line first, so the
+        file rebuilds the same model. tempo and tempo2 get the same
+        values under their spellings (T2EFAC, VARSIGMA, LAMBDA, ...), a
+        UNITS TDB line when the model has none, and tempo a MODE 1
+        header."""
+        if format not in ("pint", "tempo", "tempo2"):
+            raise ValueError(f"unknown par file format {format!r} "
+                             "(expected pint, tempo, or tempo2)")
+        renames = (self._TEMPO2_RENAMES if format == "tempo2"
+                   else self._TEMPO_RENAMES if format == "tempo" else {})
+        lines = [f"{'MODE':<15} 1\n"] if format == "tempo" else []
+        lines += [self._top[p].as_parfile_line() for p in self.top_params
+                  if not (format == "tempo" and p == "MODE")]
+        if format != "pint" and "UNITS" not in self.top_params:
+            lines.append(f"{'UNITS':<15} TDB\n")
         ordered = list(self.delay_components()) + list(self.phase_components())
         ordered += [c for c in self.components.values() if c not in ordered]
         for comp in ordered:
@@ -230,7 +258,7 @@ class TimingModel:
                 lines.append(f"{'BINARY':<15} {name}\n")
             lines.extend(getattr(comp, p).as_parfile_line()
                          for p in comp.params)
-        return "".join(l for l in lines if l)
+        return "".join(_rename_line(l, renames) for l in lines if l)
 
     def write_parfile(self, path, format="pint"):
         with open(path, "w") as f:
@@ -272,9 +300,12 @@ class TimingModel:
         dispersion term — the DM Taylor series, DMX windows, DMWaveX
         and solar wind (reference: TimingModel.total_dm). DMJUMP
         offsets are left out: they apply to wideband DM measurements."""
+        from ..residuals import wideband_dm_model
+
         prepared = self.prepare(toas, device=device)
-        return _model_dm(self, prepared.params0, prepared.prep,
-                         prepared.batch).cpu().numpy()
+        return wideband_dm_model(
+            self, prepared.params0, prepared.prep, batch=prepared.batch,
+            include_jumps=False).cpu().numpy()
 
     def d_phase_d_toa(self, toas, sample_step_s=1.0, device="cuda"):
         """Instantaneous topocentric spin frequency [Hz] at each TOA
@@ -361,24 +392,18 @@ class TimingModel:
         return cycles * (2.0 * np.pi) if radians else cycles
 
 
-def _model_dm(model, params, prep, batch):
-    """Per-TOA model DM: DM(t) Taylor series + DMX windows + DMWaveX
-    Fourier terms + solar wind (the JAX package's
-    ``residuals.wideband_dm_model`` without the DMJUMP offsets)."""
-    comp = model.components.get("DispersionDM")
-    dm = (comp.dm_value(params, prep) if comp is not None
-          else torch.zeros_like(prep["T_hi"]))
-    if "DispersionDMX" in model.components:
-        dm = dm + params["DMX"] @ prep["dmx_masks"]
-    if "DMWaveX" in model.components:
-        dm = dm + model.components["DMWaveX"].dm_value(params, prep)
-    sw = (model.components.get("SolarWindDispersionX")
-          or model.components.get("SolarWindDispersion"))
-    if sw is not None:
-        dm = dm + (sw.swx_dm(params, batch, prep)
-                   if hasattr(sw, "swx_dm")
-                   else sw.solar_wind_dm(params, batch, prep))
-    return dm
+def _rename_line(line, renames):
+    """``line`` with its leading name replaced from ``renames``, keeping
+    the name field's width (15 for plain parameters, 8 for mask
+    prefixes) so the columns stay aligned."""
+    head = line.split(" ", 1)[0]
+    if head not in renames:
+        return line
+    body = line.rstrip("\n")
+    rest = body[len(head):].lstrip()
+    field_w = len(body) - len(rest) - 1
+    new = renames[head]
+    return f"{new:<{max(field_w, len(new))}} {rest}\n"
 
 
 def _delay_impl(model, params, batch, prep):

@@ -1,15 +1,18 @@
-"""Residuals: model phase vs observed TOAs (narrowband).
+"""Residuals: model phase vs observed TOAs, and wideband DM residuals.
 
-Counterpart of the JAX package's ``residuals.py::Residuals``
-(reference: src/pint/residuals.py::Residuals — calc_phase_resids with
+Counterpart of the JAX package's ``residuals.py`` (reference:
+src/pint/residuals.py — Residuals: calc_phase_resids with
 nearest-integer or pulse-number tracking, optional weighted-mean
-subtraction; calc_time_resids = phase/F0; chi2/dof/rms). The phase and
-the sums run on ``device`` (torch f64); the numpy-facing properties
-bring results back to the host. The wideband classes are not ported
-(ROADMAP §1 item 5).
+subtraction; calc_time_resids = phase/F0; chi2/dof/rms.
+WidebandDMResiduals / WidebandTOAResiduals: the -pp_dm/-pp_dme
+measurements against the model DM. CombinedResiduals). The phase, the
+model DM and the sums run on ``device`` (torch f64); the numpy-facing
+properties bring results back to the host.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -187,3 +190,191 @@ class Residuals:
         for key in ("mjds", "freqs", "time_resids", "errors"):
             out[key] = np.asarray(out[key])
         return out
+
+
+def wideband_dm_model(model, params, prep, batch=None, include_jumps=True):
+    """Effective per-TOA model DM [pc cm^-3], a tensor: DM(t) Taylor
+    series + DMX windows + DMWaveX Fourier terms (+ solar wind when
+    ``batch`` is given; its geometry needs the Sun vectors) + DMJUMP
+    mask offsets. The one assembly point shared by WidebandDMResiduals,
+    the wideband fitters' DM design block (``torch.func.jacfwd`` traces
+    it) and TimingModel.total_dm, so derivatives, residuals and the
+    reported model DM cannot disagree (the JAX package's
+    ``residuals.wideband_dm_model``)."""
+    comp = model.components.get("DispersionDM")
+    # a model can carry DMX/DMWaveX/solar-wind dispersion without a
+    # Taylor DM line (the builder adds the components independently)
+    dm = (comp.dm_value(params, prep) if comp is not None
+          else torch.zeros_like(prep["T_hi"]))
+    if "DispersionDMX" in model.components:
+        dm = dm + params["DMX"] @ prep["dmx_masks"]
+    if "DMWaveX" in model.components:
+        dm = dm + model.components["DMWaveX"].dm_value(params, prep)
+    sw = (model.components.get("SolarWindDispersionX")
+          or model.components.get("SolarWindDispersion"))
+    if sw is not None:
+        if batch is None:
+            # dropping the solar-wind term silently would let the
+            # derivatives and the residuals disagree
+            raise ValueError(
+                "model has a solar-wind component; wideband_dm_model "
+                "needs the TOA batch (Sun vectors) — pass batch=")
+        dm = dm + (sw.swx_dm(params, batch, prep)
+                   if hasattr(sw, "swx_dm")
+                   else sw.solar_wind_dm(params, batch, prep))
+    if (include_jumps and "DispersionJump" in model.components
+            and len(params.get("DMJUMP", ()))):
+        # upstream sign convention (dispersion_model.py::DispersionJump
+        # jump_dm): the jump enters the MODEL DM with a minus sign, so
+        # d(DM_resid)/d(DMJUMP) = +1 and par files interchange with the
+        # reference without negating
+        dm = dm - params["DMJUMP"] @ prep["dmjump_masks"]
+    return dm
+
+
+def free_dm_noise_params(model):
+    """Names of user-freed DMEFAC/DMEQUAD parameters. The wideband DM
+    uncertainty scaling (WidebandDMResiduals) is evaluated once at the
+    start-of-fit values, so the wideband fitters refuse these as fit
+    parameters (fitter._reject_free_dm_noise)."""
+    comp = model.components.get("ScaleToaError")
+    if comp is None:
+        return []
+    return [p for p in comp.params
+            if p.startswith(("DMEFAC", "DMEQUAD"))
+            and not getattr(comp, p).frozen]
+
+
+def _flag_floats(values):
+    return np.array([float(v) if v not in ("", "nan") else np.nan
+                     for v in values])
+
+
+class WidebandDMResiduals:
+    """DM residuals from wideband TOA flags (reference:
+    residuals.py::WidebandDMResiduals): the observed DM of each TOA is
+    its -pp_dm flag with error -pp_dme (host numpy), the model DM is
+    wideband_dm_model on ``device``."""
+
+    def __init__(self, toas, model, prepared=None, device="cuda"):
+        self.toas = toas
+        self.model = model
+        self.prepared = (prepared if prepared is not None
+                         else model.prepare(toas, device=device))
+        self.dm_observed = _flag_floats(toas.get_flag_value("pp_dm",
+                                                            fill="nan"))
+        raw_err = _flag_floats(toas.get_flag_value("pp_dme", fill="nan"))
+        # a zero/negative pp_dme would give that TOA infinite weight in
+        # every wideband chi2 and fit, and a missing one leaves the
+        # weight undefined: both count as no DM measurement, named
+        # apart so the warning points at the actual problem
+        has_dm = ~np.isnan(self.dm_observed)
+        bad_err = ~(raw_err > 0)
+        n_missing = int((np.isnan(raw_err) & has_dm).sum())
+        n_nonpos = int((bad_err & ~np.isnan(raw_err) & has_dm).sum())
+        if n_missing or n_nonpos:
+            parts = []
+            if n_nonpos:
+                parts.append(f"{n_nonpos} with non-positive -pp_dme")
+            if n_missing:
+                parts.append(f"{n_missing} with -pp_dm but no -pp_dme")
+            warnings.warn("wideband TOA(s) excluded from the DM "
+                          "residuals: " + "; ".join(parts))
+        self.valid = has_dm & ~bad_err
+        # DMEFAC/DMEQUAD scaling (reference: ScaleDmError), applied at
+        # the start-of-fit values; so the wideband fitters refuse FREE
+        # DMEFAC/DMEQUAD (free_dm_noise_params above)
+        scale = model.components.get("ScaleToaError")
+        if scale is not None and (scale.dmefac_ids or scale.dmequad_ids):
+            safe = np.where(np.isnan(raw_err), 0.0, raw_err)
+            p = self.prepared
+            scaled = scale.scale_dm_sigma(
+                p.params0, p.prep,
+                torch.as_tensor(safe, device=p.device)).cpu().numpy()
+            self.dm_error = np.where(np.isnan(raw_err), np.nan, scaled)
+        else:
+            self.dm_error = raw_err
+
+    def calc_dm_resids(self, params=None):
+        """Observed minus model DM [pc cm^-3] of every TOA, host numpy
+        (NaN where a TOA has no DM measurement)."""
+        p = self.prepared.params0 if params is None else params
+        dm_model = wideband_dm_model(self.model, p, self.prepared.prep,
+                                     batch=self.prepared.batch)
+        return self.dm_observed - dm_model.cpu().numpy()
+
+    @property
+    def resids(self):
+        return self.calc_dm_resids()[self.valid]
+
+    @property
+    def chi2(self):
+        r = self.calc_dm_resids()
+        return float(np.nansum((r[self.valid] / self.dm_error[self.valid])
+                               ** 2))
+
+
+class WidebandTOAResiduals:
+    """Joint (time, DM) residuals (reference:
+    residuals.py::WidebandTOAResiduals), on one ``prepared``."""
+
+    def __init__(self, toas, model, prepared=None, device="cuda"):
+        self.prepared = (prepared if prepared is not None
+                         else model.prepare(toas, device=device))
+        self.toa = Residuals(toas, model, prepared=self.prepared)
+        self.dm = WidebandDMResiduals(toas, model, prepared=self.prepared)
+        self.model = model
+        self.toas = toas
+        # per-component noise realizations a GLS-family fit attaches
+        self.noise_resids = None
+
+    @property
+    def chi2(self):
+        return self.toa.chi2 + self.dm.chi2
+
+    @property
+    def dof(self):
+        return self.toa.dof + int(self.dm.valid.sum())
+
+    @property
+    def reduced_chi2(self):
+        return self.chi2 / self.dof
+
+    def rms_weighted(self):
+        """Weighted RMS of the TIME residuals [s] (what summaries quote;
+        the DM residuals carry other units)."""
+        return self.toa.rms_weighted()
+
+    def calc_time_resids(self, params=None):
+        return self.toa.calc_time_resids(params)
+
+    @property
+    def time_resids(self):
+        return self.toa.time_resids
+
+
+class CombinedResiduals:
+    """Concatenation of independent residual objects (reference:
+    residuals.py::CombinedResiduals, which sums chi2/dof over
+    datasets)."""
+
+    def __init__(self, residual_list):
+        self.residual_list = list(residual_list)
+
+    @property
+    def chi2(self):
+        return float(sum(r.chi2 for r in self.residual_list))
+
+    @property
+    def dof(self):
+        return int(sum(r.dof for r in self.residual_list))
+
+    @property
+    def reduced_chi2(self):
+        d = self.dof
+        return self.chi2 / d if d else float("nan")
+
+    def calc_time_resids(self):
+        """Every dataset's time residuals [s], concatenated on the host."""
+        return np.concatenate([r.calc_time_resids().cpu().numpy()
+                               for r in self.residual_list])

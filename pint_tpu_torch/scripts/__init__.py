@@ -1,3 +1,8 @@
-"""Command-line entry points of the port: ``photonphase`` and its
-Fermi wrapper ``fermiphase``
-(``python -m pint_tpu_torch.scripts.photonphase <events> <par>``)."""
+"""Command-line entry points of the port (reference:
+src/pint/scripts/; the JAX package's ``scripts/``): ``pintempo``,
+``zima``, ``pintbary``, ``photonphase`` and its Fermi wrapper
+``fermiphase``, which evaluate a model on ``--device`` (default
+``cuda``), and the host-only par tools ``convert_parfile``,
+``compare_parfiles``, ``tcb2tdb``, ``t2binary2pint`` and
+``pintpublish``. Each module has ``main(argv=None) -> int`` and runs as
+``python -m pint_tpu_torch.scripts.<name> ...``."""

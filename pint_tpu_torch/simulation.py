@@ -8,9 +8,9 @@ phase->time inversion until residuals vanish, then optionally add
 Gaussian measurement noise and correlated noise realizations). Each
 pass runs the host chain — clock corrections, UTC->TDB, posvels at the
 observatory (``obs="gbt"`` by default) — then the phase on ``device``.
-Tables are built with ``TOAs.from_arrays`` (no per-TOA objects). The
-wideband arguments raise ``NotImplementedError``: the wideband classes
-are not ported (ROADMAP §1 item 5).
+Tables are built with ``TOAs.from_arrays`` (no per-TOA objects).
+``wideband=True`` attaches -pp_dm/-pp_dme measurements at the model DM,
+drawn from the same generator in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -20,10 +20,6 @@ import numpy as np
 from . import resolve_device
 from .residuals import Residuals
 from .toa import TOAs
-
-WIDEBAND = ("wideband fake TOAs need the wideband residual classes, "
-            "not ported (ROADMAP §1 item 5)")
-
 
 def _refresh(toas: TOAs):
     toas.apply_clock_corrections()
@@ -73,6 +69,37 @@ def _apply_noise(toas: TOAs, model, rng, white=True, correlated=False,
             delta_s += (B @ amps_us) * 1e-6
     toas.adjust_times(delta_s)
     _refresh(toas)
+
+
+def _check_wideband_args(model, dm_error_pccm3):
+    """Fail fast (before the zero-residual iteration) on wideband
+    requests the model or the arguments cannot satisfy."""
+    if "DispersionDM" not in model.components:
+        raise ValueError(
+            "wideband=True needs a dispersion model (DM in the par "
+            "file) to predict per-TOA DM values")
+    if not (dm_error_pccm3 > 0):
+        raise ValueError(
+            f"dm_error_pccm3 must be > 0 (got {dm_error_pccm3}); the "
+            "wideband fit whitens DM residuals by this uncertainty")
+
+
+def _add_wideband_dm(toas: TOAs, model, rng, dm_error_pccm3, add_noise,
+                     device="cuda"):
+    """Attach wideband DM measurements (-pp_dm/-pp_dme flags) equal to
+    the model's DM prediction (DMJUMPs included) on ``device``,
+    scattered by ``dm_error_pccm3`` when ``add_noise`` (reference:
+    simulation.py wideband=True)."""
+    from .residuals import wideband_dm_model
+
+    prepared = model.prepare(toas, device=device)
+    dm_obs = wideband_dm_model(model, prepared.params0, prepared.prep,
+                               batch=prepared.batch).cpu().numpy()
+    if add_noise:
+        dm_obs = dm_obs + rng.standard_normal(len(toas)) * dm_error_pccm3
+    for fl, dv in zip(toas.flags, dm_obs):
+        fl["pp_dm"] = repr(float(dv))
+        fl["pp_dme"] = repr(float(dm_error_pccm3))
 
 
 def _model_settings(model):
@@ -125,11 +152,13 @@ def make_fake_toas_fromMJDs(mjds, model, error_us=1.0, freq_mhz=1400.0,
     ``flags`` (dict) is applied to every TOA before any noise draw.
     ``add_noise`` adds white noise at the model-scaled uncertainty and
     ``add_correlated_noise`` a realization of the model's correlated
-    noise, drawn from ``numpy.random.default_rng(seed)``. The phase
-    evaluations run on ``device``.
+    noise, drawn from ``numpy.random.default_rng(seed)``.
+    ``wideband=True`` attaches per-TOA DM measurements as -pp_dm/-pp_dme
+    flags at the model's DM (scattered by ``dm_error_pccm3`` when
+    ``add_noise``). The phase and DM evaluations run on ``device``.
     """
     if wideband:
-        raise NotImplementedError(WIDEBAND)
+        _check_wideband_args(model, dm_error_pccm3)
     resolve_device(device)
     mjds = np.asarray(mjds, dtype=np.float64)
     # the JAX package's TOA(int(m), (m - int(m)) * 86400.0, ...) per row
@@ -146,6 +175,9 @@ def make_fake_toas_fromMJDs(mjds, model, error_us=1.0, freq_mhz=1400.0,
     if add_noise or add_correlated_noise:
         _apply_noise(toas, model, rng, white=add_noise,
                      correlated=add_correlated_noise, device=device)
+    if wideband:
+        _add_wideband_dm(toas, model, rng, dm_error_pccm3, add_noise,
+                         device=device)
     return toas
 
 
@@ -157,7 +189,7 @@ def make_fake_toas_fromtim(timfile, model, add_noise=False,
     from .toa import read_tim_file
 
     if wideband:
-        raise NotImplementedError(WIDEBAND)
+        _check_wideband_args(model, dm_error_pccm3)
     resolve_device(device)
     toalist, _ = read_tim_file(str(timfile))
     ephem, planets = _model_settings(model)
@@ -167,4 +199,7 @@ def make_fake_toas_fromtim(timfile, model, add_noise=False,
     if add_noise or add_correlated_noise:
         _apply_noise(toas, model, rng, white=add_noise,
                      correlated=add_correlated_noise, device=device)
+    if wideband:
+        _add_wideband_dm(toas, model, rng, dm_error_pccm3, add_noise,
+                         device=device)
     return toas

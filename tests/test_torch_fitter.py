@@ -378,8 +378,8 @@ def test_derived_quantities_match_jax():
 
 def test_auto_fitter_choice(ngc, noise_batch):
     """auto_fitter picks DownhillWLS without correlated noise and
-    DownhillGLS with it, as the JAX package does; wideband TOAs need a
-    wideband fitter, which is not ported."""
+    DownhillGLS with it, and WidebandDownhill for TOAs with -pp_dm
+    flags, as the JAX package does."""
     from pint_tpu.fitter import auto_fitter as jauto
     from pint_tpu_torch.fitter import auto_fitter
     from pint_tpu_torch.models import get_model
@@ -393,10 +393,11 @@ def test_auto_fitter_choice(ngc, noise_batch):
     assert type(auto_fitter(pt, get_model(pars[0]), device="cpu")).__name__ \
         == type(jauto(jts[0], jms[0])).__name__ == "DownhillGLSFitter"
     wb = pt.mask(np.ones(len(pt), bool))
-    for f in wb.flags:
+    jwb = copy.deepcopy(jts[0])
+    for f in wb.flags + jwb.flags:
         f["pp_dm"] = "12.3"
-    with pytest.raises(NotImplementedError, match="item 5"):
-        auto_fitter(wb, get_model(pars[0]), device="cpu")
+    assert type(auto_fitter(wb, get_model(pars[0]), device="cpu")).__name__ \
+        == type(jauto(jwb, jms[0])).__name__ == "WidebandDownhillFitter"
 
 
 def test_fitter_guards(ngc, noise_batch):

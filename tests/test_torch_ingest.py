@@ -761,7 +761,8 @@ def test_fake_toas_noise_and_unported_options():
     correlated realization move the zero-residual TOAs by the JAX
     package's amounts for the same seed (the draws and the noise bases
     are the same; the residuals agree to 1e-12 s); the wideband
-    arguments raise."""
+    arguments draw -pp_dm/-pp_dme flags after the noise, as the JAX
+    package's do (bitwise: tests/test_torch_wideband.py)."""
     from pint_tpu.models import get_model as jget_model
     from pint_tpu.simulation import make_fake_toas_uniform as jfake
     from pint_tpu_torch.models import get_model
@@ -777,9 +778,9 @@ def test_fake_toas_noise_and_unported_options():
     j = jfake(54000, 56000, model=jget_model(EQUATORIAL), **kw)
     d = (t.day - j.day) * 86400.0 + (t.sec - j.sec)
     assert np.abs(d).max() <= 1e-12
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_fake_toas(54000, 56000, 8, get_model(EQUATORIAL), wideband=True,
-                       device="cpu")
+    wb = make_fake_toas(54000, 56000, 8, get_model(EQUATORIAL), wideband=True,
+                        device="cpu")
+    assert all({"pp_dm", "pp_dme"} <= set(f) for f in wb.flags)
 
 
 def test_fake_toas_from_tim(tmp_path):

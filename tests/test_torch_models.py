@@ -190,13 +190,16 @@ def test_fake_toas_have_zero_residuals():
 
 
 def test_builder_names_unported_components():
-    """What the port does not build yet raises, naming it; DMX and the
-    binary models build since the model zoo was ported."""
+    """Nothing of the JAX package's builder is left unported: the
+    tempo1 P0/P1 spin spelling converts to F0/F1 with a warning, as the
+    JAX package's does (bitwise: tests/test_torch_utils.py), and DMX
+    and the binary models build."""
     from pint_tpu_torch.models import get_model
 
-    with pytest.raises(NotImplementedError, match="P0/P1 spin conversion"):
-        get_model(EQUATORIAL.replace("F0 155.318 1\nF1 -3e-16 1\n",
-                                     "P0 0.006438 1\nP1 1.2e-20 1\n"))
+    with pytest.warns(UserWarning, match="converted P0/P1/P2"):
+        m = get_model(EQUATORIAL.replace("F0 155.318 1\nF1 -3e-16 1\n",
+                                         "P0 0.006438 1\nP1 1.2e-20 1\n"))
+    assert m.F0.value == 1.0 / 0.006438 and not m.F1.frozen
     m = get_model(EQUATORIAL + "DMX 14.0\nDMX_0001 0.001 1\n"
                   "DMXR1_0001 54000\nDMXR2_0001 55000\n"
                   "BINARY ELL1\nPB 1.5\nA1 2.0\nTASC 55000\n")
@@ -239,5 +242,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "pint_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"pint_tpu_torch/config.py", "pint_tpu_torch/logging_setup.py",
+            *(f"pint_tpu_torch/scripts/{s}.py" for s in (
+                "pintempo", "zima", "convert_parfile", "compare_parfiles",
+                "tcb2tdb", "t2binary2pint", "pintbary", "pintpublish"))
+            } <= names
     for f in files:
         assert not _IMPORT_RE.search(f.read_text()), f
