@@ -95,7 +95,7 @@ these phases:
    1e-6 sigma, recovery <= 0.01 sigma, and one single-pulsar
    GLSFitter per structure within 1e-4 sigma of its fleet row; the
    kernels' inputs of each bucket shape are recorded for the kernel
-   line;
+   line; then ``[pipeline] zoo`` on this fleet (5f);
 5e. ``[wideband] pack``: the port's wideband pack (``wb_sim.par/.tim``,
    300 wideband GBT TOAs at two receivers written by the JAX package:
    ELL1, DM and 3 DMX windows, EFAC/EQUAD/ECORR, red noise, DMEFAC/
@@ -122,6 +122,22 @@ these phases:
    convert_parfile -f tempo2/-f tempo (read back alike, T2EFAC and
    UNITS), compare_parfiles, tcb2tdb, t2binary2pint, pintbary (three
    MJDs) and pintpublish, each ``main([...])`` in-process, exit 0;
+5f. ``[pipeline] main`` (after 5c, on the main path's fleet) and
+   ``[pipeline] zoo`` (in 5d, on the zoo fleet): the fleet executor
+   (:func:`pipeline_phase`) in mixed from each fleet's 3-sigma start:
+   the synchronizing calls of a warm eager fit of a packed bucket
+   (``torch.cuda.set_sync_debug_mode``), the warm sequential eager fit,
+   ``fleet_pipeline_metrics`` (``precompile`` captures each bucket's
+   program as CUDA graphs with the eighs run eagerly between them, then
+   sequential and pipelined replays) with the graph memory reserved,
+   each program's pieces and launches, K1/K2 counted per packed bucket
+   in a pipelined replay, the three fits profiled (walls, busy share,
+   the Gram kernel's device time), the host time of a replay's graphs
+   and of its eager eighs, and the synchronizing calls of a replayed
+   fit. Checks: every program captured, pipelined bitwise the
+   sequential replay, K1 and K2 launched in every packed bucket under
+   replay, relres <= 1e-8 with no f64 refit, mixed vs f64 <= 1e-6
+   sigma, replay vs eager <= 1e-6 sigma;
 6. ``[gw] fleet``: the GW stage on the main path's fleet at its warm
    mixed-fit vectors: assemble and regrid at 30 days (timed), then the
    optimal statistic with the pair products in mixed (the K3 kernel;
@@ -726,8 +742,9 @@ def profile_run(torch, tag, fn, top=10):
     """One run of ``fn`` under torch.profiler, recording the device's
     activity alone (the report reads only the CUDA events); prints the
     device-busy share of the host wall and the ops with the most device
-    time. Diagnostic only: prints "not measured" when the profiler
-    records no device time."""
+    time; returns the wall, the busy seconds and {op: (count, device
+    ms)}. Diagnostic only: prints "not measured" and returns None when
+    the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -762,6 +779,7 @@ def profile_run(torch, tag, fn, top=10):
         by_name[e.name] = (n + 1, t + e.device_time_total * 1e-3)
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"{tag.split()[0]}   {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+    return {"wall_s": wall, "busy_s": busy_s, "ops": by_name}
 
 
 def capture_inputs(fleet, torch, tag=None):
@@ -1528,8 +1546,219 @@ def zoo_fleet(torch, counts, device="cuda"):
     seen = capture_inputs(fleet, torch, tag=zoo_structure)
     log(f"[zoo] fleet: kernel inputs of {sum(map(len, seen.values()))} "
         f"shapes recorded in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    pipeline_phase(torch, "[pipeline] zoo", fleet, x64, sig_m,
+                   lambda k: f"{zoo_structure(k)} {k[1][1]}")
+    log(f"[pipeline] zoo took {time.perf_counter() - t0:.2f} s")
     del fleet
     return seen, launches
+
+
+TOL_REPLAY = 1e-6  # |x_replay - x_eager| / sigma
+
+
+def sync_sites(torch, fn):
+    """The synchronizing CUDA calls of ``fn()`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``, counted by the port's
+    innermost three frames: {"file:line function <- ...": count}."""
+    import traceback
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        here = [f"{os.path.relpath(f.filename, root)}:{f.lineno} {f.name}"
+                for f in traceback.extract_stack()[:-1]
+                if "pint_tpu_torch" in f.filename][-3:]
+        key = " <- ".join(reversed(here)) or "(outside the port)"
+        sites[key] = sites.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites
+
+
+def piece_times(torch, fn):
+    """Host seconds of ``fn()``'s replayed programs by piece kind (each
+    piece closed by a device synchronize, so an eager op's time is its
+    own): {"graph": s, "<eager op>": s}."""
+    from pint_tpu_torch import graphs
+
+    run, total = graphs._run, {}
+
+    def timed(piece, wrappers):
+        sync()
+        t0 = time.perf_counter()
+        run(piece, wrappers)
+        sync()
+        kind = ("graph" if piece[0] == "graph"
+                else getattr(piece[1], "__name__", "eager"))
+        total[kind] = total.get(kind, 0.0) + time.perf_counter() - t0
+
+    graphs._run = timed
+    try:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        total["wall"] = time.perf_counter() - t0
+    finally:
+        graphs._run = run
+    return total
+
+
+def pipeline_phase(torch, tag, fleet, x64, sig, label):
+    """``[pipeline]``: the fleet executor on a fleet an earlier phase
+    built and fitted (``label(key)`` names a bucket), in mixed,
+    ``maxiter=2``, from the fleet's start vectors: the synchronizing
+    calls of a warm eager fit of a packed bucket; the warm sequential
+    eager fit (timed, profiled); ``fleet_pipeline_metrics`` (precompile
+    captures every bucket's program as CUDA graphs with the eighs eager
+    between them; sequential and pipelined replays, best of 2, and the
+    bitwise flag), logged whole with the graph memory reserved; each
+    program's pieces and launches; K1/K2 counted per packed bucket in a
+    pipelined replay; the sequential and pipelined replays profiled; the
+    host time of the replay's graphs and of its eager eighs; the
+    synchronizing calls of a replayed fit. Checks: every program
+    captured, pipelined bitwise the sequential replay, K1 and K2 in
+    every packed bucket under replay and the Gram kernel in the
+    profile, relres <= 1e-8 and no f64 refit, mixed vs f64 <= 1e-6
+    sigma, replay vs eager <= 1e-6 sigma (its bitwise flag logged).
+    ``x64`` and ``sig`` are per-pulsar lists. Frees the programs."""
+    from pint_tpu_torch.kernels import block_grams_cuda, fused_block_gls_cuda
+    from pint_tpu_torch.parallel import fleet_pipeline_metrics
+
+    k1, k2 = fused_block_gls_cuda, block_grams_cuda
+    kw = dict(method="gls", maxiter=2, precision="mixed")
+    packed = [k for k, b in fleet.batches.items() if b._pack]
+    b0 = fleet.batches[packed[0]]
+    b0.gls_fit(maxiter=2, precision="mixed")
+    for site, n in sync_sites(
+            torch, lambda: b0.gls_fit(maxiter=2, precision="mixed")).items():
+        log(f"{tag} sync, warm eager fit of {label(packed[0])}: {n}x {site}")
+
+    def fit(pipeline):
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as wl:
+            warnings.simplefilter("always")
+            xs, chi2, _ = fleet.fit(pipeline=pipeline, **kw)
+        sync()
+        refit = any("refitting in f64" in str(w.message) for w in wl)
+        return ([np.asarray(x) for x in xs], np.asarray(chi2),
+                time.perf_counter() - t0, refit)
+
+    xe, ce, eager_s, _ = fit(False)  # warm: the phase before fitted it
+    p_eager = profile_run(torch, f"{tag} profile: sequential eager",
+                          lambda: fleet.fit(pipeline=False, **kw))
+    sync()
+    reserved0 = torch.cuda.memory_reserved()
+    rep = fleet_pipeline_metrics(fleet, repeats=2, **kw)
+    sync()
+    reserved1 = torch.cuda.memory_reserved()
+    log(f"{tag} fleet_pipeline_metrics: {json.dumps(rep)}")
+    log(f"{tag} sequential eager {eager_s:.4f} s, sequential "
+        f"replay {rep['fleet_fit_sequential_s']:.4f} s, pipelined replay "
+        f"{rep['fleet_fit_pipelined_s']:.4f} s; memory reserved "
+        f"{reserved0 / 2**30:.3f} -> {reserved1 / 2**30:.3f} GiB across "
+        f"precompile (+{(reserved1 - reserved0) / 2**30:.3f} GiB); "
+        f"{gpu_line()}")
+    progs = {}
+    for key, b in fleet.batches.items():
+        prog = b._fns[b.program_key(**kw)]
+        progs[key] = prog
+        log(f"{tag}   {label(key)}: captured {prog.captured}, "
+            f"{len(prog.layout)} pieces {prog.layout}, capture "
+            f"{getattr(prog, 'capture_s', 0.0):.3f} s, launches per replay "
+            f"{prog.launches}")
+
+    per_bucket = {}
+    for key, b in fleet.batches.items():
+        def counted(*a, _d=b._dispatch_gls, _key=key, **k):
+            before = (k1.launches, k2.launches)
+            out = _d(*a, **k)
+            per_bucket[_key] = (k1.launches - before[0],
+                                k2.launches - before[1])
+            return out
+        b._dispatch_gls = counted
+    k1.launches = k2.launches = 0
+    try:
+        xr, cr, _, refit = fit(True)
+    finally:
+        for b in fleet.batches.values():
+            del b._dispatch_gls  # the class's method again
+    launches = {"K1": k1.launches, "K2": k2.launches}
+    metrics = dict(fleet.fit_metrics)
+    relres = max(m["relres_max"] for m in metrics.values())
+    refit = refit or any(m["refit_f64"] for m in metrics.values())
+    log(f"{tag} K1/K2 launches in a pipelined replay {launches}, per packed "
+        f"bucket: " + ", ".join(f"{label(k)}: {per_bucket.get(k)}"
+                                for k in packed)
+        + f"; max relres {relres:.3e}; f64 refit taken: {refit}")
+    p_seq = profile_run(torch, f"{tag} profile: sequential replay",
+                        lambda: fleet.fit(pipeline=False, **kw))
+    p_pipe = profile_run(torch, f"{tag} profile: pipelined replay",
+                         lambda: fleet.fit(pipeline=True, **kw))
+    gram = {n: v for n, v in (p_pipe or {"ops": {}})["ops"].items()
+            if "block_gram_kernel" in n}
+    log(f"{tag} Gram kernels in the pipelined replay's profile: "
+        + (", ".join(f"{n[:60]} {c}x {ms:.4f} ms" for n, (c, ms) in gram.items())
+           or "none"))
+    for name, prof in (("sequential eager", p_eager),
+                       ("sequential replay", p_seq),
+                       ("pipelined replay", p_pipe)):
+        if prof:
+            log(f"{tag} {name}: wall {prof['wall_s']:.4f} s under the "
+                f"profiler, busy {prof['busy_s']:.4f} s "
+                f"({100 * prof['busy_s'] / prof['wall_s']:.1f}%)")
+    pieces = piece_times(torch, lambda: fleet.fit(pipeline=False, **kw))
+    eager_op_s = sum(v for k, v in pieces.items()
+                     if k not in ("graph", "wall"))
+    log(f"{tag} a sequential replay with every piece synchronized: "
+        f"{pieces['wall']:.4f} s, graphs {pieces.get('graph', 0.0):.4f} s, "
+        + ", ".join(f"eager {k} {v:.4f} s" for k, v in pieces.items()
+                    if k not in ("graph", "wall"))
+        + f"; the eager ops keep {100 * eager_op_s / pieces['wall']:.1f}% of "
+        "the host wall")
+    for site, n in sync_sites(
+            torch, lambda: b0.gls_fit(maxiter=2, precision="mixed")).items():
+        log(f"{tag} sync, replayed fit of {label(packed[0])}: {n}x {site}")
+    d_replay = max(float(np.max(np.abs(a - b) / s))
+                   for a, b, s in zip(xr, xe, sig))
+    bitwise_replay = (all(np.array_equal(a, b) for a, b in zip(xr, xe))
+                      and np.array_equal(cr, ce))
+    d_mixed = max(float(np.max(np.abs(a - b) / s))
+                  for a, b, s in zip(xr, x64, sig))
+    log(f"{tag} replay vs eager: bitwise {bitwise_replay}, max |dx|/sigma "
+        f"{d_replay:.3e}; replayed mixed vs f64 max |dx|/sigma "
+        f"{d_mixed:.3e}")
+    check(tag, {
+        "every bucket program captured": all(p.captured
+                                             for p in progs.values()),
+        "every fit replayed": all(m["replayed"] for m in metrics.values()),
+        "pipelined bitwise the sequential replay":
+            rep["fleet_pipeline_bitwise"],
+        "K1 and K2 launched in every packed bucket under replay": all(
+            min(per_bucket.get(k, (0, 0))) > 0 for k in packed),
+        "the Gram kernel in the replayed fit's profile":
+            p_pipe is None or bool(gram),
+        "refinement contracted (relres <= 1e-8)": relres <= TOL_RELRES,
+        "no f64 refit taken": not refit,
+        "mixed vs f64 <= 1e-6 sigma": d_mixed <= TOL_MIXED,
+        "replay vs eager <= 1e-6 sigma": d_replay <= TOL_REPLAY,
+        "finite chi2": bool(np.all(np.isfinite(cr))),
+    })
+    for b in fleet.batches.values():
+        b._fns.clear()
+    torch.cuda.empty_cache()
 
 
 WB_PAR = os.path.join(EXAMPLES, "wb_sim.par")
@@ -3028,6 +3257,10 @@ def run():
     t0 = time.perf_counter()
     fleet_modes(models, toas, fleet, x_start, xm2, sig_m)
     log(f"[fleet] modes took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    pipeline_phase(torch, "[pipeline] main", fleet, x64, sig_m,
+                   lambda k: f"width {k[1][1]}")
+    log(f"[pipeline] main took {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     zoo_b1855()

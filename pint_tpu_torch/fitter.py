@@ -18,10 +18,14 @@ the second-to-last axis of a design matrix, parameters the last. What
 the JAX package writes per pulsar and vmaps, the port writes once over
 the batch (``A`` (..., k, k), ``b`` (..., k), ``Mn`` (..., n, k)).
 
-Not ported: ``Fitter.plot`` (``plot_utils.py``, §1 item 8), the
-fit-quality probes
-(``obs/fitquality.py``, §1 item 7) and the AOT compile helpers (no
-torch counterpart in this slice).
+The AOT helpers (``aot_lower``, ``aot_backend_compile``,
+``aot_serialize``, ``aot_deserialize``) build a fleet bucket's fit
+program and capture it into CUDA graphs (``graphs.py``); a capture has
+no serialized form.
+
+Not ported: ``Fitter.plot`` (``plot_utils.py``, ROADMAP §1 item 3,
+applications) and the fit-quality probes (``obs/fitquality.py``, §1
+item 5, serving and observability).
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import warnings
 import numpy as np
 import torch
 
+from . import graphs
 from .residuals import (Residuals, WidebandDMResiduals,
                         WidebandTOAResiduals, wideband_dm_model)
-from .segment import segment_max, segment_sum
+from .segment import block_segment_sum, segment_max
 
 # eigh backward-error floor for the GLS eigenvalue threshold: a
 # symmetric eigensolver perturbs eigenvalues by O(||A|| * n * eps)
@@ -84,7 +89,7 @@ def gls_eigh_solve(A, b, threshold=1e-12):
     ``torch.linalg.eigh`` may order or sign eigenvectors differently
     from LAPACK as called by the JAX package; dxn and covn are invariant
     to both, so they agree to rounding."""
-    evals, evecs = torch.linalg.eigh(A)
+    evals, evecs = graphs.eager(torch.linalg.eigh, A)
     _, einv = _eig_cut(evals, threshold)
     dxn = _mv(evecs, einv * _mtv(evecs, b))
     covn = (evecs * einv[..., None, :]) @ evecs.mT
@@ -98,6 +103,61 @@ def check_precision(precision, allow_auto=False):
     if precision not in allowed:
         raise ValueError(
             f"precision must be one of {allowed}, got {precision!r}")
+
+
+def aot_lower(fn, *args):
+    """Build a fit program, timing the build: ``fn(*args)`` returns it
+    (a closure over a batch's device tensors). Torch traces nothing, so
+    ``trace_s``, the JAX package's trace time, is the build's host wall.
+    Returns {"lowered", "trace_s"}; :func:`aot_backend_compile` takes
+    the "lowered" program."""
+    t0 = time.perf_counter()
+    lowered = fn(*args)
+    return {"lowered": lowered, "trace_s": time.perf_counter() - t0}
+
+
+def aot_backend_compile(lowered, x0):
+    """Make a built program ready to dispatch at its start vectors
+    ``x0``: on the card, warm it up on a side stream and capture it into
+    CUDA graphs (``graphs.GraphProgram``; the eighs and SVDs run eagerly
+    between the graphs), ``backend_compile_s`` the capture's wall; on
+    the CPU nothing is captured (``backend_compile_s`` 0.0, the eager
+    ``graphs.Program``). A failed capture raises. Returns the JAX
+    package's dict {"compiled", "backend_compile_s", "flops",
+    "bytes_accessed", "memory", "intensity_flops_per_byte",
+    "roofline_ceiling_flops", "bound"}, whose cost fields are None as
+    the reference returns them from a backend without a cost model,
+    plus "captured" and "pieces" (the program's graphs and eager ops in
+    order)."""
+    if x0.device.type == "cuda":
+        compiled = graphs.GraphProgram(lowered, x0)
+        backend_s = compiled.capture_s
+    else:
+        compiled, backend_s = graphs.Program(lowered), 0.0
+    return {"compiled": compiled, "backend_compile_s": backend_s,
+            "flops": None, "bytes_accessed": None, "memory": None,
+            "intensity_flops_per_byte": None,
+            "roofline_ceiling_flops": None, "bound": None,
+            "captured": compiled.captured, "pieces": compiled.layout}
+
+
+def aot_serialize(compiled):
+    """None: a captured CUDA graph has no serialized form. Its kernels'
+    arguments are device addresses of one process's allocations and
+    torch offers no way to write a graph out, so there is no payload
+    for a persisted executable cache (the JAX package returns None too
+    for anything that is not a serializable executable)."""
+    return None
+
+
+def aot_deserialize(doc):
+    """Raises: there is no serialized program to rehydrate
+    (:func:`aot_serialize` writes none). The JAX package's callers treat
+    a raise as a cache miss and compile again."""
+    raise RuntimeError(
+        "aot_deserialize: pint_tpu_torch programs are CUDA graphs of one "
+        "process's device allocations and have no serialized form; "
+        "capture the program again (PTABatch.aot_compile)")
 
 
 def gls_gram(Mn, q, precision="f64"):
@@ -159,7 +219,7 @@ def gls_eigh_refine(A_approx, b, matvec, threshold=1e-12, iters=2):
     an f32 preconditioner. Callers MUST check it (relres_failed) and
     fall back to precision="f64" when it exceeds ~1e-8.
     """
-    evals, evecs = torch.linalg.eigh(A_approx)
+    evals, evecs = graphs.eager(torch.linalg.eigh, A_approx)
     good, einv = _eig_cut(evals, threshold)
     keep = good.to(b.dtype)
 
@@ -205,31 +265,41 @@ def gls_whiten(Mfull, sigma, sqrt_phi_inv):
     return Mn, norm, sqrt_phi_inv / norm
 
 
-def seg_column_norms(Mw, seg_id, n_seg):
+def seg_column_norms(Mw, seg_id, n_seg, block):
     """Per-segment exponent-range-safe L2 column norms, (n_seg, k):
-    each packed pulsar's columns normalized by its own rows only."""
-    amax = segment_max(torch.abs(Mw), seg_id, n_seg)
+    each packed pulsar's columns normalized by its own rows only.
+    ``seg_id`` is constant on each ``block``-row chunk (the packed
+    layout's Q-row blocks), and each chunk is reduced first, so the
+    segment reduction sees ``block``-fold fewer rows (on CUDA it sorts
+    them: see segment.py)."""
+    bseg = seg_id[::block]
+    amax = segment_max(torch.abs(Mw).reshape(
+        (-1, block) + Mw.shape[1:]).amax(dim=1), bseg, n_seg)
     # empty segments reduce to -inf; zero columns to 0 — both guard to 1
     amax = torch.where(amax > 0, amax, 1.0)
-    ssq = segment_sum(torch.square(Mw / amax[seg_id]), seg_id, n_seg)
+    ssq = block_segment_sum(torch.square(Mw / amax[seg_id]), bseg, n_seg,
+                            block)
     n = torch.sqrt(ssq)
     return amax * torch.where(n == 0, 1.0, n)
 
 
-def seg_gls_whiten(Mfull, sigma, sqrt_phi_inv, seg_id, n_seg):
+def seg_gls_whiten(Mfull, sigma, sqrt_phi_inv, seg_id, n_seg, block):
     """Segment-masked gls_whiten: (Mn, norm, q) with norm/q (n_seg, k),
-    each row normalized by its own segment's norms."""
+    each row normalized by its own segment's norms (``block``: see
+    seg_column_norms)."""
     Mw = Mfull / sigma[:, None]
-    norm = torch.hypot(seg_column_norms(Mw, seg_id, n_seg), sqrt_phi_inv)
+    norm = torch.hypot(seg_column_norms(Mw, seg_id, n_seg, block),
+                       sqrt_phi_inv)
     return Mw / norm[seg_id], norm, sqrt_phi_inv / norm
 
 
-def seg_gls_norm(Mfull, sigma, sqrt_phi_inv, seg_id, n_seg):
+def seg_gls_norm(Mfull, sigma, sqrt_phi_inv, seg_id, n_seg, block):
     """(norm, q) of seg_gls_whiten WITHOUT materializing Mn — the fused
     packed path whitens inside the kernel and needs only the norms to
     pre-scale the raw design."""
     Mw = Mfull / sigma[:, None]
-    norm = torch.hypot(seg_column_norms(Mw, seg_id, n_seg), sqrt_phi_inv)
+    norm = torch.hypot(seg_column_norms(Mw, seg_id, n_seg, block),
+                       sqrt_phi_inv)
     return norm, sqrt_phi_inv / norm
 
 
@@ -364,7 +434,7 @@ def wls_step(Mw, rw, threshold=1e-12):
     norm = column_norms(Mw)
     Mn = Mw / norm[..., None, :]
     kw = {"driver": SVD_DRIVER} if Mn.is_cuda else {}
-    U, s, Vh = torch.linalg.svd(Mn, full_matrices=False, **kw)
+    U, s, Vh = graphs.eager(torch.linalg.svd, Mn, full_matrices=False, **kw)
     smax = torch.amax(s, dim=-1, keepdim=True)
     sinv = torch.where(s > threshold * smax, 1.0 / s, 0.0)
     dx = _mtv(Vh, sinv * _mtv(U, rw)) / norm
@@ -444,7 +514,8 @@ def _reject_fit_quality(fit_quality):
     if fit_quality:
         raise NotImplementedError(
             "fit-quality probes need obs/fitquality.py, which is not "
-            "ported to pint_tpu_torch yet (ROADMAP §1 item 7)")
+            "ported to pint_tpu_torch yet (ROADMAP §1 item 5, serving "
+            "and observability)")
 
 
 class ConvergenceFailure(RuntimeError):
@@ -640,10 +711,10 @@ class Fitter:
 
     def plot(self, plotfile=None, title=None):
         """(reference: fitter.py::Fitter.plot) Not ported: it needs
-        plot_utils.py (ROADMAP §1 item 8)."""
+        plot_utils.py (ROADMAP §1 item 3, applications)."""
         raise NotImplementedError(
             "Fitter.plot needs plot_utils.py, which is not ported to "
-            "pint_tpu_torch yet (ROADMAP §1 item 8)")
+            "pint_tpu_torch yet (ROADMAP §1 item 3, applications)")
 
     def get_summary(self) -> str:
         """(reference: fitter.py::Fitter.get_summary)"""

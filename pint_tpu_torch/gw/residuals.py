@@ -116,7 +116,7 @@ def assemble(fleet, xs, positions=None):
     if pos.shape != (n, 3):
         raise ValueError(f"positions shape {pos.shape} != ({n}, 3)")
     for key, idxs in fleet.group_indices.items():
-        batch = fleet.batches[key]
+        batch = fleet._resolve(key)
         xb = np.stack([np.asarray(xs[i], np.float64) for i in idxs])
         arrays = batch.gw_arrays(xb)
         blabels = batch._pulsar_labels()

@@ -1,5 +1,7 @@
 """Batched PTA fitting (torch): PTABatch, PTAFleet and the shape planner."""
 
-from .pta import PTABatch, PTAFleet
+from .pta import (PTABatch, PTAFleet, fleet_aot_compile,
+                  fleet_pipeline_metrics)
 
-__all__ = ["PTABatch", "PTAFleet"]
+__all__ = ["PTABatch", "PTAFleet", "fleet_aot_compile",
+           "fleet_pipeline_metrics"]

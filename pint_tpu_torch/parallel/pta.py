@@ -31,21 +31,33 @@ fitted fleet: :meth:`PTABatch.gw_arrays` evaluates post-fit residuals
 in both layouts, the packed one through the packed fit's own slot
 machinery (:meth:`PTABatch._slots`).
 
-The pipelined executor, compile caches, the pack store and the
-observability hooks of the JAX package are not ported yet.
+The fleet executor (:meth:`PTAFleet.fit` with ``pipeline=True``,
+:meth:`PTAFleet.precompile`, :func:`fleet_aot_compile`,
+:func:`fleet_pipeline_metrics`) keeps each bucket's programs in
+``PTABatch._fns``, keyed as the JAX package keys its compiled
+executables. On the card a program is captured into CUDA graphs
+(``graphs.py``: the eighs and SVDs run eagerly between them); a fit is
+split into a dispatch that queues the device work and a finalize that
+pulls once, so a fleet can dispatch every bucket before it pulls any.
+The pack store (``store=``, ROADMAP §1 item 5), the device mesh
+(``mesh=``, item 4) and the observability spans (item 5) are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from .. import DTYPE, gw, resolve_device
+from .. import DTYPE, fitter, graphs, gw, resolve_device
 from ..fitter import (_mtv, _mv, check_precision, gls_eigh_refine,
                       gls_eigh_solve, gls_fused_normal, gls_gram, gls_whiten,
                       relres_failed, seg_gls_eigh_refine, seg_gls_norm,
@@ -70,6 +82,17 @@ def _is_static(key, value):
 
 def _np(v):
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _pull(*tensors):
+    """f64 device tensors -> numpy arrays through ONE device->host copy
+    (the finalize's single pull)."""
+    host = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        out.append(host[i:i + t.numel()].reshape(tuple(t.shape)))
+        i += t.numel()
+    return out
 
 
 # precision="auto" verdicts per (structure, shapes, fit options), kept
@@ -441,6 +464,8 @@ class PTABatch:
                                dtype=DTYPE, device=dev)
             for f in TOABatch._fields})
         self._x0_cache = None
+        self._slot_cache = None
+        self._fns = {}  # program key -> graphs.Program / GraphProgram
         self.diverged = np.zeros(0, dtype=np.int64)
         self.metrics = {}
 
@@ -517,7 +542,9 @@ class PTABatch:
 
     def set_start_vector(self, x):
         """Override the starting parameter vectors for the next fit
-        (shape (n_psr, n_free), the layout of the fit results)."""
+        (shape (n_psr, n_free), the layout of the fit results). A
+        captured program copies the new vectors into its own input
+        buffer at its next dispatch."""
         self._x0_cache = self._pulsar_vectors(x)
 
     def _pulsar_labels(self):
@@ -562,7 +589,13 @@ class PTABatch:
         TOA (``gown``), per-segment sums (``osum``), one slot's params
         and prep over every row (``slot_env``), the owner-masked merge
         of per-slot (R, W, ...) evaluations (``combine``) and the
-        residual seconds of merged phases (``resid``)."""
+        residual seconds of merged phases (``resid``). Built once per
+        batch (the pack and prep never change)."""
+        if self._slot_cache is None:
+            self._slot_cache = self._build_slots()
+        return self._slot_cache
+
+    def _build_slots(self):
         pack = self._pack
         S = int(pack["n_slots"])
         Q = int(pack["quantum"])
@@ -687,8 +720,9 @@ class PTABatch:
     # -- the WLS program --
 
     def _build_wls(self, maxiter=3, threshold=1e-12):
-        """fit(x0) -> (x, chi2, (covn, norm)) for the whole batch — the
-        JAX package's ``_build_wls`` with the pulsar axis written out:
+        """(program key, fit(x0) -> (x, chi2, (covn, norm))) for the
+        whole batch — the JAX package's ``_build_wls`` with the pulsar
+        axis written out:
         per iteration the column-normalized whitened SVD step
         (fitter.wls_step, batched) and chi2 at the linearization,
         |rw - Mw dx|^2. Unpacked batches only: the planner gives
@@ -718,7 +752,36 @@ class PTABatch:
                 x, chi2, cov = one_step(x)
             return x, chi2, cov
 
-        return fit
+        return ("wls", maxiter, threshold), fit
+
+    def _dispatch(self, method, key, fit, **opts):
+        """Run the bucket's program for ``key`` WITHOUT pulling its
+        results: the device work is queued (a captured program replays
+        its graphs) and a handle returns for the finalize. The lazy path
+        installs the eager ``fit`` under ``key`` on first use."""
+        t0 = time.perf_counter()
+        prog = self._fns.setdefault(key, graphs.Program(fit))
+        x0 = self._x0()
+        return {"method": method, "t0": t0, "replayed": prog.captured,
+                "x0": x0, "out": prog(x0), **opts}
+
+    def _dispatch_wls(self, maxiter=3, threshold=1e-12):
+        """Dispatch the WLS program (see :meth:`_dispatch`); wls_fit ==
+        finalize(dispatch)."""
+        key, fit = self._build_wls(maxiter, threshold)
+        return self._dispatch("wls", key, fit, maxiter=maxiter,
+                              threshold=threshold)
+
+    def _finalize_wls(self, handle):
+        """Blocking half of the WLS fit: one pull, divergence isolation,
+        metrics."""
+        x, chi2, (covn, norm) = handle["out"]
+        x, chi2, covn, norm, x0 = _pull(x, chi2, covn, norm, handle["x0"])
+        cov = covn / (norm[:, :, None] * norm[:, None, :])
+        chi2 = self._maybe_inject_divergence(chi2, "wls")
+        x, chi2 = self._isolate_diverged(x0, x, chi2)
+        self._record_metrics(handle)
+        return x, chi2, cov
 
     def wls_fit(self, maxiter=3, threshold=1e-12):
         """Multi-pulsar WLS fit of the whole batch (see _build_wls).
@@ -726,27 +789,40 @@ class PTABatch:
         Returns numpy (x_fit (n_psr, n_free), chi2 (n_psr,), cov
         (n_psr, k, k)); diverged pulsars are reported via self.diverged
         and returned with their starting vectors."""
-        t0 = time.perf_counter()
-        fit = self._build_wls(maxiter, threshold)
-        x0 = self._x0()
-        with torch.no_grad():
-            x, chi2, (covn, norm) = fit(x0)
-        x, chi2, covn, norm, x0 = (_np(v) for v in (x, chi2, covn, norm, x0))
-        cov = covn / (norm[:, :, None] * norm[:, None, :])
-        x, chi2 = self._isolate_diverged(x0, x, chi2)
-        self.metrics = {"method": "wls", "device": str(self.device),
-                        "fit_wall_s": time.perf_counter() - t0,
-                        "maxiter": maxiter, "n_pulsars": self.n_pulsars,
-                        "n_toas_total": int(np.sum(self.n_toas))}
-        return x, chi2, cov
+        return self._finalize_wls(self._dispatch_wls(maxiter, threshold))
+
+    def _record_metrics(self, handle, **extra):
+        self.metrics = {"method": handle["method"],
+                        "device": str(self.device),
+                        "fit_wall_s": time.perf_counter() - handle["t0"],
+                        "replayed": handle["replayed"],
+                        "maxiter": handle["maxiter"],
+                        "n_pulsars": self.n_pulsars,
+                        "n_toas_total": int(np.sum(self.n_toas)), **extra}
+
+    def _maybe_inject_divergence(self, chi2, method):
+        """Resilience hook: the armed ``solver_diverge`` fault point
+        poisons the requested lanes' chi2 with NaN where a real solver
+        blow-up would surface (before _isolate_diverged). One falsy
+        check when nothing is armed."""
+        from ..resilience import faultinject
+
+        fault = faultinject.fire("solver_diverge", method=method)
+        if not fault:
+            return chi2
+        chi2 = np.array(chi2, np.float64)
+        for lane in fault.get("lanes", [0]):
+            chi2[int(lane) % len(chi2)] = np.nan
+        return chi2
 
     # -- the two GLS programs --
 
     def _build_gls(self, maxiter=2, threshold=1e-12, ecorr_mode="auto",
                    precision="f64", fused=None):
-        """fit(x0) -> (x, chi2, (covn, norm, worst relres)) for the
-        whole batch — the JAX package's ``_build_gls`` with the pulsar
-        axis written out. ECORR epochs are marginalized analytically
+        """(program key, fit(x0) -> (x, chi2, (covn, norm, worst
+        relres))) for the whole batch — the JAX package's ``_build_gls``
+        with the pulsar axis written out, keyed as it keys its
+        executables. ECORR epochs are marginalized analytically
         (per-epoch Sherman-Morrison through segment sums); with every
         noise parameter frozen the x-independent blocks are hoisted out
         of the Gauss-Newton loop. ``ecorr_mode="dense"``, overlapping
@@ -782,8 +858,8 @@ class PTABatch:
             # (B, W, ...) -> (B, k, ...) per-pulsar epoch sums; rows
             # outside every epoch land in bucket k, dropped
             g = (torch.arange(Bn_, device=dev)[:, None] * (k + 1) + e_idx)
-            out = segment_sum(vals.reshape((-1,) + vals.shape[2:]),
-                              g.reshape(-1), Bn_ * (k + 1))
+            out = segment_sum(vals.flatten(0, 1), g.reshape(-1),
+                              Bn_ * (k + 1))
             return out.reshape((Bn_, k + 1) + vals.shape[2:])[:, :k]
 
         def epoch_setup(p, a):
@@ -923,12 +999,14 @@ class PTABatch:
                 worst = torch.maximum(worst, relres)
             return x, chi2, (covn, norm, worst)
 
-        return fit
+        return ("gls", maxiter, threshold, marginalize, precision,
+                hoist), fit
 
     def _build_gls_packed(self, maxiter=2, threshold=1e-12,
                           ecorr_mode="auto", precision="f64", fused=True):
-        """fit(x0) for the segment-packed layout — the JAX package's
-        ``_build_gls_packed`` over ALL rows at once: x0 (R, S, k).
+        """(program key, fit(x0)) for the segment-packed layout — the
+        JAX package's ``_build_gls_packed`` over ALL rows at once: x0
+        (R, S, k).
 
         Each slot evaluates phase/design/noise with ITS params over the
         whole row (torch.func.vmap over rows); foreign rows are masked
@@ -1018,7 +1096,7 @@ class PTABatch:
             sigma_s = sig * 1e-6
             if fused:
                 winv = 1.0 / sigma_s
-                norm, q = seg_gls_norm(Mfull, sigma_s, spi, gown, RS)
+                norm, q = seg_gls_norm(Mfull, sigma_s, spi, gown, RS, Q)
                 # pre-normalized raw design: the kernel whitens by the
                 # winv column in-tile, so P * winv == Mn up to rounding
                 P = Mfull / norm[gown]
@@ -1032,7 +1110,7 @@ class PTABatch:
                     b0 = osum(Mn * z[:, None])
                     rNr = osum(z * z)
             else:
-                Mn, norm, q = seg_gls_whiten(Mfull, sigma_s, spi, gown, RS)
+                Mn, norm, q = seg_gls_whiten(Mfull, sigma_s, spi, gown, RS, Q)
                 z = r / sigma_s
                 b0 = osum(Mn * z[:, None])
                 rNr = osum(z * z)
@@ -1102,7 +1180,8 @@ class PTABatch:
                 worst = torch.maximum(worst, relres)
             return x, chi2, (covn, norm, worst)
 
-        return fit
+        return (("gls", maxiter, threshold, marginalize, precision,
+                 "packed-fused" if fused else "packed", hoist), fit)
 
     def gls_fit(self, maxiter=2, threshold=1e-12, ecorr_mode="auto",
                 precision="f64", fused=None):
@@ -1118,43 +1197,54 @@ class PTABatch:
         (n_psr, k, k)); diverged pulsars are reported via self.diverged
         and returned with their starting vectors.
         """
+        return self._finalize_gls(self._dispatch_gls(
+            maxiter, threshold, ecorr_mode, precision, fused=fused))
+
+    def _dispatch_gls(self, maxiter=2, threshold=1e-12, ecorr_mode="auto",
+                      precision="f64", fused=None):
+        """Dispatch the GLS program (see :meth:`_dispatch`); gls_fit ==
+        finalize(dispatch). Resolves precision="auto" first."""
         precision = self._resolve_precision(precision, maxiter, threshold,
                                             ecorr_mode, fused)
-        t0 = time.perf_counter()
-        fit = self._build_gls(maxiter, threshold, ecorr_mode, precision,
-                              fused=fused)
-        x0 = self._x0()
-        with torch.no_grad():
-            x, chi2, (covn, norm, relres) = fit(x0)
-        x, chi2, covn, norm, relres, x0 = (
-            _np(v) for v in (x, chi2, covn, norm, relres, x0))
+        key, fit = self._build_gls(maxiter, threshold, ecorr_mode, precision,
+                                   fused=fused)
+        return self._dispatch("gls", key, fit, maxiter=maxiter,
+                              threshold=threshold, ecorr_mode=ecorr_mode,
+                              precision=precision, fused=fused)
+
+    def _finalize_gls(self, handle):
+        """Blocking half of the GLS fit: one pull, the mixed->f64 guard,
+        divergence isolation, metrics."""
+        x, chi2, (covn, norm, relres) = handle["out"]
+        x, chi2, covn, norm, relres, x0 = _pull(x, chi2, covn, norm, relres,
+                                                handle["x0"])
         if self._pack:
-            # gather packed (rows, slots, ...) results back to per-pulsar order
+            # gather packed (rows, slots, ...) results back to per-pulsar
+            # order before fault injection and divergence isolation
             ro, so = self._pack["row_of"], self._pack["slot_of"]
             x, chi2, covn, norm = x[ro, so], chi2[ro, so], covn[ro, so], norm[ro, so]
             relres, x0 = relres[ro, so], x0[ro, so]
-        if precision == "mixed" and relres_failed(relres):
+        if handle["precision"] == "mixed" and relres_failed(relres):
             # the f32 preconditioner failed to contract for >= 1 pulsar:
             # redo the batch in f64 — correctness first
             warnings.warn(
                 f"mixed-precision GLS refinement did not converge "
                 f"(max rel resid {float(np.max(relres)):.2e}); "
                 "refitting in f64")
-            out = self.gls_fit(maxiter=maxiter, threshold=threshold,
-                               ecorr_mode=ecorr_mode, precision="f64",
-                               fused=fused)
+            out = self.gls_fit(maxiter=handle["maxiter"],
+                               threshold=handle["threshold"],
+                               ecorr_mode=handle["ecorr_mode"],
+                               precision="f64", fused=handle["fused"])
             self.metrics["refit_f64"] = True
             self.metrics["relres_max"] = float(np.max(relres))
             return out
         cov = covn / (norm[:, :, None] * norm[:, None, :])
+        chi2 = self._maybe_inject_divergence(chi2, "gls")
         x, chi2 = self._isolate_diverged(x0, x, chi2)
-        self.metrics = {"method": "gls", "precision": precision,
-                        "device": str(self.device),
-                        "fit_wall_s": time.perf_counter() - t0,
-                        "maxiter": maxiter, "n_pulsars": self.n_pulsars,
-                        "n_toas_total": int(np.sum(self.n_toas)),
-                        "relres_max": float(np.max(relres)) if len(relres) else 0.0,
-                        "refit_f64": False}
+        self._record_metrics(
+            handle, precision=handle["precision"],
+            relres_max=float(np.max(relres)) if len(relres) else 0.0,
+            refit_f64=False)
         return x, chi2, cov
 
     @staticmethod
@@ -1176,8 +1266,8 @@ class PTABatch:
         synchronize), and the faster wins unless the mixed run's
         refinement diagnostic failed. The verdict is cached for the
         process, keyed on (structure, shapes, fit options), and kept
-        with its timings in ``self.precision_auto``. Explicit "f64" and
-        "mixed" pass through."""
+        with its timings in ``self.precision_auto``; both programs stay
+        in the program table. Explicit "f64" and "mixed" pass through."""
         check_precision(precision, allow_auto=True)
         if precision != "auto":
             return precision
@@ -1193,16 +1283,16 @@ class PTABatch:
         timings = {}
         mixed_failed = False
         for mode in ("f64", "mixed"):
-            fit = self._build_gls(maxiter, threshold, ecorr_mode, mode,
-                                  fused=fused)
-            with torch.no_grad():
-                out = fit(x0)  # warm-up
-                if mode == "mixed":
-                    mixed_failed = relres_failed(_np(out[2][2]))
-                self._sync()
-                t0 = time.perf_counter()
-                fit(x0)
-                self._sync()
+            pkey, fit = self._build_gls(maxiter, threshold, ecorr_mode, mode,
+                                        fused=fused)
+            prog = self._fns.setdefault(pkey, graphs.Program(fit))
+            out = prog(x0)  # warm-up
+            if mode == "mixed":
+                mixed_failed = relres_failed(_np(out[2][2]))
+            self._sync()
+            t0 = time.perf_counter()
+            prog(x0)
+            self._sync()
             timings[mode] = time.perf_counter() - t0
         choice = _PRECISION_AUTO_CACHE.setdefault(
             key, self._precision_verdict(timings, mixed_failed))
@@ -1214,6 +1304,70 @@ class PTABatch:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- the program table: build, key, capture --
+
+    def _build_method(self, method, maxiter, threshold, ecorr_mode,
+                      precision, fused=None):
+        """(program key, fit) of ``method`` with its maxiter default
+        (gls: 2, wls: 3), for program_key and aot_lower."""
+        if method == "gls":
+            maxiter = 2 if maxiter is None else maxiter
+            return self._build_gls(maxiter, threshold, ecorr_mode,
+                                   precision, fused=fused)
+        if method == "wls":
+            if precision != "f64":
+                raise ValueError(
+                    "precision applies to the GLS path only; WLS has "
+                    "no mixed-precision mode")
+            maxiter = 3 if maxiter is None else maxiter
+            return self._build_wls(maxiter, threshold)
+        raise ValueError(f"aot_compile: unknown method {method!r}")
+
+    def program_key(self, method="gls", maxiter=None, threshold=1e-12,
+                    ecorr_mode="auto", precision="f64", fused=None):
+        """The ``_fns`` key the given fit options build: ``key in
+        batch._fns`` says whether the program is installed."""
+        return self._build_method(method, maxiter, threshold, ecorr_mode,
+                                  precision, fused=fused)[0]
+
+    def _program_ready(self, key):
+        """True when ``key``'s program needs no capture before its
+        dispatch: captured on the card, installed at all on the CPU."""
+        prog = self._fns.get(key)
+        return prog is not None and (prog.captured
+                                     or self.device.type != "cuda")
+
+    def aot_lower(self, method="gls", maxiter=None, threshold=1e-12,
+                  ecorr_mode="auto", precision="f64", fused=None):
+        """Build one fit program without running it
+        (``fitter.aot_lower`` times the build). Returns {key, method,
+        lowered, trace_s}; :meth:`_aot_backend_compile` captures it."""
+        low = fitter.aot_lower(self._build_method, method, maxiter,
+                               threshold, ecorr_mode, precision, fused)
+        key, fit = low["lowered"]
+        return {"key": key, "method": method, "lowered": fit,
+                "trace_s": low["trace_s"]}
+
+    def _aot_backend_compile(self, low):
+        """Capture an :meth:`aot_lower` handle at this batch's start
+        vectors (``fitter.aot_backend_compile``: CUDA graphs on the card,
+        the eager program on the CPU), install it in the program table
+        and return the info dict. Runs on the caller's thread."""
+        info = fitter.aot_backend_compile(low["lowered"], self._x0())
+        self._fns[low["key"]] = info.pop("compiled")
+        return {"method": low["method"], "trace_s": low["trace_s"], **info}
+
+    def aot_compile(self, method="gls", maxiter=None, threshold=1e-12,
+                    ecorr_mode="auto", precision="f64", fused=None):
+        """Build and capture one fit program (aot_lower, then
+        _aot_backend_compile): the next wls_fit/gls_fit with the same
+        options replays it. Returns {trace_s, backend_compile_s, flops,
+        bytes_accessed, memory, captured, pieces, ...}; the cost fields
+        are None (no cost model here)."""
+        return self._aot_backend_compile(self.aot_lower(
+            method, maxiter, threshold, ecorr_mode, precision,
+            fused=fused))
 
     def shape_signature(self):
         """Hashable fingerprint of every array's (shape, dtype) across
@@ -1341,9 +1495,94 @@ class PTABatch:
         return (comps, free, tuple(static_cfg))
 
 
+def fleet_aot_compile(jobs, max_workers=None):
+    """Build and capture many bucket programs. ``jobs`` is a list of
+    (batch, kwargs), kwargs as :meth:`PTABatch.aot_compile` takes them
+    (with "method"). The program builds (``aot_lower``, host prep: the
+    closures over each batch's tensors) run in a pool of
+    ``max_workers`` threads; the captures then run serially on the
+    caller's thread in job order. A capture is host launch work under
+    the GIL, like the JAX package's serial trace phase, and captures in
+    bucket order keep the shared graph pool's replays in capture order,
+    so ``max_workers`` sizes only the build pool. Returns (infos,
+    wall_s): infos in job order, each the aot_compile info dict; wall_s
+    the elapsed total, to compare with sum(trace_s +
+    backend_compile_s)."""
+    t0 = time.perf_counter()
+    if not jobs:
+        return [], 0.0
+    workers = max_workers or min(len(jobs), os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        lowered = list(pool.map(lambda job: job[0].aot_lower(**job[1]),
+                                jobs))
+    infos = [batch._aot_backend_compile(low)
+             for (batch, _), low in zip(jobs, lowered)]
+    return infos, time.perf_counter() - t0
+
+
+def fleet_pipeline_metrics(fleet, method="auto", maxiter=3, repeats=2,
+                           max_workers=None, **kw):
+    """Measured pipeline report for one fleet (the JAX package's keys):
+
+    - fleet_compile_serial_s / fleet_compile_concurrent_s: the sum of
+      trace_s + backend_compile_s over the programs that
+      :meth:`PTAFleet.precompile` built and captured, and the wall of
+      that precompile; None when every program was ready already;
+    - fleet_fit_sequential_s / fleet_fit_pipelined_s: best of
+      ``repeats`` warm fits through each executor path (host clock
+      after a device synchronize);
+    - fleet_pipeline_overlap_pct: 100 * (1 - pipelined / sequential);
+    - fleet_pipeline_bitwise: the pipelined results identical to the
+      sequential ones (np.array_equal on every x, chi2 and cov);
+    - fleet_buckets: the number of buckets.
+    """
+    precision = kw.get("precision", "f64")
+    pre_kw = {k: kw[k] for k in ("threshold", "ecorr_mode") if k in kw}
+    infos, concurrent_s = fleet.precompile(
+        method=method, maxiter=maxiter, max_workers=max_workers,
+        precision=precision, **pre_kw)
+    if infos:
+        serial_s = sum(i["trace_s"] + i["backend_compile_s"] for i in infos)
+    else:
+        serial_s = concurrent_s = None
+    xs_s, chi_s, cov_s = fleet.fit(method=method, maxiter=maxiter,
+                                   pipeline=False, **kw)
+    xs_p, chi_p, cov_p = fleet.fit(method=method, maxiter=maxiter,
+                                   pipeline=True, **kw)
+    bitwise = bool(
+        np.array_equal(chi_s, chi_p)
+        and all(np.array_equal(a, b) for a, b in zip(xs_s, xs_p))
+        and all(np.array_equal(a, b) for a, b in zip(cov_s, cov_p)))
+
+    def wall(pipeline):
+        sync = (torch.cuda.synchronize if fleet.device.type == "cuda"
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        fleet.fit(method=method, maxiter=maxiter, pipeline=pipeline, **kw)
+        sync()
+        return time.perf_counter() - t0
+
+    seq_s = pipe_s = float("inf")
+    for _ in range(max(1, repeats)):
+        seq_s = min(seq_s, wall(False))
+        pipe_s = min(pipe_s, wall(True))
+    return {
+        "fleet_compile_serial_s": serial_s,
+        "fleet_compile_concurrent_s": concurrent_s,
+        "fleet_fit_sequential_s": seq_s,
+        "fleet_fit_pipelined_s": pipe_s,
+        "fleet_pipeline_overlap_pct": (100.0 * (1.0 - pipe_s / seq_s)
+                                       if seq_s > 0 else 0.0),
+        "fleet_pipeline_bitwise": bitwise,
+        "fleet_buckets": len(fleet.group_indices),
+    }
+
+
 class PTAFleet:
     """Mixed-structure PTA fitting: bucket pulsars by model structure
-    (and TOA count), one PTABatch per bucket, fit buckets in order."""
+    (and TOA count), one PTABatch per bucket, fit buckets sequentially
+    or through the pipelined executor (``pipeline=True``)."""
 
     @staticmethod
     def optimal_split_bounds(counts, k):
@@ -1452,7 +1691,7 @@ class PTAFleet:
         return groups, build_kwargs, plans
 
     def __init__(self, models, toas_list, toa_bucket=None,
-                 bucket_floor=256, plan_compile_budget=None,
+                 bucket_floor=256, pipeline=False, plan_compile_budget=None,
                  plan_max_pack=None, plan_quantum=None,
                  plan_min_width=None, device="cuda"):
         """toa_bucket=None groups by model structure only (each batch
@@ -1463,7 +1702,13 @@ class PTAFleet:
         thresholds of the minimum-padded-area program
         (:meth:`optimal_split_bounds`); "plan" uses the shape planner
         (shapeplan.plan_shapes), which packs small pulsars several to a
-        row. Every bucket's batch lives on ``device``."""
+        row. Every bucket's batch lives on ``device``.
+
+        ``pipeline=True`` defers the bucket builds (host prep, then the
+        move to the device) to a worker pool, so they overlap each other
+        and whatever the caller does next, and makes :meth:`fit` default
+        to the pipelined executor. Results are bitwise those of
+        ``pipeline=False``: only the scheduling changes."""
         self.device = resolve_device(device)
         groups, build_kwargs, self.plans = self.plan_groups(
             models, toas_list, toa_bucket=toa_bucket,
@@ -1472,11 +1717,27 @@ class PTAFleet:
             plan_max_pack=plan_max_pack, plan_quantum=plan_quantum,
             plan_min_width=plan_min_width)
         self.group_indices = groups
-        self.batches = {
-            key: PTABatch([models[i] for i in idxs],
-                          [toas_list[i] for i in idxs], device=self.device,
-                          **build_kwargs.get(key, {}))
-            for key, idxs in groups.items()}
+        self.pipeline = bool(pipeline)
+        self._lock = threading.RLock()
+        self.batches = {}
+        self._batch_futures = {}
+        self._prep_pool = None
+
+        def make(key):
+            idxs = groups[key]
+            return PTABatch([models[i] for i in idxs],
+                            [toas_list[i] for i in idxs],
+                            device=self.device,
+                            **build_kwargs.get(key, {}))
+
+        if self.pipeline and len(groups) > 1:
+            self._prep_pool = ThreadPoolExecutor(
+                max_workers=min(len(groups), os.cpu_count() or 1))
+            for key in groups:
+                self._batch_futures[key] = self._prep_pool.submit(make, key)
+        else:
+            for key in groups:
+                self.batches[key] = make(key)
         self.n = len(models)
         real = sum(len(t) for t in toas_list)
         if toa_bucket == "plan":
@@ -1486,6 +1747,44 @@ class PTAFleet:
                          for idxs in groups.values())
         self.padding_ratio = padded / max(real, 1)
 
+    def _resolve(self, key):
+        """The bucket's PTABatch, waiting for its deferred build if it
+        has not landed yet (the pop and the insert under one lock)."""
+        with self._lock:
+            batch = self.batches.get(key)
+            if batch is None:
+                batch = self._batch_futures.pop(key).result()
+                self.batches[key] = batch
+                if not self._batch_futures and self._prep_pool is not None:
+                    self._prep_pool.shutdown(wait=False)
+                    self._prep_pool = None
+            return batch
+
+    @classmethod
+    def from_batches(cls, batches):
+        """Wrap already-built PTABatches as a fleet (their device is the
+        first one's); pulsar order is the concatenation of the
+        batches' rows."""
+        fleet = cls.__new__(cls)
+        fleet.device = batches[0].device if batches else resolve_device(
+            "cpu")
+        fleet.plans = {}
+        fleet.pipeline = False
+        fleet._lock = threading.RLock()
+        fleet._batch_futures = {}
+        fleet._prep_pool = None
+        fleet.batches = dict(enumerate(batches))
+        fleet.group_indices = {}
+        start = 0
+        for k, b in fleet.batches.items():
+            fleet.group_indices[k] = list(range(start, start + b.n_pulsars))
+            start += b.n_pulsars
+        fleet.n = start
+        real = sum(int(n) for b in batches for n in np.ravel(b.n_toas))
+        padded = sum(int(np.prod(b.batch.tdb_sec.shape)) for b in batches)
+        fleet.padding_ratio = padded / max(real, 1)
+        return fleet
+
     @staticmethod
     def _use_gls(batch, method):
         if method not in ("auto", "gls", "wls"):
@@ -1494,25 +1793,168 @@ class PTAFleet:
         return (method == "gls"
                 or (method == "auto" and batch._noise_bw_fn() is not None))
 
-    def fit(self, method="auto", maxiter=3, **kw):
-        """Fit every bucket in order; returns per-pulsar lists (x, chi2,
-        cov) in the original pulsar order. method: "wls", "gls", or
-        "auto" (gls when the bucket has correlated-noise components,
-        wls otherwise); ``**kw`` goes to the bucket's fit."""
+    @staticmethod
+    def _scatter(xs, chi2s, covs, idxs, x, chi2, cov):
+        """One bucket's stacked results into the per-pulsar lists."""
+        for j, i in enumerate(idxs):
+            xs[i], chi2s[i], covs[i] = x[j], chi2[j], cov[j]
+
+    def fit(self, method="auto", maxiter=3, pipeline=None, max_workers=None,
+            **kw):
+        """Fit every bucket; returns per-pulsar lists (x, chi2, cov) in
+        the original pulsar order. method: "wls", "gls", or "auto" (gls
+        when the bucket has correlated-noise components, wls
+        otherwise); ``**kw`` goes to the bucket's fit.
+
+        ``pipeline=True`` (default: the fleet's own flag) runs the
+        pipelined executor (:meth:`_fit_pipelined`): every bucket's
+        program is captured (cold ones, in bucket order, on the card)
+        and DISPATCHED before any result is pulled, then the buckets are
+        finalized in the sequential path's order, so results —
+        fault-injection schedules and mixed->f64 refits included — are
+        bitwise those of ``pipeline=False``. ``max_workers`` sizes the
+        pool that builds the cold programs (see :func:`fleet_aot_compile`).
+        """
+        if pipeline is None:
+            pipeline = self.pipeline
+        if not pipeline:
+            return self._fit_sequential(method, maxiter, **kw)
+        return self._fit_pipelined(method, maxiter, max_workers, **kw)
+
+    def _fit_sequential(self, method, maxiter, **kw):
         xs = [None] * self.n
         chi2s = np.zeros(self.n)
         covs = [None] * self.n
         self.diverged = []
         self.fit_metrics = {}
         for key, idxs in self.group_indices.items():
-            batch = self.batches[key]
-            fit = batch.gls_fit if self._use_gls(batch, method) else batch.wls_fit
+            batch = self._resolve(key)
+            fit = (batch.gls_fit if self._use_gls(batch, method)
+                   else batch.wls_fit)
             x, chi2, cov = fit(maxiter=maxiter, **kw)
-            for j, i in enumerate(idxs):
-                xs[i], chi2s[i], covs[i] = x[j], chi2[j], cov[j]
+            self._scatter(xs, chi2s, covs, idxs, x, chi2, cov)
             self.diverged.extend(idxs[j] for j in batch.diverged)
             self.fit_metrics[key] = batch.metrics
         return xs, chi2s, covs
+
+    @staticmethod
+    def _program_options(use_gls, maxiter, bkw):
+        """aot_compile/program_key options of one bucket's fit."""
+        opts = {"method": "gls" if use_gls else "wls", "maxiter": maxiter,
+                "threshold": bkw.get("threshold", 1e-12)}
+        if use_gls:
+            opts.update(ecorr_mode=bkw.get("ecorr_mode", "auto"),
+                        precision=bkw.get("precision", "f64"),
+                        fused=bkw.get("fused"))
+        return opts
+
+    def _fit_pipelined(self, method, maxiter, max_workers, **kw):
+        """The pipelined executor, in four steps:
+
+        1. plan: resolve each bucket (waiting for its deferred build),
+           validate its kwargs as its fit would (the same TypeError as
+           the sequential path, before anything is dispatched), resolve
+           ``precision="auto"`` and name its program;
+        2. capture the cold programs in bucket order
+           (:func:`fleet_aot_compile`; on the card a failed capture
+           raises, there is no eager fallback);
+        3. dispatch every bucket: each replays its program and returns
+           without a pull (the eager eighs between its graphs still wait
+           for the device);
+        4. finalize in bucket order, the sequential path's, so the
+           fault-injection sequence and every result match it bitwise.
+        """
+        from ..resilience import faultinject
+
+        xs = [None] * self.n
+        chi2s = np.zeros(self.n)
+        covs = [None] * self.n
+        plan = []
+        for key, idxs in self.group_indices.items():
+            batch = self._resolve(key)
+            use_gls = self._use_gls(batch, method)
+            bkw = dict(kw)
+            allowed = ({"threshold", "ecorr_mode", "precision", "fused"}
+                       if use_gls else {"threshold"})
+            extra = set(bkw) - allowed
+            if extra:
+                raise TypeError(
+                    f"{'gls' if use_gls else 'wls'}_fit() got unexpected "
+                    f"keyword arguments {sorted(extra)}")
+            if use_gls and bkw.get("precision") == "auto":
+                bkw["precision"] = batch._resolve_precision(
+                    "auto", maxiter, bkw.get("threshold", 1e-12),
+                    bkw.get("ecorr_mode", "auto"), fused=bkw.get("fused"))
+            opts = self._program_options(use_gls, maxiter, bkw)
+            plan.append((key, idxs, batch, use_gls, bkw, opts))
+        cold = [(key, batch, opts) for key, _, batch, _, _, opts in plan
+                if not batch._program_ready(batch.program_key(**opts))]
+        infos, _ = fleet_aot_compile([(b, o) for _, b, o in cold],
+                                     max_workers=max_workers)
+        self.compile_infos = {key: info
+                              for (key, _, _), info in zip(cold, infos)}
+        handles = []
+        for bi, (key, idxs, batch, use_gls, bkw, opts) in enumerate(plan):
+            # a straggling device delays THIS bucket's dispatch; the
+            # finalize order stays, so results stay bitwise; the
+            # payload's "lane" pins which bucket straggles
+            fault = faultinject.fire("straggler_delay", bucket=bi)
+            if fault and int(fault.get("lane", bi)) == bi:
+                time.sleep(float(fault.get("delay_s", 0.0)))
+            if use_gls:
+                h = batch._dispatch_gls(
+                    maxiter, opts["threshold"], opts["ecorr_mode"],
+                    opts["precision"], fused=opts["fused"])
+            else:
+                h = batch._dispatch_wls(maxiter, opts["threshold"])
+            handles.append((key, idxs, batch, use_gls, h))
+        self.diverged = []
+        self.fit_metrics = {}
+        for key, idxs, batch, use_gls, h in handles:
+            fin = batch._finalize_gls if use_gls else batch._finalize_wls
+            x, chi2, cov = fin(h)
+            self._scatter(xs, chi2s, covs, idxs, x, chi2, cov)
+            self.diverged.extend(idxs[j] for j in batch.diverged)
+            self.fit_metrics[key] = batch.metrics
+        return xs, chi2s, covs
+
+    def precompile(self, method="auto", maxiter=3, max_workers=None,
+                   threshold=1e-12, ecorr_mode="auto", precision="f64"):
+        """Build and capture every bucket's fit program that is not
+        ready yet (:func:`fleet_aot_compile`), in bucket order, after
+        every deferred build has landed. precision="auto" captures BOTH
+        GLS modes per bucket, so the runtime probe and the fit replay
+        either way. Returns (infos, wall_s); infos also land in
+        self.compile_infos."""
+        batches = [(key, self._resolve(key)) for key in self.group_indices]
+        jobs = []
+        for key, batch in batches:
+            if self._use_gls(batch, method):
+                modes = (("f64", "mixed") if precision == "auto"
+                         else (precision,))
+                for mode in modes:
+                    kwargs = {"method": "gls", "maxiter": maxiter,
+                              "threshold": threshold,
+                              "ecorr_mode": ecorr_mode, "precision": mode}
+                    if not batch._program_ready(batch.program_key(**kwargs)):
+                        jobs.append((batch, kwargs))
+            else:
+                kwargs = {"method": "wls", "maxiter": maxiter,
+                          "threshold": threshold}
+                if not batch._program_ready(batch.program_key(**kwargs)):
+                    jobs.append((batch, kwargs))
+        infos, wall_s = fleet_aot_compile(jobs, max_workers=max_workers)
+        self.compile_infos = dict(enumerate(infos))
+        return infos, wall_s
+
+    def free_maps(self):
+        """Per-pulsar free-parameter maps in original order."""
+        out = [None] * self.n
+        for key, idxs in self.group_indices.items():
+            fmap = self._resolve(key).free_map()
+            for i in idxs:
+                out[i] = fmap
+        return out
 
     def gw_stage(self, xs=None, method="auto", maxiter=3,
                  lattice_days=30.0, orf="hd", n_scrambles=0,

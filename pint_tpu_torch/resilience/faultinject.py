@@ -1,7 +1,8 @@
 """Deterministic fault injection (the JAX package's
-``resilience/faultinject.py``, for the sites the streaming path has).
+``resilience/faultinject.py``, for the sites the streaming path and the
+fleet executor have).
 
-The failure modes the streaming path handles cannot be produced
+The failure modes these paths handle cannot be produced
 deterministically by normal inputs, so this registry gives each one a
 NAMED injection point with seeded, countable trigger semantics:
 production code calls :func:`fire` (or :func:`fire_kill`) at the site
@@ -12,7 +13,13 @@ Injection points of the port:
 
 - ``solver_diverge`` — an incremental lane solve is treated as
   non-finite (``serve.streaming.StreamingRefitter.append``): the lane
-  quarantines the result and escalates to a full refit.
+  quarantines the result and escalates to a full refit; in a batch fit
+  (``parallel.pta.PTABatch``'s finalize) the payload's ``lanes`` get a
+  NaN chi2 and are isolated as diverged.
+- ``straggler_delay`` — one bucket's dispatch runs late without
+  failing (the pipelined fleet executor's per-bucket dispatch loop,
+  ``parallel.pta.PTAFleet._fit_pipelined``). Payload ``delay_s`` sets
+  the injected stall, ``lane`` pins the slow bucket index.
 - ``process_kill`` — the process dies by SIGKILL at a named durability
   site (:func:`fire_kill`); the port's one site is
   ``append_delta_write``, just before a delta segment's atomic publish
@@ -29,7 +36,7 @@ from contextlib import contextmanager
 
 import numpy as np
 
-POINTS = ("solver_diverge", "process_kill")
+POINTS = ("solver_diverge", "straggler_delay", "process_kill")
 
 
 class FaultPoint:

@@ -422,11 +422,12 @@ def test_fitter_guards(ngc, noise_batch):
         tf.WLSFitter(port_toas(jts[0]), get_model(pars[0]),
                      device="cpu").fit_toas()
     f = tf.GLSFitter(t, m, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="item 5, serving and observability"):
         f.fit_toas(fit_quality=True)
     with pytest.raises(ValueError, match="precision"):
         f.fit_toas(precision="f32")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 3, applications"):
         f.plot()
     with pytest.raises(ValueError, match="fit_toas"):
         f.get_noise_resids()

@@ -244,6 +244,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"pint_tpu_torch/config.py", "pint_tpu_torch/logging_setup.py",
+            "pint_tpu_torch/graphs.py", "pint_tpu_torch/parallel/pta.py",
             *(f"pint_tpu_torch/scripts/{s}.py" for s in (
                 "pintempo", "zima", "convert_parfile", "compare_parfiles",
                 "tcb2tdb", "t2binary2pint", "pintbary", "pintpublish"))

@@ -318,15 +318,18 @@ def test_scripts_need_a_card_unless_asked(monkeypatch, name, argv):
 
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter: the scripts, config, logging_setup and
-    the wideband fitters, residuals and simulation load without JAX or
-    the JAX package."""
+    """In a fresh interpreter: the scripts, config, logging_setup, the
+    wideband fitters, residuals and simulation, and the fleet executor
+    (graphs, parallel, resilience) load without JAX or the JAX
+    package."""
     mods = ["pint_tpu_torch.scripts." + s for s in (
         "pintempo", "zima", "convert_parfile", "compare_parfiles",
         "tcb2tdb", "t2binary2pint", "pintbary", "pintpublish")]
     mods += ["pint_tpu_torch.config", "pint_tpu_torch.logging_setup",
              "pint_tpu_torch.fitter", "pint_tpu_torch.residuals",
-             "pint_tpu_torch.simulation", "pint_tpu_torch.utils"]
+             "pint_tpu_torch.simulation", "pint_tpu_torch.utils",
+             "pint_tpu_torch.graphs", "pint_tpu_torch.parallel",
+             "pint_tpu_torch.resilience"]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "import pint_tpu_torch.utils as u\nu.list_parameters()\n"

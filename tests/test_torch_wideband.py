@@ -652,7 +652,8 @@ def test_refusals_keep_the_jax_messages(pack):
                 getattr(pkg, cls)(toas, nb, **kw).fit_toas()
     for cls in ("WidebandTOAFitter", "WidebandDownhillFitter",
                 "WidebandLMFitter"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError,
+                           match="item 5, serving and observability"):
             getattr(tf, cls)(t, m, device="cpu").fit_toas(fit_quality=True)
 
 
