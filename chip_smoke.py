@@ -10,8 +10,9 @@ It drives the port's main path — GBT TOAs read from tim files by
 timing array (~670k TOAs, NANOGrav-15yr-like ragged counts) through
 ``PTAFleet(toa_bucket="plan").fit(method="gls", maxiter=2,
 precision="mixed")`` — then the GW detection stage on the fitted fleet,
-the streaming append lanes and the photon path, and checks each, in
-these phases:
+the streaming append lanes, the photon path with its satellite, polyco
+and CALC variants, fftfit, the photon MCMC and a chi2 grid, and checks
+each, in these phases:
 
 1. build the hand-written CUDA kernels from ``pint_tpu_torch/csrc``
    (``gram.cu``, ``paircorr.cu`` and ``harmonics.cu``, one nvcc each)
@@ -209,7 +210,48 @@ these phases:
    reference, a bitwise repeat, and the times of the kernel, the plain
    version and the reference beside the bound (no library call
    computes these sums), with each shape's launch geometry and the
-   per-photon SASS counts of the m = 20 photon loop (``cuobjdump``).
+   per-photon SASS counts of the m = 20 photon loop (``cuobjdump``);
+15. ``[photon] satellite``: bench.py's photon stage drawn again with
+   seed 1 as NICER events in the spacecraft frame (TIMESYS TT, PSRPROB
+   weights) beside an FPorbit-style orbit file of a circular ISS-like
+   orbit (6.78e6 m, 51.6 deg, 5,556 s) sampled every 60 s over the year
+   and 3 h beyond each end; the event times invert the port's own
+   barycentring (computed on the orbit grid, the spacecraft's Roemer
+   term through the orbit's Hermite, the rest by a cubic Hermite), with
+   the largest residual on 20,000 photons < 1 ns. photonphase
+   --orbfile on the card: exit 0, K4 once, every photon's PULSE_PHASE
+   within 1e-6 cycles of its drawn phase, H > 1e5, with the walls of
+   its load, posvels, phase and H-test;
+16. ``[photon] polycos``: photonphase --polycos on the barycentred file
+   of 13 and on the spacecraft file: >= 8,760 segments each, K4 once
+   per run, the polyco phases within 1e-7 (barycentred) / 1e-6
+   (spacecraft) cycles of the model's at the same f64 MJDs on 20,000
+   photons and within F0 x half an MJD ulp of the direct run's on every
+   photon, H within 1e-6 relative of the direct run's; generation and
+   evaluation walls;
+17. ``[photon] calc``: 1,000,000 photons (seed 2) as a barycentred
+   Fermi FT1 file (TIME, RA, DEC, ENERGY): photonphase --weightcol CALC
+   with PHOTON_PAR and with its ecliptic copy
+   (``modelutils.model_equatorial_to_ecliptic``), K4 once per run, the
+   two H within 1e-9;
+18. ``[profile] fftfit``: the phases of 13 folded into a 256-bin weighted
+   profile on the card against that profile rotated by 0.1234 cycles:
+   fftfit_full and fftfit_cc recover the rotation within 1e-4 cycles
+   and agree, with a finite positive uncertainty;
+19. ``[mcmc]``: event_optimize on the file of 13 (F0/F1 free with 3x
+   their Cramer-Rao widths as uncertainties, 16 walkers, 64 bins, 200
+   steps) and event_optimize_multiple over that file and the spacecraft
+   file (50 steps), on the card: exit 0, the maximum posterior within 3
+   posterior sigma of the truth, accept fraction in (0.1, 0.9), finite
+   chains, no synchronizing CUDA call inside either step loop
+   (``torch.cuda.set_sync_debug_mode``); wall per step, walker
+   evaluations per second, peak memory and a profile's busy share;
+20. ``[grid]``: ``grid_chisq`` over (M2, SINI), 16 x 16 over +-3 sigma of
+   a WLSFitter fit, maxiter 3, for the zoo fleet's DD pulsar with the
+   most TOAs (30,000; its correlated noise dropped for WLS) on its
+   fleet TOAs: the minimum at a corner of the cell holding the fit, and
+   three points within 1e-6 of a WLSFitter fit with M2/SINI frozen
+   there; wall, points/s, chunk size and peak memory.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line (each record, and each per-shape record in it, with ``bound_share``
@@ -370,17 +412,17 @@ def alternating_freqs(n):
 
 
 def build_pta(counts, device, seed=0, iterations=2, par_fn=None,
-              freq_fn=alternating_freqs, flag_fn=None):
+              freq_fn=alternating_freqs, flag_fn=None, rng=None):
     """Models and zero-residual TOAs at GBT (bench.py's site, the fake
-    maker's default): epochs uniform over MJD 54000-57000, 4 TOAs per
-    epoch 0.5 s apart, 1 us errors, frequencies ``freq_fn(n)``
-    (alternating 800/1400 MHz), all flagged -f L-wide plus
-    ``flag_fn(freq)``; pulsar i's par file is ``par_fn(i)``
-    (``par_text``)."""
+    maker's default): epochs uniform over MJD 54000-57000 (drawn from
+    ``rng``, default ``default_rng(seed)``), 4 TOAs per epoch 0.5 s
+    apart, 1 us errors, frequencies ``freq_fn(n)`` (alternating
+    800/1400 MHz), all flagged -f L-wide plus ``flag_fn(freq)``; pulsar
+    i's par file is ``par_fn(i)`` (``par_text``)."""
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
 
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed) if rng is None else rng
     models, toas = [], []
     for i, n in enumerate(counts):
         m = get_model((par_fn or par_text)(i))
@@ -2711,28 +2753,30 @@ def delta_record(torch, lane_arrays, scenario_rows, launches):
 
 # -- [photon]: event file -> phases -> H-test / Z^2_m -> template fit --
 
-def photon_events(path, seed=0):
-    """bench.py's photon stage (4,000,000 photons: 1,000,000 pulsed at
-    phase 0.3 with a Gaussian sigma of 0.04, 3,000,000 uniform, seed 0)
-    as a barycentred NICER event file over one year from MJD 56700:
-    TIMESYS TDB, a PSRPROB weight column (pulsed U(0.5, 1), background
-    U(0, 0.5)). Event times invert PHOTON_PAR's spindown phase
-    phi(t) = F0 t + F1 t^2 / 2 exactly (Newton in longdouble to < 1 ns).
-    Returns the last Newton step's largest size [s]."""
-    from pint_tpu_torch.event_toas import MISSION_MJDREF
-    from pint_tpu_torch.io.fits import write_fits_table
-
+def photon_draws(seed, n=None, n_pulsed=None):
+    """bench.py's photon stage drawn with ``seed``: ``n_pulsed`` photons
+    at phase 0.3 with a Gaussian sigma of 0.04, the rest uniform, over
+    one year from MJD 56700, with PSRPROB-like weights (pulsed
+    U(0.5, 1), background U(0, 0.5)); n and n_pulsed default to
+    PHOTON_N and PHOTON_PULSED. Times invert PHOTON_PAR's spindown
+    phase phi(t) = F0 t + F1 t^2 / 2 exactly (Newton in longdouble to
+    < 1 ns). Returns {"t": barycentric TDB seconds since PEPOCH, "phi":
+    the drawn phases, "w": the weights, "pulsed": the pulsed mask},
+    sorted by time (t and phi in longdouble), and the last Newton
+    step's largest size [s]."""
+    n = PHOTON_N if n is None else n
+    n_pulsed = PHOTON_PULSED if n_pulsed is None else n_pulsed
     rng = np.random.default_rng(seed)
     f0, f1 = np.longdouble(PHOTON_F0), np.longdouble(PHOTON_F1)
     span = np.longdouble(PHOTON_SPAN_DAYS * 86400.0)
     cycles = float(f0 * span + f1 * span * span / 2)
-    n_p = PHOTON_PULSED
-    phi = np.empty(PHOTON_N, np.longdouble)
-    phi[:n_p] = (np.floor(rng.uniform(0.0, cycles - 1.0, n_p))
-                 + PHOTON_LOC + PHOTON_SIGMA * rng.standard_normal(n_p))
-    phi[n_p:] = rng.uniform(0.0, cycles, PHOTON_N - n_p)
-    w = np.concatenate([rng.uniform(0.5, 1.0, n_p),
-                        rng.uniform(0.0, 0.5, PHOTON_N - n_p)])
+    phi = np.empty(n, np.longdouble)
+    phi[:n_pulsed] = (np.floor(rng.uniform(0.0, cycles - 1.0, n_pulsed))
+                      + PHOTON_LOC + PHOTON_SIGMA
+                      * rng.standard_normal(n_pulsed))
+    phi[n_pulsed:] = rng.uniform(0.0, cycles, n - n_pulsed)
+    w = np.concatenate([rng.uniform(0.5, 1.0, n_pulsed),
+                        rng.uniform(0.0, 0.5, n - n_pulsed)])
     t = phi / f0
     for _ in range(6):
         step = (f0 * t + f1 * t * t / 2 - phi) / (f0 + f1 * t)
@@ -2741,14 +2785,27 @@ def photon_events(path, seed=0):
     if not worst < 1e-9:
         raise AssertionError(f"photon times did not converge: {worst} s")
     order = np.argsort(t, kind="stable")
-    t, w = t[order], w[order]
+    pulsed = np.arange(n) < n_pulsed
+    return {"t": t[order], "phi": phi[order], "w": w[order],
+            "pulsed": pulsed[order]}, worst
+
+
+def photon_events(path, seed=0):
+    """``photon_draws(seed)`` as a barycentred NICER event file: TIMESYS
+    TDB, a PSRPROB weight column. Returns the draws and the inversion's
+    last Newton step [s]."""
+    from pint_tpu_torch.event_toas import MISSION_MJDREF
+    from pint_tpu_torch.io.fits import write_fits_table
+
+    draws, worst = photon_draws(seed)
     ref = MISSION_MJDREF["nicer"]
-    met = (np.longdouble(PHOTON_PEPOCH) - np.longdouble(ref)) * 86400 + t
+    met = (np.longdouble(PHOTON_PEPOCH) - np.longdouble(ref)) * 86400 \
+        + draws["t"]
     write_fits_table(path, {"TIME": np.asarray(met, np.float64),
-                            "PSRPROB": w},
+                            "PSRPROB": draws["w"]},
                      {"MJDREFI": int(ref), "MJDREFF": ref - int(ref),
                       "TIMESYS": "TDB", "TELESCOP": "NICER"})
-    return worst
+    return draws, worst
 
 
 def h_f64(torch, phases, m, weights=None):
@@ -2776,8 +2833,10 @@ def photon_path(torch, tmp, device="cuda"):
     reference), a uniform-photon null, the 32-trial hm_scan, the
     template fit and the photonphase CLI. Returns K4's launches per
     step and the inputs K4 got: the folded phases, the weights and the
-    scan's (32, n) phases in f32."""
-    from pint_tpu_torch import eventstats
+    scan's (32, n) phases in f32; and the CLI's run: {"events": the
+    event file, "phased": its PULSE_PHASE copy, "H": the printed H,
+    "draws": photon_draws' arrays}."""
+    from pint_tpu_torch import eventstats, native
     from pint_tpu_torch.event_toas import get_event_weights, load_event_TOAs
     from pint_tpu_torch.kernels.harmonics import harmonic_sums_cuda
     from pint_tpu_torch.models import get_model
@@ -2787,7 +2846,7 @@ def photon_path(torch, tmp, device="cuda"):
     walls = {}
     path = os.path.join(tmp, "photons.fits")
     t0 = time.perf_counter()
-    worst = photon_events(path)
+    draws, worst = photon_events(path)
     walls["write"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     toas = load_event_TOAs(path, "nicer", weightcolumn="PSRPROB")
@@ -2795,11 +2854,27 @@ def photon_path(torch, tmp, device="cuda"):
     t0 = time.perf_counter()
     toas.compute_posvels()
     walls["posvels"] = time.perf_counter() - t0
+    # the same posvels with io/spk.py's numpy Chebyshev fold in place
+    # of the C++ library's (native.cheby_posvel, bound since PR 12)
+    ssb, sun = toas.ssb_obs.pos, toas.obs_sun.pos
+    bound = native.cheby_posvel
+    native.cheby_posvel = lambda *a: None
+    try:
+        t0 = time.perf_counter()
+        toas.compute_posvels()
+        walls["posvels_numpy"] = time.perf_counter() - t0
+    finally:
+        native.cheby_posvel = bound
     log(f"[photon] ephemeris {toas.ephem}: the Sun from the "
-        f"{toas.ephem_provider!r} tier")
+        f"{toas.ephem_provider!r} tier; barycentre posvels with the C++ "
+        f"Chebyshev {walls['posvels']:.3f} s, with the numpy fold "
+        f"{walls['posvels_numpy']:.3f} s")
     check("[photon] ephemeris", {
         "the Sun comes from the numeph kernel (the JAX package's tier)":
             toas.ephem_provider == "numeph",
+        "C++ and numpy Chebyshev posvels bitwise equal": bool(
+            np.array_equal(ssb, toas.ssb_obs.pos)
+            and np.array_equal(sun, toas.obs_sun.pos)),
     })
     model = get_model(PHOTON_PAR)
     sync()
@@ -2909,17 +2984,12 @@ def photon_path(torch, tmp, device="cuda"):
     with open(par, "w") as fh:
         fh.write(PHOTON_PAR)
     out = os.path.join(tmp, "photons_phased.fits")
-    buf = io.StringIO()
     harmonic_sums_cuda.launches = 0
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = photonphase([path, par, "--weightcol", "PSRPROB", "--device",
-                          device, "--outfile", out])
-    walls["cli"] = time.perf_counter() - t0
+    rc, text, walls["cli"] = run_cli(photonphase, [
+        path, par, "--weightcol", "PSRPROB", "--device", device,
+        "--outfile", out])
     launches["cli"] = harmonic_sums_cuda.launches
-    text = buf.getvalue()
-    h_cli = float(next(line.split("=", 1)[1] for line in text.splitlines()
-                       if line.startswith("H = ")))
+    h_cli = printed_h(text)
     from pint_tpu_torch.io.fits import get_table
 
     col = get_table(out, "EVENTS")[1]["PULSE_PHASE"]
@@ -2934,7 +3004,8 @@ def photon_path(torch, tmp, device="cuda"):
             <= 1e-9 * hw,
         "PULSE_PHASE equals the phases": d_phase == 0.0,
     })
-    return launches, phases, w, scan_rows
+    direct = {"events": path, "phased": out, "H": h_cli, "draws": draws}
+    return launches, phases, w, scan_rows, direct
 
 
 def harmonics_record(torch, phases, w, scan_rows, launches):
@@ -3123,6 +3194,643 @@ def sass_loop_counts(so, kernel, photons):
     return per
 
 
+# -- the photon-timing remainder: [photon] satellite / polycos / calc,
+# [profile] fftfit, [mcmc]; and [grid] --
+
+# an ISS-like circular orbit (NICER's host) sampled every 60 s over the
+# photon year, FPorbit-style; 3 h more at each end cover photons whose
+# spacecraft time leads or lags the barycentric year by the Roemer
+# delay (+-500 s) and the polyco segments' end nodes
+ORBIT_RADIUS_M, ORBIT_INC_DEG, ORBIT_PERIOD_S = 6.78e6, 51.6, 5556.0
+ORBIT_STEP_S, ORBIT_ROWS, ORBIT_MARGIN_ROWS = 60.0, 525_600, 180
+SAT_SEED, CALC_SEED = 1, 2
+SAT_SAMPLE = 20_000  # photons the inversion is checked on
+TOL_INVERSION_S = 1e-9
+TOL_SAT_PHASE = 1e-6  # cycles, |PULSE_PHASE - drawn phase|
+CALC_N = 1_000_000  # Fermi photons of [photon] calc
+FERMI_MJDREF = 51910.00074287037
+POLYCO_SAMPLE = 20_000  # photons the polyco phases are held on
+TOL_POLYCO = {"barycentred": 1e-7, "satellite": 1e-6}  # cycles
+TOL_POLYCO_H = 1e-6  # relative, polyco vs direct H
+TOL_CALC_H = 1e-9  # relative, ecliptic vs equatorial par
+PROFILE_BINS, PROFILE_SHIFT = 256, 0.1234
+TOL_FFTFIT = 1e-4  # cycles
+MCMC_STEPS, MCMC_MULTI_STEPS, MCMC_BINS = 200, 50, 64
+GRID_SIDE, GRID_SIGMA = 16, 3.0
+TOL_GRID_CHI2 = 1e-6  # relative, grid point vs a frozen WLSFitter fit
+
+
+def iss_orbit(met):
+    """Position [m] and velocity [m/s] of a circular orbit of radius
+    6.78e6 m, inclination 51.6 deg and period 5,556 s at MET seconds."""
+    w = 2 * np.pi / ORBIT_PERIOD_S
+    inc = np.radians(ORBIT_INC_DEG)
+    ang = w * met
+    c, s = np.cos(ang), np.sin(ang)
+    r = ORBIT_RADIUS_M
+    pos = np.stack([r * c, r * s * np.cos(inc), r * s * np.sin(inc)], -1)
+    vel = np.stack([-r * w * s, r * w * c * np.cos(inc),
+                    r * w * c * np.sin(inc)], -1)
+    return pos, vel
+
+
+def hermite_uniform(xg, yg, x):
+    """Cubic Hermite of yg on the uniform grid xg at x, the slopes by
+    second-order differences."""
+    h = xg[1] - xg[0]
+    d = np.gradient(yg, h, edge_order=2)
+    i = np.clip(((x - xg[0]) // h).astype(np.int64), 0, len(xg) - 2)
+    u = (x - xg[i]) / h
+    return ((2 * u**3 - 3 * u**2 + 1) * yg[i] + (u**3 - 2 * u**2 + u) * h
+            * d[i] + (-2 * u**3 + 3 * u**2) * yg[i + 1]
+            + (u**3 - u**2) * h * d[i + 1])
+
+
+def tt_epochs(met_ld, ref):
+    """TT (day, sec) of longdouble MET seconds past ``ref``, to the
+    longdouble's precision."""
+    x = (np.longdouble(ref) - PHOTON_PEPOCH) * 86400 + met_ld
+    dday = np.floor(x / 86400)
+    return (PHOTON_PEPOCH + dday.astype(np.int64),
+            np.asarray(x - dday * 86400, np.float64))
+
+
+def barycentric_offset(model, day, sec, device):
+    """The port's barycentring of TT epochs at the registered
+    spacecraft: seconds from the TT epoch to tdb - delay (the time the
+    spindown phase reads), and the TDB epochs' offset from PEPOCH."""
+    from pint_tpu_torch.toa import TOAs
+
+    toas = TOAs.from_arrays(day, sec, obs="nicer")
+    toas.compute_posvels()
+    delay = model.delay(toas, device=device).cpu().numpy()
+    g = (toas.tdb.day - day) * 86400.0 + (toas.tdb.sec - sec) - delay
+    return g, delay, toas
+
+
+def satellite_files(tmp, device="cuda"):
+    """``[photon] satellite``'s data: photon_draws(seed 1) as NICER
+    events in the spacecraft frame (TIMESYS TT, PSRPROB weights) with an
+    FPorbit-style orbit file (TIME, POSITION, VELOCITY in m) of
+    ``iss_orbit``. The spacecraft times invert the port's own
+    barycentring of the drawn barycentric times: G(met) = (tdb - delay)
+    - tt is computed by the port on the orbit grid, split into the
+    spacecraft's Roemer term (r_sc . n / c, with the orbit file's own
+    Hermite interpolant) and a smooth rest (cubic Hermite), and
+    met = met_bary - G(met) is iterated to convergence. Returns the
+    paths, the drawn phases and weights in file order, the inversion's
+    largest residual on a sample [s] and the walls."""
+    from pint_tpu_torch.constants import C_M_S
+    from pint_tpu_torch.event_toas import MISSION_MJDREF, met_to_day_sec
+    from pint_tpu_torch.io.fits import write_fits_table
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.observatory.satellite_obs import (
+        get_satellite_observatory)
+
+    walls = {}
+    t0 = time.perf_counter()
+    draws, _ = photon_draws(SAT_SEED)
+    walls["draw"] = time.perf_counter() - t0
+    ref = MISSION_MJDREF["nicer"]
+    hdr = {"MJDREFI": int(ref), "MJDREFF": ref - int(ref), "TIMESYS": "TT",
+           "TELESCOP": "NICER"}
+    met_pepoch = (np.longdouble(PHOTON_PEPOCH) - np.longdouble(ref)) * 86400
+    met_grid = (float(met_pepoch) - ORBIT_MARGIN_ROWS * ORBIT_STEP_S
+                + ORBIT_STEP_S * np.arange(ORBIT_ROWS + 2 * ORBIT_MARGIN_ROWS))
+    pos, vel = iss_orbit(met_grid)
+    orbit = os.path.join(tmp, "nicer_orbit.fits")
+    write_fits_table(orbit, {"TIME": met_grid, "POSITION": pos,
+                             "VELOCITY": vel}, hdr, extname="ORBIT")
+    ob = get_satellite_observatory("nicer", orbit)
+    model = get_model(PHOTON_PAR)
+    ra, dec = model.RAJ.value, model.DECJ.value
+    n_hat = np.array([np.cos(dec) * np.cos(ra), np.cos(dec) * np.sin(ra),
+                      np.sin(dec)])
+
+    def g_sat(met):
+        return ob._interp(met)[0] @ n_hat / C_M_S
+
+    t0 = time.perf_counter()
+    day, sec = met_to_day_sec(met_grid, ref)
+    g_grid, _, _ = barycentric_offset(model, day, sec, device)
+    g_rest = g_grid - g_sat(met_grid)
+    walls["grid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    met_b = met_pepoch + draws["t"]
+    met = np.asarray(met_b, np.float64)
+    for _ in range(5):
+        met_ld = met_b - (hermite_uniform(met_grid, g_rest, met) + g_sat(met))
+        met = np.asarray(met_ld, np.float64)
+    walls["invert"] = time.perf_counter() - t0
+    order = np.argsort(met_ld, kind="stable")
+    met_ld = met_ld[order]
+    phi, w, t_b = draws["phi"][order], draws["w"][order], draws["t"][order]
+    # the inversion on a sample, through the port's whole barycentring
+    pick = np.sort(np.random.default_rng(SAT_SEED).choice(
+        len(met_ld), SAT_SAMPLE, replace=False))
+    sd, ss = tt_epochs(met_ld[pick], ref)
+    _, delay, st = barycentric_offset(model, sd, ss, device)
+    b = ((st.tdb.day - PHOTON_PEPOCH) * 86400 + np.longdouble(1) * st.tdb.sec
+         - delay)
+    resid = float(np.max(np.abs(np.asarray(b - t_b[pick], np.float64))))
+    events = os.path.join(tmp, "nicer_spacecraft.fits")
+    write_fits_table(events, {"TIME": np.asarray(met_ld, np.float64),
+                              "PSRPROB": w}, hdr)
+    return {"events": events, "orbit": orbit, "phi": phi, "w": w,
+            "t": t_b, "resid_s": resid, "walls": walls,
+            "rows": len(met_grid), "span_days": float(
+                (met_grid[-1] - met_grid[0]) / 86400)}
+
+
+def run_cli(main, argv):
+    """A script's main in-process: (rc, stdout text, wall)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def printed_h(text):
+    return float(next(line.split("=", 1)[1] for line in text.splitlines()
+                      if line.startswith("H = ")))
+
+
+def wrap_gap(a, b):
+    """max |a - b| over the circle of unit phase."""
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)) % 1.0
+    return float(np.max(np.minimum(d, 1.0 - d)))
+
+
+PHOTON_CLI_STEPS = (  # (owner module[:class], attribute, label)
+    ("pint_tpu_torch.event_toas", "load_event_TOAs", "load"),
+    ("pint_tpu_torch.toa:TOAs", "compute_posvels", "posvels"),
+    ("pint_tpu_torch.models.timing_model:TimingModel", "phase",
+     "phase (prepare and posvels inside)"),
+    ("pint_tpu_torch.polycos:Polycos", "generate_polycos",
+     "polyco generation"),
+    ("pint_tpu_torch.polycos:Polycos", "eval_abs_phase",
+     "polyco evaluation"),
+    ("pint_tpu_torch.eventstats", "hmw", "H-test"),
+)
+
+
+def photonphase_timed(argv):
+    """photonphase in-process with its steps timed (PHOTON_CLI_STEPS)
+    and K4's launches counted: (rc, text, wall, {step: s}, launches)."""
+    import importlib
+
+    from pint_tpu_torch.kernels.harmonics import harmonic_sums_cuda
+    from pint_tpu_torch.scripts.photonphase import main as photonphase
+
+    timers = Timers()
+    for owner, attr, label in PHOTON_CLI_STEPS:
+        mod, _, cls = owner.partition(":")
+        obj = importlib.import_module(mod)
+        timers.patch(getattr(obj, cls) if cls else obj, attr, label)
+    harmonic_sums_cuda.launches = 0
+    try:
+        rc, text, wall = run_cli(photonphase, argv)
+    finally:
+        timers.restore()
+    return rc, text, wall, dict(timers.total), harmonic_sums_cuda.launches
+
+
+def photon_satellite(torch, tmp, device="cuda"):
+    """``[photon] satellite``: photonphase --orbfile on the spacecraft-
+    frame year (satellite_files), K4 counted; every photon's phase held
+    to its drawn phase. Returns the files, the drawn phases, the phased
+    copy and the printed H."""
+    from pint_tpu_torch.io.fits import get_table
+
+    t0 = time.perf_counter()
+    sat = satellite_files(tmp, device=device)
+    made = time.perf_counter() - t0
+    log(f"[photon] satellite: {len(sat['phi'])} photons of seed "
+        f"{SAT_SEED} in the spacecraft frame ({made:.2f} s: draw "
+        f"{sat['walls']['draw']:.2f} s, the port's barycentring on the "
+        f"{sat['rows']}-row orbit grid ({sat['span_days']:.3f} d) "
+        f"{sat['walls']['grid']:.2f} s, inversion "
+        f"{sat['walls']['invert']:.2f} s); inversion residual on "
+        f"{SAT_SAMPLE} photons {sat['resid_s']:.3e} s")
+    par = os.path.join(tmp, "photon.par")
+    with open(par, "w") as fh:
+        fh.write(PHOTON_PAR)
+    out = os.path.join(tmp, "nicer_spacecraft_phased.fits")
+    rc, text, wall, steps, launches = photonphase_timed(
+        [sat["events"], par, "--orbfile", sat["orbit"], "--weightcol",
+         "PSRPROB", "--device", device, "--outfile", out])
+    h = printed_h(text)
+    col = get_table(out, "EVENTS")[1]["PULSE_PHASE"]
+    gap = wrap_gap(col, sat["phi"] % 1)
+    log(f"[photon] satellite: photonphase --orbfile --device {device}: rc "
+        f"{rc}, {wall:.2f} s (" + ", ".join(
+            f"{k} {v:.3f} s" for k, v in steps.items()) + f"); K4 launches "
+        f"{launches}; H {h!r}; max |PULSE_PHASE - drawn phase| "
+        f"{gap:.3e} cycles")
+    check("[photon] satellite", {
+        "inversion residual < 1 ns": sat["resid_s"] < TOL_INVERSION_S,
+        "exit code 0": rc == 0,
+        "K4 launched once": launches == 1,
+        "every photon's phase within 1e-6 cycles of its drawn phase":
+            gap <= TOL_SAT_PHASE,
+        "H > 1e5": h > 1e5,
+    })
+    sat.update(phased=out, H=h, par=par, launches=launches)
+    return sat
+
+
+def photon_polycos(torch, tmp, direct, sat, device="cuda"):
+    """``[photon] polycos``: photonphase --polycos on the [photon]
+    barycentred file and on the spacecraft file. The polyco phases are
+    held to the model's at the same f64 MJDs on a sample (the polyco
+    tier), and to the direct run's PULSE_PHASE over every photon (then
+    the f64 MJDs the polycos are evaluated at bound the gap: F0 x half
+    an ulp of an MJD, 9.4e-6 cycles); H to the direct run's."""
+    from pint_tpu_torch.event_toas import load_event_TOAs
+    from pint_tpu_torch.io.fits import get_table
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.polycos import _model_abs_phase
+
+    model = get_model(PHOTON_PAR)
+    launches = {}
+    for tag, path, extra, phased, h_direct in (
+            ("barycentred", direct["events"], [], direct["phased"],
+             direct["H"]),
+            ("satellite", sat["events"], ["--orbfile", sat["orbit"]],
+             sat["phased"], sat["H"])):
+        out = os.path.join(tmp, f"polyco_{tag}.fits")
+        rc, text, wall, steps, launches[tag] = photonphase_timed(
+            [path, sat["par"], "--polycos", "--weightcol", "PSRPROB",
+             "--device", device, "--outfile", out, *extra])
+        n_seg = int(next(line.split()[1] for line in text.splitlines()
+                         if line.startswith("Generated")))
+        h = printed_h(text)
+        col = get_table(out, "EVENTS")[1]["PULSE_PHASE"]
+        gap_direct = wrap_gap(col, get_table(phased, "EVENTS")[1][
+            "PULSE_PHASE"])
+        toas = load_event_TOAs(path, "nicer")
+        pick = np.sort(np.random.default_rng(3).choice(
+            len(toas), POLYCO_SAMPLE, replace=False))
+        _, pf = _model_abs_phase(model, toas.get_mjds()[pick],
+                                 str(toas.obs[0]), np.inf, device=device)
+        gap_model = wrap_gap(col[pick], pf)
+        rel_h = abs(h - h_direct) / h_direct
+        log(f"[photon] polycos {tag}: rc {rc}, {n_seg} segments, {wall:.2f}"
+            f" s (" + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+            + f"); K4 launches {launches[tag]}; max |polyco - model| at the "
+            f"same MJDs on {POLYCO_SAMPLE} photons {gap_model:.3e} cycles; "
+            f"max |polyco - direct run| {gap_direct:.3e} cycles; H {h!r} vs "
+            f"{h_direct!r} (relative {rel_h:.3e})")
+        check(f"[photon] polycos {tag}", {
+            "exit code 0": rc == 0,
+            ">= 8,760 segments": n_seg >= 8760,
+            "K4 launched once": launches[tag] == 1,
+            f"polyco vs model <= {TOL_POLYCO[tag]:g} cycles":
+                gap_model <= TOL_POLYCO[tag],
+            "polyco vs direct within F0 x half an MJD ulp + tier":
+                gap_direct <= 9.4e-6 + TOL_POLYCO[tag],
+            "H within 1e-6 relative of the direct run": rel_h <= TOL_POLYCO_H,
+        })
+    return launches
+
+
+def fermi_events(path, seed=CALC_SEED, n=CALC_N):
+    """photon_draws(seed) at n photons (a quarter pulsed) as a
+    barycentred Fermi-LAT FT1 file (TIMESYS TDB; TIME, RA, DEC, ENERGY):
+    energies log-uniform over 0.1-100 GeV; pulsed photons scattered about
+    PHOTON_PAR's position by the LAT PSF of their energy (the 68% radius
+    of calc_lat_weights' parameterization), the background uniform over
+    a 5-degree disk."""
+    from pint_tpu_torch.io.fits import write_fits_table
+
+    draws, _ = photon_draws(seed, n=n, n_pulsed=n // 4)
+    rng = np.random.default_rng(seed + 10)
+    energy = 10 ** rng.uniform(2.0, 5.0, n)
+    psf = np.sqrt(5.445**2 * (100.0 / energy) ** (2 * 0.848) + 0.084**2) / 3
+    radius = np.where(draws["pulsed"],
+                      np.abs(rng.standard_normal(n)) * psf,
+                      5.0 * np.sqrt(rng.random(n)))
+    angle = rng.uniform(0, 2 * np.pi, n)
+    ra0, dec0 = 150.0, 15.0  # PHOTON_PAR's RAJ/DECJ [deg]
+    met = ((np.longdouble(PHOTON_PEPOCH) - np.longdouble(FERMI_MJDREF))
+           * 86400 + draws["t"])
+    write_fits_table(path, {
+        "TIME": np.asarray(met, np.float64),
+        "RA": ra0 + radius * np.cos(angle) / np.cos(np.radians(dec0)),
+        "DEC": dec0 + radius * np.sin(angle), "ENERGY": energy},
+        {"MJDREFI": int(FERMI_MJDREF),
+         "MJDREFF": FERMI_MJDREF - int(FERMI_MJDREF), "TIMESYS": "TDB",
+         "TELESCOP": "GLAST"}, extname="EVENTS")
+
+
+def photon_calc(torch, tmp, device="cuda"):
+    """``[photon] calc``: photonphase --weightcol CALC on a 1,000,000-
+    photon FT1 file with PHOTON_PAR and with its ecliptic copy
+    (modelutils.model_equatorial_to_ecliptic); the H-tests agree."""
+    from pint_tpu_torch.modelutils import model_equatorial_to_ecliptic
+    from pint_tpu_torch.models import get_model
+
+    path = os.path.join(tmp, "fermi_ft1.fits")
+    t0 = time.perf_counter()
+    fermi_events(path)
+    made = time.perf_counter() - t0
+    eq = os.path.join(tmp, "photon.par")
+    ecl = os.path.join(tmp, "photon_ecliptic.par")
+    with open(ecl, "w") as fh:
+        fh.write(model_equatorial_to_ecliptic(
+            get_model(PHOTON_PAR)).as_parfile())
+    res = {}
+    for tag, par in (("equatorial", eq), ("ecliptic", ecl)):
+        res[tag] = photonphase_timed([path, par, "--weightcol", "CALC",
+                                      "--device", device])
+    h = {k: printed_h(r[1]) for k, r in res.items()}
+    rel = abs(h["ecliptic"] - h["equatorial"]) / h["equatorial"]
+    log(f"[photon] calc: {CALC_N} FT1 photons written in {made:.2f} s; "
+        + "; ".join(f"{k} par: rc {r[0]}, {r[2]:.2f} s (" + ", ".join(
+            f"{s} {v:.3f} s" for s, v in r[3].items()) + f"), K4 launches "
+            f"{r[4]}, H {h[k]!r}" for k, r in res.items())
+        + f"; relative H gap {rel:.3e}")
+    check("[photon] calc", {
+        "exit codes 0": all(r[0] == 0 for r in res.values()),
+        "K4 launched once per run": all(r[4] == 1 for r in res.values()),
+        "ecliptic H equals the equatorial H to 1e-9": rel <= TOL_CALC_H,
+    })
+    return {k: r[4] for k, r in res.items()}
+
+
+def profile_fftfit(torch, phases, weights, device="cuda"):
+    """``[profile] fftfit``: the [photon] phases folded into a 256-bin
+    weighted profile on the card; the template is that profile rotated
+    later by 0.1234 cycles (a Fourier rotation); fftfit_full and
+    fftfit_cc must recover -0.1234 (the template's rotation onto the
+    profile)."""
+    from pint_tpu_torch.profile import fftfit_cc, fftfit_full
+
+    nb = PROFILE_BINS
+    idx = torch.clamp((phases * nb).long(), 0, nb - 1)
+    prof = torch.zeros(nb, dtype=torch.float64, device=device).index_add_(
+        0, idx, weights.double())
+    k = torch.arange(nb // 2 + 1, device=device)
+    tpl = torch.fft.irfft(torch.fft.rfft(prof) * torch.exp(
+        -2j * np.pi * k * PROFILE_SHIFT), nb)
+    walls = {}
+    for run in ("cold", "warm"):  # the first call plans the FFTs
+        sync()
+        t0 = time.perf_counter()
+        full = fftfit_full(tpl, prof, device=device)
+        walls[f"full {run}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cc = fftfit_cc(tpl, prof, device=device)
+        walls[f"cc {run}"] = time.perf_counter() - t0
+    d_full = abs(full.shift + PROFILE_SHIFT)
+    d_cc = abs(cc + PROFILE_SHIFT)
+    log(f"[profile] fftfit: {nb}-bin weighted profile of the [photon] "
+        f"phases, template rotated by {PROFILE_SHIFT}; fftfit_full shift "
+        f"{full.shift!r} +- {full.uncertainty:.3e} (scale {full.scale:.6g}, "
+        f"offset {full.offset:.6g}, S/N {full.snr:.6g}); fftfit_cc {cc!r}; "
+        f"|error| {d_full:.3e} / {d_cc:.3e} cycles; walls " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" for k, v in walls.items()))
+    check("[profile] fftfit", {
+        "fftfit_full recovers the shift to 1e-4": d_full <= TOL_FFTFIT,
+        "fftfit_cc recovers the shift to 1e-4": d_cc <= TOL_FFTFIT,
+        "the backends agree to 1e-4": abs(full.shift - cc) <= TOL_FFTFIT,
+        "uncertainty finite and positive":
+            np.isfinite(full.uncertainty) and full.uncertainty > 0,
+    })
+
+
+def cramer_rao_widths(draws):
+    """Cramer-Rao widths of F0 and F1 for the [photon] draws under
+    event_optimize's weighted template likelihood: each photon's score
+    for a phase shift is w T'(phi) / (w T(phi) + 1 - w), with T the
+    expected weighted profile (1 - p) + p g(phi), g the pulse's wrapped
+    Gaussian (mean 1 over a cycle) and p its weighted share; the Fisher
+    matrix sums score^2 (t, t^2/2)(t, t^2/2)^T over the photons (t the
+    barycentric seconds since PEPOCH, dphi/dF0 = t, dphi/dF1 = t^2/2)."""
+    t = np.asarray(draws["t"], np.float64)
+    phi = np.asarray(draws["phi"] % 1, np.float64)
+    w = draws["w"]
+    p = w[draws["pulsed"]].sum() / w.sum()
+    x = phi[:, None] - PHOTON_LOC + np.array([-1.0, 0.0, 1.0])
+    g = np.exp(-0.5 * (x / PHOTON_SIGMA) ** 2) / (
+        PHOTON_SIGMA * np.sqrt(2 * np.pi))
+    tmpl = (1 - p) + p * g.sum(axis=1)
+    dtmpl = p * np.sum(-x / PHOTON_SIGMA**2 * g, axis=1)
+    score = w * dtmpl / (w * tmpl + 1 - w)
+    jac = np.stack([t, 0.5 * t * t], axis=1)
+    fisher = (jac * score[:, None] ** 2).T @ jac
+    return np.sqrt(np.diag(np.linalg.inv(fisher)))
+
+
+def mcmc_phase(torch, tmp, direct, sat, device="cuda"):
+    """``[mcmc]``: event_optimize on the [photon] file (F0/F1 free with
+    3x their Cramer-Rao widths as uncertainties, so default_priors'
+    +-5 sigma box is +-15 widths; 16 walkers, 200 steps), the step loop
+    run with CUDA's sync debug mode on; then event_optimize_multiple
+    over the [photon] file and the spacecraft file (its observatory
+    registered by [photon] satellite), 50 steps."""
+    from pint_tpu_torch import mcmc_fitter, sampler
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.scripts.event_optimize import main as eo
+    from pint_tpu_torch.scripts.event_optimize_multiple import main as eom
+
+    cr = cramer_rao_widths(direct["draws"])
+    par = os.path.join(tmp, "photon_mcmc.par")
+    with open(par, "w") as fh:
+        fh.write(PHOTON_PAR.replace(
+            f"F0 {PHOTON_F0} 1\n", f"F0 {PHOTON_F0} 1 {3 * cr[0]:.6e}\n")
+            .replace(f"F1 {PHOTON_F1} 1\n",
+                     f"F1 {PHOTON_F1} 1 {3 * cr[1]:.6e}\n"))
+    start = get_model(par)
+    if not (start.F0.uncertainty == float(f"{3 * cr[0]:.6e}")
+            and start.F1.uncertainty == float(f"{3 * cr[1]:.6e}")):
+        raise AssertionError("[mcmc] the par file lost the F0/F1 widths")
+    fits, loops = [], []
+    walk = sampler._walk
+
+    def watched_walk(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = walk(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sync()
+        syncs = [f"{os.path.basename(c.filename)}:{c.lineno}: "
+                 f"{str(c.message)[:120]}" for c in caught
+                 if "called a synchronizing CUDA operation"
+                 in str(c.message)]
+        loops.append({"wall": time.perf_counter() - t0,
+                      "syncs": len(syncs), "where": syncs})
+        return out
+
+    def keep(cls):
+        fit_toas = cls.fit_toas
+
+        def recorded(self, *a, **k):
+            fits.append(self)
+            return fit_toas(self, *a, **k)
+        return fit_toas, recorded
+
+    saved = {}
+    for cls in (mcmc_fitter.MCMCFitterBinnedTemplate,
+                mcmc_fitter.CompositeMCMCFitter):
+        saved[cls], cls.fit_toas = keep(cls)
+    sampler._walk = watched_walk
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        post = os.path.join(tmp, "photon_mcmc_post.par")
+        rc, text, wall = run_cli(eo, [
+            direct["events"], par, "--weightcol", "PSRPROB", "--nbins",
+            str(MCMC_BINS), "--nsteps", str(MCMC_STEPS), "--device", device,
+            "--outfile", post])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fit = fits[-1]
+        lst = os.path.join(tmp, "mcmc_sets.txt")
+        with open(lst, "w") as fh:
+            fh.write(f"{direct['events']} nicer - PSRPROB\n"
+                     f"{sat['events']} nicer - PSRPROB\n")
+        rc_m, text_m, wall_m = run_cli(eom, [
+            lst, par, "--nbins", str(MCMC_BINS), "--nsteps",
+            str(MCMC_MULTI_STEPS), "--device", device])
+        fit_m = fits[-1]
+    finally:
+        sampler._walk = walk
+        for cls, fn in saved.items():
+            cls.fit_toas = fn
+    busy = profile_run(torch, "[mcmc] profile (5 steps of the same chain)",
+                       lambda: sampler.run_ensemble(
+                           fit.bt.lnposterior, fit.sampler.chain[-1], 5,
+                           seed=1, device=device))
+    post_m = get_model(post)
+    sig = np.array([post_m.F0.uncertainty, post_m.F1.uncertainty])
+    pull = np.abs(np.array([post_m.F0.value - PHOTON_F0,
+                            post_m.F1.value - PHOTON_F1])) / sig
+    loop, loop_m = loops[0], loops[1]
+    n_w = fit.n_walkers
+    log(f"[mcmc] event_optimize: {len(fit.toas)} photons, {n_w} walkers x "
+        f"{MCMC_STEPS} steps: rc {rc}, {wall:.2f} s in all, the step loop "
+        f"{loop['wall']:.2f} s ({loop['wall'] / MCMC_STEPS * 1e3:.2f} ms per "
+        f"step, {n_w * MCMC_STEPS / loop['wall']:.1f} walker-evaluations/s),"
+        f" {loop['syncs']} host syncs inside it; peak device memory "
+        f"{peak:.3f} GiB; accept {fit.sampler.accept_frac:.4f}; Cramer-Rao "
+        f"widths F0 {cr[0]:.3e} Hz, F1 {cr[1]:.3e} Hz/s; max posterior F0 "
+        f"{post_m.F0.value!r} +- {sig[0]:.3e}, F1 {post_m.F1.value!r} +- "
+        f"{sig[1]:.3e}; |x - truth| / sigma {pull[0]:.3f}, {pull[1]:.3f}")
+    for where in loop["where"] + loop_m["where"]:
+        log(f"[mcmc] host sync in a step loop: {where}")
+    log(f"[mcmc] event_optimize_multiple: "
+        f"{sum(len(t) for t in fit_m.toas_list)} photons in "
+        f"{len(fit_m.toas_list)} sets, {fit_m.n_walkers} walkers x "
+        f"{MCMC_MULTI_STEPS} steps: rc {rc_m}, {wall_m:.2f} s, the step loop "
+        f"{loop_m['wall']:.2f} s ({loop_m['wall'] / MCMC_MULTI_STEPS * 1e3:.2f}"
+        f" ms per step), {loop_m['syncs']} host syncs inside it; accept "
+        f"{fit_m.sampler.accept_frac:.4f}")
+    check("[mcmc]", {
+        "exit codes 0": rc == 0 and rc_m == 0,
+        "max posterior F0/F1 within 3 posterior sigma of the truth":
+            bool(np.all(pull <= 3.0)),
+        "accept fraction in (0.1, 0.9)":
+            0.1 < fit.sampler.accept_frac < 0.9,
+        "finite chains": bool(np.isfinite(fit.sampler.chain).all()
+                              and np.isfinite(fit_m.sampler.chain).all()),
+        "no host sync inside the step loops":
+            loop["syncs"] == 0 and loop_m["syncs"] == 0,
+    })
+    return busy
+
+
+def zoo_pulsar_toas(i, counts, device="cuda"):
+    """The zoo fleet's pulsar i and its TOAs as build_pta makes them for
+    the fleet (the seed-0 epoch draws of pulsars 0..i-1 skipped)."""
+    rng = np.random.default_rng(0)
+    for n in counts[:i]:
+        rng.uniform(54000, 57000, max(1, int(n) // 4))
+    models, toas = build_pta([counts[i]], device, rng=rng,
+                             par_fn=lambda j: zoo_par_text(i),
+                             freq_fn=zoo_freqs, flag_fn=zoo_flags)
+    return models[0], toas[0]
+
+
+def grid_par_text(i):
+    """zoo_par_text(i) with M2 and SINI free and without the correlated
+    noise (ECORR, red noise), which a WLS fit refuses."""
+    text = zoo_par_text(i).replace("M2 0.35\n", "M2 0.35 1\n").replace(
+        "SINI 0.92\n", "SINI 0.92 1\n")
+    return "".join(line + "\n" for line in text.splitlines()
+                   if line.split()[:1] not in (["ECORR"], ["RNAMP"],
+                                               ["RNIDX"], ["TNREDC"]))
+
+
+def grid_phase(torch, counts, device="cuda"):
+    """``[grid]``: grid_chisq over (M2, SINI) for the zoo fleet's DD
+    pulsar with the most TOAs (grid_par_text), on its fleet TOAs: a
+    16 x 16 grid over +-3 sigma of a WLSFitter fit with them free,
+    maxiter=3, walked in chunks of gridutils.GRID_CHUNK points; the
+    minimum's cell, and three points against a WLSFitter fit with M2 and
+    SINI frozen there."""
+    from pint_tpu_torch import gridutils
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.models import get_model
+
+    i = next(j for j in range(len(counts)) if j % 4 == 3)
+    t0 = time.perf_counter()
+    _, toas = zoo_pulsar_toas(i, counts, device=device)
+    made = time.perf_counter() - t0
+    model = get_model(grid_par_text(i))
+    fitter = WLSFitter(toas, model, device=device)
+    t0 = time.perf_counter()
+    fitter.fit_toas()
+    fit_s = time.perf_counter() - t0
+    fm = fitter.model
+    centre = np.array([fm.M2.value, fm.SINI.value])
+    sig = np.array([fm.M2.uncertainty, fm.SINI.uncertainty])
+    axes = [c + GRID_SIGMA * s * np.linspace(-1, 1, GRID_SIDE)
+            for c, s in zip(centre, sig)]
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    chi2 = gridutils.grid_chisq(fitter, ["M2", "SINI"], axes, maxiter=3)
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    best = tuple(int(b) for b in np.unravel_index(np.argmin(chi2),
+                                                   chi2.shape))
+    # the grid cell holding the fit: its corner points on each axis
+    pos = [(c - a[0]) / (a[1] - a[0]) for a, c in zip(axes, centre)]
+    cell = [{int(np.floor(p)), int(np.ceil(p))} for p in pos]
+    gaps = {}
+    for a, b in ((0, 0), (GRID_SIDE - 1, GRID_SIDE - 1), (0, GRID_SIDE - 1)):
+        m = copy.deepcopy(fm)
+        m.M2.value, m.SINI.value = float(axes[0][a]), float(axes[1][b])
+        m.M2.frozen = m.SINI.frozen = True
+        ref = float(WLSFitter(toas, m, device=device).fit_toas(maxiter=3))
+        gaps[(a, b)] = abs(chi2[a, b] - ref) / ref
+    log(f"[grid] DD pulsar {i}: {len(toas)} TOAs made on the card in "
+        f"{made:.2f} s, {len(fm.free_params)} free parameters; WLSFitter "
+        f"with M2/SINI free {fit_s:.2f} s: M2 {centre[0]:.6f} +- "
+        f"{sig[0]:.3e}, SINI {centre[1]:.6f} +- {sig[1]:.3e}")
+    log(f"[grid] grid_chisq {GRID_SIDE}x{GRID_SIDE} over +-{GRID_SIGMA:g} "
+        f"sigma, maxiter 3, chunks of {gridutils.GRID_CHUNK} points: "
+        f"{wall:.3f} s ({chi2.size / wall:.1f} points/s), peak device "
+        f"memory {peak:.3f} GiB; chi2 {chi2.min():.6g} .. {chi2.max():.6g},"
+        f" minimum at point {best} (the fit at grid index "
+        f"({pos[0]:.3f}, {pos[1]:.3f})); vs WLSFitter frozen at three "
+        f"points: relative "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    check("[grid]", {
+        "finite chi2": bool(np.isfinite(chi2).all()),
+        "minimum at a corner of the grid cell holding the fit":
+            all(b in c for b, c in zip(best, cell)),
+        "three points match a frozen WLSFitter fit to 1e-6":
+            max(gaps.values()) <= TOL_GRID_CHI2,
+    })
+
+
 def run():
     import torch
 
@@ -3306,13 +4014,34 @@ def run():
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        k4_launches, phases, weights, scan_rows = photon_path(torch, tmp)
+        k4_launches, phases, weights, scan_rows, direct = photon_path(
+            torch, tmp)
         log(f"[photon] event file to template fit and CLI took "
             f"{time.perf_counter() - t0:.2f} s")
-    entries.append(harmonics_record(torch, phases, weights, scan_rows,
-                                    k4_launches))
-    log(f"[photon] phases with the kernel record took "
-        f"{time.perf_counter() - t0:.2f} s in all")
+        entries.append(harmonics_record(torch, phases, weights, scan_rows,
+                                        k4_launches))
+        log(f"[photon] phases with the kernel record took "
+            f"{time.perf_counter() - t0:.2f} s in all")
+        t0 = time.perf_counter()
+        sat = photon_satellite(torch, tmp)
+        k4_paths = {"photonphase --orbfile": sat["launches"]}
+        for tag, n in photon_polycos(torch, tmp, direct, sat).items():
+            k4_paths[f"photonphase --polycos {tag}"] = n
+        for tag, n in photon_calc(torch, tmp).items():
+            k4_paths[f"photonphase --weightcol CALC {tag}"] = n
+        entries[-1]["launches_new_paths"] = k4_paths
+        log(f"[photon] satellite, polycos and calc took "
+            f"{time.perf_counter() - t0:.2f} s")
+        profile_fftfit(torch, phases, weights)
+        del phases, weights, scan_rows
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mcmc_phase(torch, tmp, direct, sat)
+        torch.cuda.empty_cache()
+        log(f"[mcmc] took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    grid_phase(torch, counts)
+    log(f"[grid] took {time.perf_counter() - t0:.2f} s")
     log(json.dumps({"kernels": [add_bound_share(e) for e in entries]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
 """Double-double (Dekker) arithmetic on float64 tensors (torch
-counterpart of the JAX package's ``dd.py``: the operations that
-``phase.py`` uses, and Dekker's exact product).
+counterpart of the JAX package's ``dd.py``).
 
 A DD value is an unevaluated sum ``hi + lo`` of two equal-shape float64
 tensors with |lo| <= ulp(hi)/2, ~32 significant digits. two_sum is
@@ -28,11 +27,50 @@ class DD(NamedTuple):
     hi: torch.Tensor
     lo: torch.Tensor
 
+    def __add__(self, other):
+        return add(self, _coerce(other, self.hi))
 
-def _const(x, like) -> DD:
-    """A float constant as a DD on ``like``'s device."""
-    x = torch.as_tensor(x, dtype=DTYPE, device=like.device)
+    def __radd__(self, other):
+        return add(_coerce(other, self.hi), self)
+
+    def __sub__(self, other):
+        return sub(self, _coerce(other, self.hi))
+
+    def __rsub__(self, other):
+        return sub(_coerce(other, self.hi), self)
+
+    def __mul__(self, other):
+        return mul(self, _coerce(other, self.hi))
+
+    def __rmul__(self, other):
+        return mul(_coerce(other, self.hi), self)
+
+    def __truediv__(self, other):
+        return div(self, _coerce(other, self.hi))
+
+    def __rtruediv__(self, other):
+        return div(_coerce(other, self.hi), self)
+
+    def __neg__(self):
+        return DD(-self.hi, -self.lo)
+
+    def to_f64(self):
+        return self.hi + self.lo
+
+
+def _coerce(x, like=None) -> DD:
+    """``x`` as a DD: a DD as it is, a number or tensor as (x, 0) in
+    float64 (on ``like``'s device when given)."""
+    if isinstance(x, DD):
+        return x
+    dev = None if like is None else like.device
+    x = torch.as_tensor(x, dtype=DTYPE, device=dev)
     return DD(x, torch.zeros_like(x))
+
+
+def from_f64(x) -> DD:
+    """Promote a float64 tensor to DD exactly."""
+    return _coerce(x)
 
 
 def from_2sum(a, b) -> DD:
@@ -85,6 +123,38 @@ def sub(x: DD, y: DD) -> DD:
     return add(x, DD(-y.hi, -y.lo))
 
 
+def mul(x: DD, y: DD) -> DD:
+    p = two_prod(x.hi, y.hi)
+    e = p.lo + (x.hi * y.lo + x.lo * y.hi)
+    return quick_two_sum(p.hi, e)
+
+
+def mul_f(x: DD, f) -> DD:
+    """DD * float64."""
+    p = two_prod(x.hi, f)
+    e = p.lo + x.lo * f
+    return quick_two_sum(p.hi, e)
+
+
+def div(x: DD, y: DD) -> DD:
+    q1 = x.hi / y.hi
+    r = sub(x, mul_f(y, q1))
+    q2 = r.hi / y.hi
+    r = sub(r, mul_f(y, q2))
+    q3 = r.hi / y.hi
+    q = quick_two_sum(q1, q2)
+    return add(q, DD(q3, torch.zeros_like(q3)))
+
+
+def neg(x: DD) -> DD:
+    return DD(-x.hi, -x.lo)
+
+
+def abs_(x: DD) -> DD:
+    s = torch.where(x.hi < 0, -1.0, 1.0)
+    return DD(x.hi * s, x.lo * s)
+
+
 def floor(x: DD) -> DD:
     """Elementwise floor of a DD value, exact."""
     fhi = torch.floor(x.hi)
@@ -95,8 +165,54 @@ def floor(x: DD) -> DD:
 
 def round_half(x: DD) -> DD:
     """Round to nearest integer (ties toward +inf), exact."""
-    return floor(add(x, _const(0.5, x.hi)))
+    return floor(add(x, _coerce(0.5, x.hi)))
+
+
+def fmod1(x: DD) -> DD:
+    """Fractional part in [-0.5, 0.5): x - round(x)."""
+    return sub(x, round_half(x))
 
 
 def to_f64(x: DD):
     return x.hi + x.lo
+
+
+def horner(dt: DD, coeffs) -> DD:
+    """sum_i coeffs[i] * dt^i / i! in DD by Horner's rule from the
+    highest term (reference: utils.py::taylor_horner, in double-double
+    so decades of kHz spin phase keep sub-nanosecond precision).
+    ``coeffs``: numbers, tensors or DDs, the constant term first."""
+    facts, fact = [], 1.0
+    for i in range(len(coeffs)):
+        facts.append(fact)
+        fact *= i + 1
+    result = _coerce(0.0, dt.hi)
+    for i in reversed(range(len(coeffs))):
+        term = mul_f(_coerce(coeffs[i], dt.hi), 1.0 / facts[i])
+        result = add(term, mul(dt, result))
+    return result
+
+
+def horner_deriv(dt: DD, coeffs, deriv_order: int = 1) -> DD:
+    """d^k/dt^k of horner(dt, coeffs): sum_{i>=k} c_i t^(i-k)/(i-k)!
+    (reference: utils.py::taylor_horner_deriv)."""
+    if deriv_order >= len(coeffs):
+        return _coerce(torch.zeros_like(dt.hi))
+    return horner(dt, list(coeffs[deriv_order:]))
+
+
+def sum_dd(x: DD, axis=None) -> DD:
+    """Sum a DD tensor along ``axis`` (all elements when None) by a
+    sequential compensated fold over the reduction axis, in index
+    order (the JAX package's ``lax.scan``): exact on IEEE f64, O(n)
+    steps, meant for modest reductions such as chi2 over TOAs."""
+    if axis is None:
+        hi, lo = x.hi.reshape(-1), x.lo.reshape(-1)
+    else:
+        hi = torch.movedim(x.hi, axis, 0)
+        lo = torch.movedim(x.lo, axis, 0)
+    acc = DD(torch.zeros(hi.shape[1:], dtype=hi.dtype, device=hi.device),
+             torch.zeros(hi.shape[1:], dtype=hi.dtype, device=hi.device))
+    for i in range(hi.shape[0]):
+        acc = add(acc, DD(hi[i], lo[i]))
+    return acc

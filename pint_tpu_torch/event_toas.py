@@ -10,9 +10,10 @@ weights.)
 Event times are MET seconds since the mission MJDREF (TT), read from
 the EVENTS binary table. Barycentered files (TIMESYS='TDB') map to the
 '@' barycenter observatory; otherwise the TOAs are tagged with the
-mission's satellite observatory, whose orbit-file posvels are not
-ported: packing such a table raises ``KeyError`` for the unknown
-observatory, as the JAX package does without an orbit file.
+mission's satellite observatory. Register it from the mission's orbit
+file first (``observatory.satellite_obs.get_satellite_observatory``,
+``photonphase --orbfile``); without it, packing such a table raises
+``KeyError`` for the unknown observatory, as in the JAX package.
 
 Per-photon TOAs are microsecond-precision and carry no uncertainty;
 the device phase-folds all of them in one pass of the timing model.

@@ -23,9 +23,9 @@ The AOT helpers (``aot_lower``, ``aot_backend_compile``,
 program and capture it into CUDA graphs (``graphs.py``); a capture has
 no serialized form.
 
-Not ported: ``Fitter.plot`` (``plot_utils.py``, ROADMAP §1 item 3,
+Not ported: ``Fitter.plot`` (``plot_utils.py``, ROADMAP §1 item 1,
 applications) and the fit-quality probes (``obs/fitquality.py``, §1
-item 5, serving and observability).
+item 3, serving and observability).
 """
 
 from __future__ import annotations
@@ -514,7 +514,7 @@ def _reject_fit_quality(fit_quality):
     if fit_quality:
         raise NotImplementedError(
             "fit-quality probes need obs/fitquality.py, which is not "
-            "ported to pint_tpu_torch yet (ROADMAP §1 item 5, serving "
+            "ported to pint_tpu_torch yet (ROADMAP §1 item 3, serving "
             "and observability)")
 
 
@@ -711,10 +711,10 @@ class Fitter:
 
     def plot(self, plotfile=None, title=None):
         """(reference: fitter.py::Fitter.plot) Not ported: it needs
-        plot_utils.py (ROADMAP §1 item 3, applications)."""
+        plot_utils.py (ROADMAP §1 item 1, applications)."""
         raise NotImplementedError(
             "Fitter.plot needs plot_utils.py, which is not ported to "
-            "pint_tpu_torch yet (ROADMAP §1 item 3, applications)")
+            "pint_tpu_torch yet (ROADMAP §1 item 1, applications)")
 
     def get_summary(self) -> str:
         """(reference: fitter.py::Fitter.get_summary)"""

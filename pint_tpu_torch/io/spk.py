@@ -10,8 +10,10 @@ into that directory or into ``$PINT_TPU_EPHEM_DIR`` is read the same way
 (``ephemeris/__init__.py``).
 
 Each coefficient sum is a left fold over the Chebyshev order in IEEE
-f64 (no FMA), as the JAX package's evaluation computes it, so both
-packages give bitwise-equal positions and velocities.
+f64 (no FMA). The C++ library's ``pt_cheby_posvel``
+(``native.cheby_posvel``) folds in the same order and serves the
+evaluation when it is loaded, as in the JAX package; both paths give
+bitwise-equal positions and velocities.
 """
 
 from __future__ import annotations
@@ -132,6 +134,12 @@ class SPKKernel:
                                       seg.n_records, rsize)
             self._rec_cache[key] = all_rec
         rec = all_rec[idx]  # (n, rsize)
+        from ..native import cheby_posvel
+
+        # the C++ mirror folds in the same order: bitwise this numpy path
+        nat = cheby_posvel(et, rec, ncoef, seg.data_type)
+        if nat is not None:
+            return nat
         radius = rec[:, 1]
         s = (et - rec[:, 0]) / radius  # in [-1, 1]
         # Chebyshev polynomials T_k(s) and their derivatives

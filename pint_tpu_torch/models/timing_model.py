@@ -561,6 +561,13 @@ class PreparedTiming:
         return _delay_impl(self.model, self.params0 if params is None
                            else params, self.batch, self.prep)
 
+    def _phase_continuous(self, params):
+        """Differentiable phase minus the (constant) host reference
+        integers: the phase of ``params`` before it is split into
+        integer and fraction (the JAX package's ``_phase_continuous``;
+        the template likelihood of ``mcmc_fitter.py`` folds it)."""
+        return _phase_impl(self.model, params, self.batch, self.prep)
+
     def phase_frac_and_int(self, params=None):
         frac = _phase_impl(self.model, self.params0 if params is None
                            else params, self.batch, self.prep)

@@ -2,9 +2,8 @@
 
 Counterpart of the JAX package's ``native/__init__.py``. The library is
 the port's own copy of the C++ host kernels, ``csrc/host_kernels.cpp``
-(the Earth-rotation chain, the TDB-TT series and the FORMAT-1 tim
-parser; its SPK Chebyshev mirror is not bound, because ``io/spk.py``'s
-numpy left fold is bitwise the JAX package's). It is built at first use with the host
+(the Earth-rotation chain, the TDB-TT series, the SPK Chebyshev
+evaluation and the FORMAT-1 tim parser). It is built at first use with the host
 compiler that nvcc needs anyway (``g++ -O3 -fPIC -shared -std=c++17``)
 into ``csrc/build/``, under a name keyed by the hash of the source and
 the flags, and loaded with ctypes. This is a host mirror, not a device
@@ -73,6 +72,10 @@ def _setup(lib: ctypes.CDLL) -> None:
         ctypes.c_int64, _i64p, _f64p, _i64p,
         _f64p, _f64p, _f64p, _f64p, _f64p, _f64p]
     lib.pt_itrf_to_gcrs.restype = None
+    lib.pt_cheby_posvel.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        _f64p, _f64p, _f64p, _f64p]
+    lib.pt_cheby_posvel.restype = None
     _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     lib.pt_parse_tim_t2.argtypes = [
@@ -164,6 +167,23 @@ def itrf_to_gcrs(tt_day, tt_sec, ut1_day, ut1_sec, xp, yp, itrf_xyz):
     pos = np.empty((n, 3), np.float64)
     vel = np.empty((n, 3), np.float64)
     lib.pt_itrf_to_gcrs(n, ttd, tts, u1d, u1s, xpa, ypa, itrf, pos, vel)
+    return pos, vel
+
+
+def cheby_posvel(et, rec, ncoef, data_type):
+    """SPK type 2/3 Chebyshev position [km] and velocity [km/s] at ET
+    seconds over the gathered records ``rec`` (n, rsize), as
+    ``io/spk.py::SPKKernel.posvel`` folds them; None when the library is
+    not loaded or ``ncoef`` exceeds its stack buffer of 32."""
+    lib = get_lib()
+    if lib is None or ncoef > 32:
+        return None
+    et = np.ascontiguousarray(et, np.float64)
+    rec = np.ascontiguousarray(rec, np.float64)
+    n, rsize = rec.shape
+    pos = np.empty((n, 3), np.float64)
+    vel = np.empty((n, 3), np.float64)
+    lib.pt_cheby_posvel(n, ncoef, data_type, rsize, et, rec, pos, vel)
     return pos, vel
 
 

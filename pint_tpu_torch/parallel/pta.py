@@ -39,8 +39,8 @@ executables. On the card a program is captured into CUDA graphs
 (``graphs.py``: the eighs and SVDs run eagerly between them); a fit is
 split into a dispatch that queues the device work and a finalize that
 pulls once, so a fleet can dispatch every bucket before it pulls any.
-The pack store (``store=``, ROADMAP §1 item 5), the device mesh
-(``mesh=``, item 4) and the observability spans (item 5) are not
+The pack store (``store=``, ROADMAP §1 item 3), the device mesh
+(``mesh=``, item 2) and the observability spans (item 3) are not
 ported yet.
 """
 

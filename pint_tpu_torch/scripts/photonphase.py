@@ -1,18 +1,23 @@
 """Compute pulse phases for photon events; report the H-test.
 
-(reference: src/pint/scripts/photonphase.py — event FITS + par ->
-per-photon phases, H-test significance, optional phase column written
-back; the JAX package's ``scripts/photonphase.py``.)
+(reference: src/pint/scripts/photonphase.py — event FITS + par
+[+ orbit file] -> per-photon phases, H-test significance, optional
+phase column written back and polyco mode; the JAX package's
+``scripts/photonphase.py``.)
 
     python -m pint_tpu_torch.scripts.photonphase <events> <par> \\
+        [--orbfile orbit.fits] [--polycos] [--weightcol COL|CALC] \\
         [--device cuda] [--outfile out.fits] [--absphase]
 
-The timing model's phase of every photon and the H-test run on
-``--device`` (default ``cuda``; the H-test's harmonic sums go through
-the hand-written kernel there). Not ported, each raising
-``NotImplementedError``: ``--orbfile`` (satellite observatories, ROADMAP
-item 7), ``--polycos`` (item 16) and ``--weightcol CALC`` with an
-ecliptic par file (``modelutils``, item 16).
+``--orbfile`` registers the mission's satellite observatory, so
+spacecraft-frame (TT) events are barycentred through the orbit;
+``--polycos`` evaluates the phases from polycos generated over the
+photons' span instead of the full model; ``--weightcol CALC`` computes
+Fermi-LAT weights about the par file's position, converting an
+ecliptic par file to equatorial first. The model phase (and the
+polycos' node phases) and the H-test run on ``--device`` (default
+``cuda``; the H-test's harmonic sums go through the hand-written
+kernel there).
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ def main(argv=None) -> int:
     p.add_argument("--mission", default=None,
                    help="nicer/nustar/rxte/xmm/swift/fermi (default: "
                    "TELESCOP header keyword)")
-    p.add_argument("--orbfile", help="spacecraft orbit FITS (not ported: "
-                   "only barycentred events are)")
+    p.add_argument("--orbfile", help="spacecraft orbit FITS (needed unless "
+                   "the events are barycentered)")
     p.add_argument("--weightcol", help="photon-weight column (Fermi)")
     p.add_argument("--minMJD", type=float, default=float("-inf"))
     p.add_argument("--maxMJD", type=float, default=float("inf"))
@@ -39,7 +44,9 @@ def main(argv=None) -> int:
     p.add_argument("--absphase", action="store_true",
                    help="include absolute pulse numbers (needs TZR*)")
     p.add_argument("--polycos", action="store_true",
-                   help="evaluate phases via generated polycos (not ported)")
+                   help="evaluate phases via generated polycos instead "
+                        "of the full pipeline (reference: photonphase "
+                        "--polycos fast path)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the phase and H-test (default cuda)")
     args = p.parse_args(argv)
@@ -53,14 +60,6 @@ def main(argv=None) -> int:
     from ..io.fits import get_table
     from ..models import get_model
 
-    if args.orbfile:
-        raise NotImplementedError(
-            "--orbfile: satellite observatories (observatory/satellite_obs."
-            "py) are host ingest, ROADMAP item 7, not ported")
-    if args.polycos:
-        raise NotImplementedError(
-            "--polycos: polycos (polycos.py) are ROADMAP item 16, not "
-            "ported")
     device = resolve_device(args.device)
     model = get_model(args.parfile)
     mission = args.mission
@@ -70,6 +69,10 @@ def main(argv=None) -> int:
     mission = mission.lower()
     if mission == "glast":  # Fermi FT1 files carry the old name
         mission = "fermi"
+    if args.orbfile:
+        from ..observatory.satellite_obs import get_satellite_observatory
+
+        get_satellite_observatory(mission, args.orbfile)
     if args.weightcol == "CALC" and mission != "fermi":
         print("--weightcol CALC is only supported for Fermi FT1 files "
               f"(mission here: {mission}); pass a real weight column",
@@ -77,15 +80,18 @@ def main(argv=None) -> int:
         return 1
     if args.weightcol == "CALC":
         # heuristic PSF weights from the par-file position
-        # (reference: photonphase --weightcol CALC behavior)
+        # (reference: photonphase --weightcol CALC behavior); an
+        # ecliptic par file is converted so ELONG/ELAT pulsars work too
         from ..event_toas import load_Fermi_TOAs
 
         if not hasattr(model, "RAJ"):
-            raise NotImplementedError(
-                "--weightcol CALC with an ecliptic par file needs "
-                "modelutils.model_ecliptic_to_equatorial, ROADMAP item "
-                "16, not ported")
-        target = (np.degrees(model.RAJ.value), np.degrees(model.DECJ.value))
+            from ..modelutils import model_ecliptic_to_equatorial
+
+            model_eq = model_ecliptic_to_equatorial(model)
+        else:
+            model_eq = model
+        target = (np.degrees(model_eq.RAJ.value),
+                  np.degrees(model_eq.DECJ.value))
         toas = load_Fermi_TOAs(args.eventfile, weightcolumn="CALC",
                                targetcoord=target,
                                minmjd=args.minMJD, maxmjd=args.maxMJD)
@@ -97,7 +103,25 @@ def main(argv=None) -> int:
     if len(toas) == 0:
         print("no photons in the MJD window", file=sys.stderr)
         return 1
-    ph_obj = model.phase(toas, device=device)
+    if args.polycos:
+        from types import SimpleNamespace
+
+        from ..polycos import Polycos
+
+        mjds = toas.get_mjds()
+        pcs = Polycos.generate_polycos(
+            model, float(mjds.min()) - 0.02, float(mjds.max()) + 0.02,
+            obs=str(toas.obs[0]), obsFreq=float(np.median(toas.freq_mhz)),
+            device=device)
+        pi_, pf = pcs.eval_abs_phase(mjds)
+        print(f"Generated {len(pcs.entries)} polyco segments")
+        # pf is in [0, 1): int_ + frac is the absolute phase, and the
+        # writer's negative-frac borrow does nothing
+        ph_obj = SimpleNamespace(
+            int_=torch.as_tensor(pi_.astype(np.float64), device=device),
+            frac=torch.as_tensor(pf, device=device))
+    else:
+        ph_obj = model.phase(toas, device=device)
     phases = torch.remainder(ph_obj.frac, 1.0)
     w = get_event_weights(toas)
     h = float(hmw(phases, w, device=device) if w is not None

@@ -11,7 +11,7 @@ The fit runs on ``--device`` (default ``cuda``). ``--fitter auto``
 picks WidebandDownhillFitter for wideband TOAs (-pp_dm flags),
 DownhillGLSFitter with correlated noise and DownhillWLSFitter without.
 ``--plot`` raises ``NotImplementedError``, as ``Fitter.plot`` does:
-``plot_utils.py`` is not ported (ROADMAP §1 item 8).
+``plot_utils.py`` is not ported (ROADMAP §1 item 1).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def main(argv=None) -> int:
     if args.plot:
         raise NotImplementedError(
             "--plot needs plot_utils.py, which is not ported to "
-            "pint_tpu_torch yet (ROADMAP §1 item 8)")
+            "pint_tpu_torch yet (ROADMAP §1 item 1)")
     device = resolve_device(args.device)
     model = get_model(args.parfile)
     toas = get_TOAs(args.timfile, model=model)

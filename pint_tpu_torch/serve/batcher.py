@@ -3,7 +3,7 @@
 Only ``pow2_bucket`` is ported, as a plain function: ``PTAFleet``'s
 ``toa_bucket="pow2"`` keys its buckets on it (through
 ``parallel/shapeplan.py::pow2_width``). The micro-batcher itself is not
-ported (ROADMAP §1 item 7).
+ported (ROADMAP §1 item 3).
 """
 
 from __future__ import annotations

@@ -425,6 +425,16 @@ class TOAs:
     def get_mjds(self) -> np.ndarray:
         return Epochs(self.day, self.sec, "utc").mjd_float()
 
+    def first_mjd(self) -> float:
+        return float(self.get_mjds().min())
+
+    def last_mjd(self) -> float:
+        return float(self.get_mjds().max())
+
+    def print_summary(self):
+        """(reference: toa.py::TOAs.print_summary)"""
+        print(self.get_summary())
+
     def get_summary(self) -> str:
         """(reference: toa.py::TOAs.get_summary)"""
         lines = [f"Number of TOAs: {len(self)}"]

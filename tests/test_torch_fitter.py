@@ -423,11 +423,11 @@ def test_fitter_guards(ngc, noise_batch):
                      device="cpu").fit_toas()
     f = tf.GLSFitter(t, m, device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="item 5, serving and observability"):
+                       match="item 3, serving and observability"):
         f.fit_toas(fit_quality=True)
     with pytest.raises(ValueError, match="precision"):
         f.fit_toas(precision="f32")
-    with pytest.raises(NotImplementedError, match="item 3, applications"):
+    with pytest.raises(NotImplementedError, match="item 1, applications"):
         f.plot()
     with pytest.raises(ValueError, match="fit_toas"):
         f.get_noise_resids()

@@ -653,7 +653,7 @@ def test_refusals_keep_the_jax_messages(pack):
     for cls in ("WidebandTOAFitter", "WidebandDownhillFitter",
                 "WidebandLMFitter"):
         with pytest.raises(NotImplementedError,
-                           match="item 5, serving and observability"):
+                           match="item 3, serving and observability"):
             getattr(tf, cls)(t, m, device="cpu").fit_toas(fit_quality=True)
 
 
