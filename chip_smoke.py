@@ -12,7 +12,8 @@ timing array (~670k TOAs, NANOGrav-15yr-like ragged counts) through
 precision="mixed")`` — then the GW detection stage on the fitted fleet,
 the streaming append lanes, the photon path with its satellite, polyco
 and CALC variants, fftfit, the photon MCMC and a chi2 grid, and checks
-each, in these phases:
+each, in these phases (with, after the main path, the fit-quality probes
+on it, an interactive pintk session and binary conversions):
 
 1. build the hand-written CUDA kernels from ``pint_tpu_torch/csrc``
    (``gram.cu``, ``paircorr.cu`` and ``harmonics.cu``, one nvcc each)
@@ -42,6 +43,29 @@ each, in these phases:
    kernels launched, no refinement failure (max relres <= 1e-8, no f64
    refit taken), |x_mixed - x_f64| <= 1e-6 sigma, |x_fit - x_true| <=
    0.01 sigma for all 68 pulsars, finite chi2;
+4a. ``[fitq] main``: the fit-quality probes (``obs.fitquality``) on the
+   same fleet and program: three warm fits with the probes off, three
+   probed (K1/K2 counted), then ``precompile`` and pipelined replays off
+   and on, then a GLSFitter mixed fit of the median-count pulsar off and
+   on. Checks: every probed fit bitwise the unprobed one (x, chi2,
+   covariances), 68 x 3 fits of 68 pulsars recorded, finite worst
+   |chi2 z| and condition, no fallback, K1 and K2 launched under the
+   probes, the min probe wall under 1% of the min warm refit (eager and
+   replayed), one ``fit_quality`` entry per bucket from both executors,
+   the residual moments annotated on the single pulsar (:func:`fitq_phase`);
+4b. ``[pintk]``: an ``InteractivePulsar`` on the card over the
+   median-count pulsar from the 3-sigma start: fit vs a direct
+   ``auto_fitter`` fit bitwise, undo/reset, 100 random models against
+   the fit covariance, a JUMP on the 800 MHz TOAs of one MJD third,
+   delete/restore, whitened residuals, par/tim written and read back,
+   a phase wrap; each operation's wall and the peak device memory
+   (:func:`pintk_phase`);
+4c. ``[apps] binaryconvert``: ``convert_binary`` on the zoo fleet's
+   largest ELL1, ELL1H and DD pulsars (ELL1 <-> DD, ELL1H -> ELL1/DD,
+   DD -> DDS/DDH and back, DD -> BT), residuals of each pair on the card
+   within the bound of the two parameterizations, round trips within
+   1e-10, and a WLS refit of the DDS conversion within 1e-6 sigma of the
+   DD one (:func:`apps_binaryconvert`);
 5. the kernel phase: each GLS kernel on the inputs the main path gave
    it (recorded in one more mixed fit; the ``[zoo] fleet``'s shapes
    under the record's ``zoo`` key), held against its plain f32
@@ -3831,6 +3855,447 @@ def grid_phase(torch, counts, device="cuda"):
     })
 
 
+TOL_PROBE_SHARE = 0.01  # probe wall / warm refit wall (fitquality contract)
+TOL_PINTK_JUMP_SIGMA = 3.0  # |JUMP - 0| / sigma of a session's JUMP fit
+TOL_SPREAD = 0.25  # random models' spread vs sqrt(diag(M C M^T)), relative
+TOL_WRAP_S = 1e-9  # a phase wrap's residual step vs 1/F0
+# a session's par/tim written and read back: its TOAs came from a tim
+# file, so the 16-decimal MJDs are written again as they were read
+TOL_PINTK_READBACK_S = 1e-12
+TOL_CONVERT_PAR = 1e-10  # round-trip binary parameters, relative
+TOL_CONVERT_S = 1e-12  # residual gap of one delay in two parameterizations
+TOL_CONVERT_SIGMA = 1e-6  # WLS refit, converted vs original, sigma
+
+
+def bitwise_fit(a, b):
+    """Two fleet fits' (xs, chi2, covs) bitwise equal."""
+    return (all(np.array_equal(x, y) for x, y in zip(a[0], b[0]))
+            and np.array_equal(a[1], b[1])
+            and all(np.array_equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+def fitq_phase(torch, fleet, toas, names, x_start, device="cuda"):
+    """``[fitq] main``: the fit-quality probes (``obs.fitquality``) on the
+    main path's plan fleet, packed mixed program, ``maxiter=2``, from its
+    3-sigma start: three warm fits with the probes off (min wall), then
+    three probed fits (K1/K2 counts set to 0 just before and read just
+    after); then ``precompile`` and the pipelined replay, unprobed twice
+    and probed twice; then a GLSFitter mixed fit of the median-count
+    pulsar probed and not. Checks: probed fits bitwise the unprobed one
+    (x, chi2, covariances) sequential and pipelined, 68 x 3 fits of 68
+    pulsars recorded, finite worst |chi2 z| and condition, no fallback,
+    K1 and K2 launched under the probes, the min probe wall under 1% of
+    the min warm refit (eager and replayed), one ``fit_quality`` entry
+    per bucket with the same keys from both executors, and the single
+    pulsar bitwise with its residual moments annotated. Frees the
+    captured programs and leaves the probes off."""
+    from pint_tpu_torch.fitter import GLSFitter
+    from pint_tpu_torch.kernels import block_grams_cuda, fused_block_gls_cuda
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.obs import fitquality
+
+    kw = dict(method="gls", maxiter=2, precision="mixed")
+
+    def fit(pipeline=False):
+        sync()
+        t0 = time.perf_counter()
+        probe0 = fitquality.FITQ.snapshot()["probe_wall_s"]
+        out = fleet.fit(pipeline=pipeline, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        probe = fitquality.FITQ.snapshot()["probe_wall_s"] - probe0
+        return ([np.asarray(x) for x in out[0]], np.asarray(out[1]),
+                [np.asarray(c) for c in out[2]]), wall, probe
+
+    fitquality.disable()
+    fitquality.reset()
+    runs = [fit() for _ in range(3)]
+    off = min(w for _, w, _ in runs)
+    ref = runs[-1][0]
+    fitquality.enable()
+    fused_block_gls_cuda.launches = block_grams_cuda.launches = 0
+    probed = [fit() for _ in range(3)]
+    launches = {"K1": fused_block_gls_cuda.launches,
+                "K2": block_grams_cuda.launches}
+    snap = fitquality.FITQ.snapshot()
+    seq_quality = dict(fleet.fit_quality)
+    probe = min(p for _, _, p in probed)
+    log(f"[fitq] main: unprobed warm fits {[round(w, 4) for _, w, _ in runs]}"
+        f" s, probed {[round(w, 4) for _, w, _ in probed]} s; probe walls "
+        f"{[f'{p * 1e3:.3f}' for _, _, p in probed]} ms, min "
+        f"{probe * 1e3:.3f} ms = {100 * probe / off:.3f}% of the min warm "
+        f"refit {off:.4f} s; K1/K2 launches under the probes {launches}")
+    log(f"[fitq] main snapshot: counters {snap['counters']}, n_pulsars "
+        f"{snap['n_pulsars']}, max |chi2 z| {snap['max_abs_chi2_z']}, max "
+        f"condition {snap['max_condition']}, max relres "
+        f"{snap['max_relres']}, probe wall {snap['probe_wall_s']:.6f} s")
+    for key, q in seq_quality.items():
+        log(f"[fitq]   width {key[1][1]}: {q}")
+
+    sync()
+    t0 = time.perf_counter()
+    fleet.precompile(**kw)
+    sync()
+    compile_s = time.perf_counter() - t0
+    fitquality.disable()
+    replays = [fit(True) for _ in range(2)]
+    fitquality.enable()
+    fits0 = fitquality.FITQ.snapshot()["counters"]["fits"]
+    piped = [fit(True) for _ in range(2)]
+    pipe_fits = fitquality.FITQ.snapshot()["counters"]["fits"] - fits0
+    replay_off = min(w for _, w, _ in replays)
+    pipe_probe = min(p for _, _, p in piped)
+    log(f"[fitq] pipelined: precompile {compile_s:.2f} s; replays unprobed "
+        f"{[round(w, 4) for _, w, _ in replays]} s, probed "
+        f"{[round(w, 4) for _, w, _ in piped]} s; min probe wall "
+        f"{pipe_probe * 1e3:.3f} ms = {100 * pipe_probe / replay_off:.3f}% "
+        f"of the min replay {replay_off:.4f} s")
+    pipe_quality = dict(fleet.fit_quality)
+    for b in fleet.batches.values():
+        b._fns.clear()
+    torch.cuda.empty_cache()
+
+    order = np.argsort([len(t) for t in toas], kind="stable")
+    i_med = int(order[len(order) // 2])
+
+    def single(probed):
+        (fitquality.enable if probed else fitquality.disable)()
+        m = get_model(par_text(i_med))
+        for n, v in zip(names, x_start[i_med]):
+            getattr(m, n).value = float(v)
+        sync()
+        t0 = time.perf_counter()
+        f = GLSFitter(toas[i_med], m, device=device)
+        chi2 = f.fit_toas(maxiter=2, precision="mixed")
+        sync()
+        return f, chi2, time.perf_counter() - t0
+
+    f0, c0, w0 = single(False)
+    f1, c1, w1 = single(True)
+    rec = fitquality.FITQ.get(f"BEN{i_med}")
+    same_single = (c0 == c1 and np.array_equal(
+        f0.parameter_covariance_matrix, f1.parameter_covariance_matrix)
+        and all(getattr(f0.model, n).value == getattr(f1.model, n).value
+                for n in names))
+    log(f"[fitq] GLSFitter mixed BEN{i_med}: unprobed {w0:.3f} s, probed "
+        f"{w1:.3f} s, bitwise {same_single}; record {rec}")
+    fitquality.disable()
+    fitquality.reset()
+    check("[fitq] main", {
+        "probed fits bitwise the unprobed one": all(
+            bitwise_fit(p, ref) for p, _, _ in probed),
+        "pipelined probed replays bitwise the sequential probed fit": all(
+            bitwise_fit(p, probed[-1][0]) for p, _, _ in piped + replays),
+        "68 x 3 fits of 68 pulsars recorded":
+            snap["counters"]["fits"] == 68 * 3 and snap["n_pulsars"] == 68,
+        "68 fits per pipelined replay": pipe_fits == 68 * len(piped),
+        "finite max |chi2 z| and condition": all(
+            snap[k] is not None and np.isfinite(snap[k])
+            for k in ("max_abs_chi2_z", "max_condition")),
+        "no fallback": snap["counters"]["fallbacks"] == 0,
+        "K1 and K2 launched under the probes": min(launches.values()) > 0,
+        "probe wall < 1% of the warm refit": probe < TOL_PROBE_SHARE * off,
+        "probe wall < 1% of the warm replay":
+            pipe_probe < TOL_PROBE_SHARE * replay_off,
+        "one fit_quality entry per bucket":
+            set(seq_quality) == set(fleet.batches),
+        "the pipelined executor's fit_quality keys":
+            set(pipe_quality) == set(seq_quality),
+        "single-pulsar probed fit bitwise": same_single,
+        "residual moments annotated": rec is not None
+            and rec.get("residual_moments", {}).get("n") == len(toas[i_med]),
+    })
+
+
+def pintk_phase(torch, toas, names, x_true, x_start, device="cuda"):
+    """``[pintk]``: an ``InteractivePulsar`` on the card over the
+    median-count pulsar of the main path (``par_text``: EFAC/EQUAD/ECORR
+    and 30-harmonic red noise) from phase 3's 3-sigma start;
+    ``auto_fitter`` gives DownhillGLSFitter. Checks: the session's fit
+    bitwise a direct ``auto_fitter(...).fit_toas()``; undo and reset give
+    back the prefit par text; random_models(100, seed 0) is (100, n),
+    finite, and its per-TOA spread averaged over TOAs within 25% of the
+    averaged sqrt(diag(M C M^T)) at the fitted point (M the Jacobian of
+    the mean-subtracted residuals); a JUMP on the 800 MHz TOAs of the
+    first MJD third fits within 3 sigma of 0 (the truth) and remove_jump
+    restores the free parameters; delete / fit / undo / restore gives
+    back the TOAs and, bitwise, the residuals; whitened residuals are
+    finite; the written par and tim files read back to residuals within
+    1e-12 s; add_phase_wrap(1) moves the selected tracked residuals by
+    1/F0 within 1e-9 s."""
+    from pint_tpu_torch.fitter import auto_fitter
+    from pint_tpu_torch.models import get_model_and_toas, get_model
+    from pint_tpu_torch.pintk import InteractivePulsar
+    from pint_tpu_torch.residuals import Residuals
+
+    order = np.argsort([len(t) for t in toas], kind="stable")
+    i = int(order[len(order) // 2])
+    m = get_model(par_text(i))
+    for n, v in zip(names, x_start[i]):
+        getattr(m, n).value = float(v)
+    t = copy.deepcopy(toas[i])
+    n_toa = len(t)
+    walls, calls = {}, {}
+
+    def timed(label, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+        calls[label] = calls.get(label, 0) + 1
+        return out
+
+    def fitted(f):
+        return ([getattr(f.model, n).value for n in names],
+                [getattr(f.model, n).uncertainty for n in names],
+                f.chi2_whitened)
+
+    torch.cuda.reset_peak_memory_stats()
+    s = timed("session", lambda: InteractivePulsar(m, t, device=device))
+    pre_par = s.model.as_parfile()
+    r_pre = timed("resids_us", s.resids_us)
+    f = timed("fit", s.fit)
+    direct = timed("direct auto_fitter fit", lambda: auto_fitter(
+        t, copy.deepcopy(m), device=device))
+    timed("direct auto_fitter fit", direct.fit_toas)
+    same_fit = fitted(f) == fitted(direct)
+    x_fit = np.array(fitted(f)[0])
+    sig = np.array(fitted(f)[1])
+    timed("undo", s.undo)
+    undo_ok = s.model.as_parfile() == pre_par
+    timed("fit", s.fit)
+    timed("fit", s.fit)
+    timed("reset", s.reset)
+    reset_ok = s.model.as_parfile() == pre_par and not s.fitted
+
+    f = timed("fit", s.fit)
+    spread = timed("random_models(100)",
+                   lambda: s.random_models(n_models=100, seed=0))
+    prepared = f.model.prepare(t, device=device)
+    M, _ = prepared.designmatrix(incoffset=False)
+    M = (M / prepared.params0["F"][0]).cpu().numpy()  # s per unit
+    w = 1.0 / np.square(prepared.scaled_sigma_us().cpu().numpy())
+    M = M - (w @ M) / np.sum(w)  # the weighted-mean subtraction's Jacobian
+    C = f.parameter_covariance_matrix
+    predicted = np.sqrt(np.einsum("ij,jk,ik->i", M, C, M))
+    drawn = spread.std(axis=0)
+    ratio = float(np.mean(drawn) / np.mean(predicted))
+
+    mjd = t.get_mjds()
+    lo, hi = mjd.min(), mjd.min() + (mjd.max() - mjd.min()) / 3
+    free0 = list(s.model.free_params)
+    s.select((t.freq_mhz < 1000.0) & (mjd >= lo) & (mjd <= hi))
+    n_jumped = int(s.selected.sum())
+    jump = timed("add_jump_to_selection", s.add_jump_to_selection)
+    fj = timed("fit", s.fit)
+    jump_val = getattr(fj.model, jump).value
+    jump_sig = getattr(fj.model, jump).uncertainty
+    timed("remove_jump", lambda: s.remove_jump(jump))
+    jump_ok = s.model.free_params == free0
+    s.reset()
+    s.clear_selection()
+
+    r_all = s.resids_us()
+    s.select(mjd > mjd.min() + 0.9 * (mjd.max() - mjd.min()))
+    n_del = int(s.selected.sum())
+    timed("delete_selected", s.delete_selected)
+    n_kept = len(s.toas)
+    timed("fit", s.fit)
+    s.undo()
+    timed("restore_all_toas", s.restore_all_toas)
+    restored = len(s.toas) == n_toa and np.array_equal(s.resids_us(), r_all)
+
+    timed("fit", s.fit)
+    white = timed("whitened_resids", s.whitened_resids)
+    with tempfile.TemporaryDirectory() as tmp:
+        par, tim = os.path.join(tmp, "s.par"), os.path.join(tmp, "s.tim")
+        timed("write_par/write_tim", lambda: (s.write_par(par),
+                                              s.write_tim(tim)))
+        m2, t2 = timed("read back", lambda: get_model_and_toas(par, tim))
+    r2 = Residuals(t2, m2, device=device).calc_time_resids().cpu().numpy()
+    readback = float(np.max(np.abs(r2 - s.resids_us() * 1e-6)))
+
+    def tracked():
+        return Residuals(s.toas, s.model, track_mode="use_pulse_numbers",
+                         subtract_mean=False,
+                         device=device).calc_time_resids().cpu().numpy()
+
+    s.select((mjd > lo) & (mjd <= hi))
+    sel = s.selected.copy()
+    timed("compute_pulse_numbers", s.compute_pulse_numbers)
+    before = tracked()
+    timed("add_phase_wrap", lambda: s.add_phase_wrap(1))
+    step = tracked() - before
+    inv_f0 = 1.0 / s.model.F0.value
+    wrap_gap = max(float(np.max(np.abs(np.abs(step[sel]) - inv_f0))),
+                   float(np.max(np.abs(step[~sel]))))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[pintk] BEN{i} (median count): {n_toa} TOAs, {type(f).__name__} "
+        f"from {START_OFFSET_SIGMA} sigma off; session fit bitwise a direct "
+        f"auto_fitter fit: {same_fit}; max |x_fit - x_true|/sigma "
+        f"{np.max(np.abs(x_fit - x_true[i]) / sig):.3e}; undo/reset restore "
+        f"the prefit par: {undo_ok}/{reset_ok}")
+    log(f"[pintk] random_models: {spread.shape}, mean per-TOA spread "
+        f"{np.mean(drawn) * 1e6:.6f} us vs sqrt(diag(M C M^T)) "
+        f"{np.mean(predicted) * 1e6:.6f} us (ratio {ratio:.4f}); JUMP on "
+        f"{n_jumped} Rcvr_800 TOAs of the first third {jump_val:.3e} +- "
+        f"{jump_sig:.3e} s; delete {n_del} -> {n_kept} TOAs -> restore, "
+        f"residuals bitwise {restored}; read-back max |dr| {readback:.3e} s;"
+        f" phase wrap step vs 1/F0 max gap {wrap_gap:.3e} s")
+    log("[pintk] walls: " + ", ".join(
+        f"{k} {v:.3f} s" + (f" ({calls[k]}x)" if calls[k] > 1 else "")
+        for k, v in walls.items())
+        + f"; {calls['fit']} session fits; peak device memory {peak:.3f} GiB")
+    check("[pintk]", {
+        "DownhillGLSFitter chosen": type(f).__name__ == "DownhillGLSFitter",
+        "session fit bitwise a direct auto_fitter fit": same_fit,
+        "undo restores the prefit par text": undo_ok,
+        "reset restores the prefit par text": reset_ok,
+        "random_models (100, n), finite": spread.shape == (100, n_toa)
+            and bool(np.all(np.isfinite(spread))),
+        "random-model spread within 25% of sqrt(diag(M C M^T))":
+            abs(ratio - 1.0) <= TOL_SPREAD,
+        "JUMP within 3 sigma of 0": n_jumped > 0
+            and abs(jump_val) <= TOL_PINTK_JUMP_SIGMA * jump_sig,
+        "remove_jump restores the free parameters": jump_ok,
+        "delete/restore gives back the TOAs and the residuals": restored
+            and n_kept == n_toa - n_del > 0,
+        "finite whitened residuals": white.shape == (n_toa,)
+            and bool(np.all(np.isfinite(white))),
+        "written par/tim read back within 1e-12 s":
+            len(t2) == n_toa and readback <= TOL_PINTK_READBACK_S,
+        "a phase wrap moves the selected residuals by 1/F0":
+            sel.any() and wrap_gap <= TOL_WRAP_S,
+    })
+
+
+APPS_CONVERSIONS = (  # (structure, chain, how the two delays relate)
+    ("ELL1", ("DD",), "ell1"), ("ELL1", ("DD", "ELL1"), "same"),
+    ("ELL1H", ("ELL1",), "same"), ("ELL1H", ("DD",), "ell1"),
+    ("DD", ("DDS",), "same"), ("DD", ("DDS", "DD"), "same"),
+    ("DD", ("DDH",), "same"), ("DD", ("DDH", "DD"), "same"),
+    ("DD", ("BT",), "bt"))
+TSUN_S = 4.925490947e-6  # GM_sun / c^3
+
+
+def conversion_bound(model, kind):
+    """The residual gap a conversion may leave, s (see
+    :func:`apps_binaryconvert`), and how it was formed."""
+    x = model.A1.value
+    n = 2.0 * np.pi / (model.PB.value * 86400.0)
+    if kind == "same":
+        return TOL_CONVERT_S, "one delay"
+    if kind == "ell1":
+        e = float(np.hypot(model.EPS1.value, model.EPS2.value)
+                  if "EPS1" in model.params else model.ECC.value)
+        return (x * e * (e + 2.0 * x * n) + TOL_CONVERT_S,
+                f"x e (e + 2 x n) + 1e-12 s, x {x:.6f} lt-s, e {e:.4e}, "
+                f"x n {x * n:.4e}")
+    r, s = TSUN_S * model.M2.value, model.SINI.value
+    shapiro = 2.0 * r * np.log((1.0 + s) / (1.0 - s))
+    return (shapiro + x * (x * n) ** 2,
+            f"Shapiro range {shapiro:.4e} s + x (x n)^2 "
+            f"{x * (x * n) ** 2:.4e} s")
+
+
+def apps_binaryconvert(torch, counts, device="cuda"):
+    """``[apps] binaryconvert``: ``convert_binary`` on the zoo fleet's
+    pulsar with the most TOAs of each orbit (ELL1, ELL1H, DD; their
+    fleet TOAs made on the card), each conversion of
+    ``APPS_CONVERSIONS``, the residuals of the original and of the
+    converted model on the card. Checks: round-trip parameters within
+    1e-10 relative; residual gaps within 1e-12 s where both forms
+    describe one delay (DDS, DDH, ELL1H -> ELL1, the round trips);
+    within the ELL1 truncation for ELL1 -> DD: ELL1 keeps the Roemer
+    delay to first order in e (x = A1, e the eccentricity), which drops
+    O(x e^2) from the delay and O(x e . x n) from the inverse timing
+    formula's products n D D' (n = 2 pi / PB; their e-parts carry
+    coefficients up to 2), so x e (e + 2 x n) + 1e-12 s; for DD -> BT,
+    which has no Shapiro delay and a first-order inversion, the Shapiro
+    range 2 r ln((1 + s) / (1 - s)) (r = Tsun M2, s = SINI) + x (x n)^2.
+    Then a WLSFitter refit
+    of the DD pulsar converted to DDS against the original's, without
+    the correlated noise (as ``grid_par_text``), within 1e-6 sigma on
+    the shared parameters."""
+    from pint_tpu_torch.binaryconvert import convert_binary
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+
+    def resid(model, toas):
+        return Residuals(toas, model,
+                         device=device).calc_time_resids().cpu().numpy()
+
+    pulsars, checks, walls = {}, {}, {}
+    for k, name in enumerate(ZOO_STRUCTURES):
+        if k == 0:
+            continue
+        i = next(j for j in range(len(counts)) if j % 4 == k)
+        sync()
+        t0 = time.perf_counter()
+        model, toas = zoo_pulsar_toas(i, counts, device=device)
+        sync()
+        walls[f"make {name}"] = time.perf_counter() - t0
+        pulsars[name] = (i, model, toas, resid(model, toas))
+    for name, chain, same in APPS_CONVERSIONS:
+        i, model, toas, r0 = pulsars[name]
+        t0 = time.perf_counter()
+        m = model
+        for out in chain:
+            m = convert_binary(m, out)
+        conv_s = time.perf_counter() - t0
+        sync()
+        t0 = time.perf_counter()
+        gap = float(np.max(np.abs(resid(m, toas) - r0)))
+        sync()
+        tag = f"{name} -> {' -> '.join(chain)}"
+        walls[tag] = conv_s + time.perf_counter() - t0
+        bound, how = conversion_bound(model, same)
+        line = (f"[apps] BEN{i} {tag}: {len(toas)} TOAs, max |dr| "
+                f"{gap:.3e} s, bound {bound:.3e} s ({how}); convert + "
+                f"residuals {walls[tag]:.3f} s")
+        checks[f"{tag} residual gap <= {bound:.3e} s"] = gap <= bound
+        if chain[-1] == name:
+            rel = max(abs(getattr(m, p).value - getattr(model, p).value)
+                      / abs(getattr(model, p).value)
+                      for p in model.components[f"Binary{name}"].params
+                      if isinstance(getattr(model, p).value, float)
+                      and getattr(model, p).value)
+            line += f"; round-trip parameters max relative {rel:.3e}"
+            checks[f"{tag} round-trip parameters <= 1e-10"] = \
+                rel <= TOL_CONVERT_PAR
+        log(line)
+
+    i, model, toas, _ = pulsars["DD"]
+    text = "".join(line + "\n" for line in zoo_par_text(i).splitlines()
+                   if line.split()[:1] not in (["ECORR"], ["RNAMP"],
+                                               ["RNIDX"], ["TNREDC"]))
+    fits = {}
+    for tag, m in (("DD", get_model(text)),
+                   ("DDS", convert_binary(get_model(text), "DDS"))):
+        sync()
+        t0 = time.perf_counter()
+        f = WLSFitter(toas, m, device=device)
+        f.fit_toas()
+        sync()
+        fits[tag] = (f, time.perf_counter() - t0)
+    fd, fs = fits["DD"][0], fits["DDS"][0]
+    shared = [p for p in fd.model.free_params if p in fs.model.free_params]
+    d_sigma = max(abs(getattr(fd.model, p).value - getattr(fs.model, p).value)
+                  / getattr(fd.model, p).uncertainty for p in shared)
+    log(f"[apps] WLSFitter refit of BEN{i}, DD vs converted DDS (no "
+        f"correlated noise): {len(shared)} shared free parameters, max "
+        f"|dx|/sigma {d_sigma:.3e}; walls DD {fits['DD'][1]:.3f} s, DDS "
+        f"{fits['DDS'][1]:.3f} s; pulsars made "
+        + ", ".join(f"{k[5:]} {v:.2f} s" for k, v in walls.items()
+                    if k.startswith("make")))
+    checks["WLS refit of the DDS conversion within 1e-6 sigma"] = (
+        len(shared) == len(fd.model.free_params)
+        and d_sigma <= TOL_CONVERT_SIGMA)
+    check("[apps] binaryconvert", checks)
+
+
 def run():
     import torch
 
@@ -3942,6 +4407,19 @@ def run():
     }
     check("main path", checks)
 
+    names = [n for n, _, _ in
+             fleet.batches[next(iter(fleet.batches))].free_map()]
+    t0 = time.perf_counter()
+    fitq_phase(torch, fleet, toas, names, x_start)
+    log(f"[fitq] main took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    pintk_phase(torch, toas, names, x_true, x_start)
+    log(f"[pintk] took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    apps_binaryconvert(torch, counts)
+    torch.cuda.empty_cache()
+    log(f"[apps] binaryconvert took {time.perf_counter() - t0:.2f} s")
+
     profile_run(torch, "[profile] warm mixed fit",
                 lambda: fleet.fit(method="gls", maxiter=2, precision="mixed"))
     seen = capture_inputs(fleet, torch)
@@ -3958,8 +4436,6 @@ def run():
 
     t0 = time.perf_counter()
     fitter_ngc6440e()
-    names = [n for n, _, _ in
-             fleet.batches[next(iter(fleet.batches))].free_map()]
     fitter_pulsar(toas, names, x_true, x_start, xm2)
     log(f"[fitter] phases took {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()

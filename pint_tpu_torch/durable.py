@@ -1,5 +1,5 @@
-"""Atomic durable-write primitives (the JAX package's ``durable.py``,
-the two functions the delta store uses).
+"""Atomic durable-write primitives (the JAX package's ``durable.py``:
+the functions the delta store and the flight recorder use).
 
 Crash safety reduces to one idiom: write the full payload to a
 temporary file in the destination directory, fsync it, rename it over
@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 import tempfile
 
-__all__ = ["atomic_write_bytes", "fsync_dir"]
+__all__ = ["atomic_write_bytes", "atomic_write_text", "fsync_dir"]
 
 
 def fsync_dir(path):
@@ -58,3 +58,8 @@ def atomic_write_bytes(path, data):
         raise
     fsync_dir(directory)
     return path
+
+
+def atomic_write_text(path, text, encoding="utf-8"):
+    """Text-mode convenience wrapper over :func:`atomic_write_bytes`."""
+    return atomic_write_bytes(path, text.encode(encoding))

@@ -23,9 +23,11 @@ The AOT helpers (``aot_lower``, ``aot_backend_compile``,
 program and capture it into CUDA graphs (``graphs.py``); a capture has
 no serialized form.
 
-Not ported: ``Fitter.plot`` (``plot_utils.py``, ROADMAP §1 item 1,
-applications) and the fit-quality probes (``obs/fitquality.py``, §1
-item 3, serving and observability).
+With ``obs.fitquality.enable()`` the GLS-family fitters record the
+fit-quality probes (chi2 z-score, conditioning, residual moments) of
+each fit into ``fitquality.FITQ``, as the JAX package's do; the probes
+read host copies and leave the fit bitwise unchanged.
+``Fitter.plot`` draws the post-fit residuals (``plot_utils.py``).
 """
 
 from __future__ import annotations
@@ -385,6 +387,13 @@ def gls_solve(Mfull, r, sigma, sqrt_phi_inv, threshold=1e-12,
             warnings.warn(
                 f"mixed-precision GLS refinement did not converge "
                 f"(rel resid {rel:.2e}); refitting in f64")
+            if _fitquality_enabled():
+                # count at the decision: the f64 redo re-records these
+                # probes, so this is the fallback numerator's one home
+                # on the single-pulsar path
+                from .obs import fitquality as obs_fitq
+
+                obs_fitq.FITQ.note_fallback(["gls_solve"])
             A = gls_gram(Mn, q, "f64")
             dxn, covn = gls_eigh_solve(A, b, threshold)
     else:
@@ -392,6 +401,42 @@ def gls_solve(Mfull, r, sigma, sqrt_phi_inv, threshold=1e-12,
     dx = dxn / norm
     chi2 = float(torch.sum(torch.square(z)) - b @ dxn)
     return dx, (covn, norm), chi2
+
+
+def _fitquality_enabled():
+    """One attribute check when the probes are off — call sites guard
+    on this before materializing anything (e.g. whitened residuals)."""
+    from .obs import fitquality as obs_fitq
+
+    return obs_fitq.enabled()
+
+
+def _record_fit_quality(fitter, chi2, n_toa, nparam, cov=None, rw=None,
+                        method="gls", precision="f64", maxiter=None):
+    """Single-pulsar fit-quality probes (the JAX package's
+    ``_record_fit_quality``): chi2 z-score, conditioning from the
+    normalized covariance, and — unique to this path, where whitened
+    residuals exist — residual moments. Host post-processing of the
+    fit's arrays (``cov`` = (covn, norm), ``rw`` a host array); the fit
+    result is untouched. Callers gate on :func:`_fitquality_enabled`."""
+    from .obs import fitquality as obs_fitq
+
+    if not obs_fitq.enabled():
+        return None
+    psr = getattr(fitter.model, "PSR", None)
+    label = (psr.value if psr is not None and getattr(psr, "value", None)
+             else type(fitter).__name__)
+    covn = None if cov is None else _host(cov[0])[None]
+    summary = obs_fitq.record_fit_batch(
+        [label], [float(chi2)], [float(n_toa - nparam)], covn=covn,
+        method=method, precision=precision, maxiter=maxiter,
+        source="fitter." + method)
+    if rw is not None:
+        obs_fitq.FITQ.annotate(
+            label,
+            residual_moments=obs_fitq.residual_moments(
+                np.asarray(rw, dtype=np.float64)))
+    return summary
 
 
 def marginalized_chi2(r, sigma_s, bases, threshold=1e-12):
@@ -509,13 +554,6 @@ def _reject_free_dm_noise(model):
             "values; freeze them, or refit with updated values between "
             "fits")
 
-
-def _reject_fit_quality(fit_quality):
-    if fit_quality:
-        raise NotImplementedError(
-            "fit-quality probes need obs/fitquality.py, which is not "
-            "ported to pint_tpu_torch yet (ROADMAP §1 item 3, serving "
-            "and observability)")
 
 
 class ConvergenceFailure(RuntimeError):
@@ -710,11 +748,13 @@ class Fitter:
         print(self.get_summary())
 
     def plot(self, plotfile=None, title=None):
-        """(reference: fitter.py::Fitter.plot) Not ported: it needs
-        plot_utils.py (ROADMAP §1 item 1, applications)."""
-        raise NotImplementedError(
-            "Fitter.plot needs plot_utils.py, which is not ported to "
-            "pint_tpu_torch yet (ROADMAP §1 item 1, applications)")
+        """Post-fit residual plot with error bars (reference:
+        fitter.py::Fitter.plot); delegates to
+        plot_utils.plot_residuals, returns the figure (or the saved
+        path when ``plotfile`` is given)."""
+        from .plot_utils import plot_residuals
+
+        return plot_residuals(self, plotfile=plotfile, title=title)
 
     def get_summary(self) -> str:
         """(reference: fitter.py::Fitter.get_summary)"""
@@ -1066,13 +1106,10 @@ class GLSFitter(Fitter):
         return None, None
 
     def fit_toas(self, maxiter=2, threshold=1e-12, tol=0.0,
-                 precision="f64", fit_quality=False):
-        """``fit_quality=True`` asks for the JAX package's fit-quality
-        probes, which are not ported (it raises)."""
+                 precision="f64"):
         _maybe_inject_solver_diverge("gls")
         _reject_free_dmjump(self.model)
         check_precision(precision)
-        _reject_fit_quality(fit_quality)
         t_start = time.perf_counter()
         prepared = self._prepare()
         prep_s = time.perf_counter() - t_start
@@ -1137,6 +1174,13 @@ class GLSFitter(Fitter):
         self._attach_noise_resids()
         self.converged = True
         self.chi2_whitened = chi2
+        if _fitquality_enabled() and nparam is not None:
+            # r/sigma_s hold the latest evaluated state (the best
+            # iterate except in the warned chi2-increase case)
+            _record_fit_quality(
+                self, chi2, int(r.shape[0]), nparam, cov=cov,
+                rw=_host(r) / _host(sigma_s), method="gls",
+                precision=precision, maxiter=maxiter)
         self._update_model_stats()
         self.metrics = fit_metrics(t_start, prep_s, iter_s, self.toas,
                                    self.model, prepared.device)
@@ -1149,10 +1193,9 @@ class DownhillGLSFitter(GLSFitter):
     convergence tolerance."""
 
     def fit_toas(self, maxiter=10, threshold=1e-12, tol=1e-8,
-                 precision="f64", fit_quality=False):
+                 precision="f64"):
         return super().fit_toas(maxiter=maxiter, threshold=threshold,
-                                tol=tol, precision=precision,
-                                fit_quality=fit_quality)
+                                tol=tol, precision=precision)
 
 
 class WidebandTOAFitter(GLSFitter):
@@ -1275,13 +1318,9 @@ class WidebandTOAFitter(GLSFitter):
         return WidebandTOAResiduals(self.toas, self.model,
                                     device=self.device)
 
-    def fit_toas(self, maxiter=2, threshold=1e-12, precision="f64",
-                 fit_quality=False):
-        """``fit_quality=True`` asks for the JAX package's fit-quality
-        probes, which are not ported (it raises)."""
+    def fit_toas(self, maxiter=2, threshold=1e-12, precision="f64"):
         check_precision(precision)
         _reject_free_dm_noise(self.model)
-        _reject_fit_quality(fit_quality)
         t_start = _wall(self.device)
         iter_s = []
         chi2 = None
@@ -1331,6 +1370,11 @@ class WidebandTOAFitter(GLSFitter):
         self._attach_noise_resids()
         self.converged = True
         self.chi2_whitened = chi2
+        if _fitquality_enabled() and iter_s:
+            _record_fit_quality(
+                self, chi2, int(r.shape[0]), nparam, cov=cov,
+                rw=_host(r) / _host(sigma), method="wideband_gls",
+                precision=precision, maxiter=maxiter)
         self._update_model_stats()
         # each iteration prepares again, so the prepare time is in
         # iteration_s and prepare_s is 0, as in the JAX package
@@ -1345,11 +1389,9 @@ class WidebandDownhillFitter(WidebandTOAFitter):
     fitter.py::WidebandDownhillFitter)."""
 
     def fit_toas(self, maxiter=15, threshold=1e-12, min_lambda=1e-3,
-                 tol=1e-9, raise_maxiter=False, precision="f64",
-                 fit_quality=False):
+                 tol=1e-9, raise_maxiter=False, precision="f64"):
         check_precision(precision)
         _reject_free_dm_noise(self.model)
-        _reject_fit_quality(fit_quality)
         t_start = _wall(self.device)
         iter_s = []
         best_chi2 = None
@@ -1398,6 +1440,11 @@ class WidebandDownhillFitter(WidebandTOAFitter):
         self._attach_noise_resids()
         self.converged = True
         self.chi2_whitened = best_chi2
+        if _fitquality_enabled():
+            _record_fit_quality(
+                self, best_chi2, int(r.shape[0]), nparam, cov=cov,
+                method="wideband_downhill", precision=precision,
+                maxiter=maxiter)
         self._update_model_stats()
         self.metrics = fit_metrics(t_start, 0.0, iter_s, self.toas,
                                    self.model, self.device)
@@ -1412,10 +1459,9 @@ class WidebandLMFitter(WidebandTOAFitter):
     one undamped solve at the accepted solution."""
 
     def fit_toas(self, maxiter=20, threshold=1e-12, lm_lambda0=1e-3,
-                 tol=1e-9, precision="f64", fit_quality=False):
+                 tol=1e-9, precision="f64"):
         check_precision(precision)
         _reject_free_dm_noise(self.model)
-        _reject_fit_quality(fit_quality)
         t_start = _wall(self.device)
         iter_s = []
         lm = lm_lambda0
@@ -1453,6 +1499,10 @@ class WidebandLMFitter(WidebandTOAFitter):
                         f"mixed-precision LM refinement did not "
                         f"converge (rel resid {relres:.2e}); solving "
                         "this step with the f64 Gram")
+                    if _fitquality_enabled():
+                        from .obs import fitquality as obs_fitq
+
+                        obs_fitq.FITQ.note_fallback(["wideband_lm"])
                     A = gls_gram(Mn, q, "f64")
                     A_damped = A + lm * torch.diag(torch.diagonal(A))
                     dxn = torch.linalg.solve(A_damped, b)
@@ -1495,6 +1545,15 @@ class WidebandLMFitter(WidebandTOAFitter):
         self._attach_noise_resids()
         self.converged = True
         self.chi2_whitened = best_chi2
+        if _fitquality_enabled():
+            # (covn, norm) exist exactly when a step was accepted
+            _record_fit_quality(
+                self, best_chi2, int(r.shape[0]), nparam,
+                cov=((covn, norm)
+                     if getattr(self, "_lm_cov", None) is not None
+                     else None),
+                method="wideband_lm", precision=precision,
+                maxiter=maxiter)
         self._update_model_stats()
         self.metrics = fit_metrics(t_start, 0.0, iter_s, self.toas,
                                    self.model, self.device)

@@ -39,9 +39,12 @@ executables. On the card a program is captured into CUDA graphs
 (``graphs.py``: the eighs and SVDs run eagerly between them); a fit is
 split into a dispatch that queues the device work and a finalize that
 pulls once, so a fleet can dispatch every bucket before it pulls any.
-The pack store (``store=``, ROADMAP §1 item 3), the device mesh
-(``mesh=``, item 2) and the observability spans (item 3) are not
-ported yet.
+With ``obs.fitquality.enable()`` each finalize records the fit-quality
+probes of its bucket from the host arrays it has already pulled
+(:meth:`PTABatch._record_quality`; ``PTABatch.quality``,
+``PTAFleet.fit_quality``). The pack store (``store=``, ROADMAP §1 item
+3), the device mesh (``mesh=``, item 2) and the observability spans
+(item 3) are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from ..kernels.fusedgls import fused_segment_gls
 from ..kernels.seggram import segment_gram
 from ..models.noise import EcorrNoise
 from ..models.timing_model import _overlay_params, host_to_device
+from ..obs import fitquality as obs_fitq
 from ..segment import block_segment_sum, segment_sum
 from ..toa import TOABatch
 
@@ -468,6 +472,7 @@ class PTABatch:
         self._fns = {}  # program key -> graphs.Program / GraphProgram
         self.diverged = np.zeros(0, dtype=np.int64)
         self.metrics = {}
+        self.quality = None  # fitquality bucket summary when enabled
 
     @property
     def n_pulsars(self):
@@ -552,6 +557,22 @@ class PTABatch:
         name when the model has one, the batch index otherwise."""
         return [getattr(m, "PSR", None) and m.PSR.value or f"#{i}"
                 for i, m in enumerate(self.models)]
+
+    def _record_quality(self, method, handle, x, chi2, covn,
+                        relres=None):
+        """Fit-quality probes over the finalize's already-pulled host
+        arrays (no device interaction: the fit stays bitwise
+        identical). dof is the design-matrix count: TOAs minus free
+        params minus the offset column; noise amplitudes are
+        marginalized, not subtracted."""
+        n_free = int(np.asarray(x).shape[1])
+        dof = np.asarray(self.n_toas, np.float64).reshape(-1) - (n_free + 1)
+        self.quality = obs_fitq.record_fit_batch(
+            self._pulsar_labels(), chi2, dof, covn=covn, relres=relres,
+            method=method, precision=handle.get("precision", "f64"),
+            maxiter=handle["maxiter"],
+            fell_back=self.__dict__.pop("_fitq_fell_back", False),
+            diverged=self.diverged, source="pta." + method)
 
     def _overlay(self, params, x):
         return _overlay_params(x, params, tuple(self.free_map()))
@@ -781,6 +802,10 @@ class PTABatch:
         chi2 = self._maybe_inject_divergence(chi2, "wls")
         x, chi2 = self._isolate_diverged(x0, x, chi2)
         self._record_metrics(handle)
+        if obs_fitq.enabled():
+            self._record_quality("wls", handle, x, chi2, covn)
+        else:
+            self.quality = None
         return x, chi2, cov
 
     def wls_fit(self, maxiter=3, threshold=1e-12):
@@ -1231,6 +1256,11 @@ class PTABatch:
                 f"mixed-precision GLS refinement did not converge "
                 f"(max rel resid {float(np.max(relres)):.2e}); "
                 "refitting in f64")
+            if obs_fitq.enabled():
+                # count the fallback at the decision; flag the f64
+                # re-run's probes so the ledger shows both
+                obs_fitq.FITQ.note_fallback(self._pulsar_labels())
+                self._fitq_fell_back = True
             out = self.gls_fit(maxiter=handle["maxiter"],
                                threshold=handle["threshold"],
                                ecorr_mode=handle["ecorr_mode"],
@@ -1245,6 +1275,11 @@ class PTABatch:
             handle, precision=handle["precision"],
             relres_max=float(np.max(relres)) if len(relres) else 0.0,
             refit_f64=False)
+        if obs_fitq.enabled():
+            self._record_quality("gls", handle, x, chi2, covn,
+                                 relres=relres)
+        else:
+            self.quality = None
         return x, chi2, cov
 
     @staticmethod
@@ -1827,6 +1862,7 @@ class PTAFleet:
         covs = [None] * self.n
         self.diverged = []
         self.fit_metrics = {}
+        self.fit_quality = {}
         for key, idxs in self.group_indices.items():
             batch = self._resolve(key)
             fit = (batch.gls_fit if self._use_gls(batch, method)
@@ -1835,6 +1871,8 @@ class PTAFleet:
             self._scatter(xs, chi2s, covs, idxs, x, chi2, cov)
             self.diverged.extend(idxs[j] for j in batch.diverged)
             self.fit_metrics[key] = batch.metrics
+            if batch.quality:
+                self.fit_quality[key] = batch.quality
         return xs, chi2s, covs
 
     @staticmethod
@@ -1910,12 +1948,15 @@ class PTAFleet:
             handles.append((key, idxs, batch, use_gls, h))
         self.diverged = []
         self.fit_metrics = {}
+        self.fit_quality = {}
         for key, idxs, batch, use_gls, h in handles:
             fin = batch._finalize_gls if use_gls else batch._finalize_wls
             x, chi2, cov = fin(h)
             self._scatter(xs, chi2s, covs, idxs, x, chi2, cov)
             self.diverged.extend(idxs[j] for j in batch.diverged)
             self.fit_metrics[key] = batch.metrics
+            if batch.quality:
+                self.fit_quality[key] = batch.quality
         return xs, chi2s, covs
 
     def precompile(self, method="auto", maxiter=3, max_workers=None,

@@ -87,6 +87,19 @@ class FaultPoint:
 # check)
 _armed: dict = {}
 
+# observers called with (name, payload) on every actual firing: the obs
+# flight recorder subscribes here so a dump can name the fault that
+# started the cascade. This module never imports obs (the dependency
+# arrow stays obs -> resilience).
+_observers: list = []
+
+
+def add_observer(fn):
+    """Subscribe ``fn(name, payload_dict)`` to fault firings."""
+    if fn not in _observers:
+        _observers.append(fn)
+    return fn
+
 
 def fire(name, **ctx):
     """The hook production code calls at an injection site. Returns
@@ -99,7 +112,10 @@ def fire(name, **ctx):
     pt = _armed.get(name)
     if pt is None or not pt.should_fire():
         return None
-    return {**pt.payload, **ctx, "point": name, "fire": pt.fires}
+    payload = {**pt.payload, **ctx, "point": name, "fire": pt.fires}
+    for ob in _observers:
+        ob(name, payload)
+    return payload
 
 
 def fire_kill(site, **ctx):

@@ -5,13 +5,14 @@ optional output par; the JAX package's ``scripts/pintempo.py``.)
 
     python -m pint_tpu_torch.scripts.pintempo <par> <tim> \\
         [--fitter auto|wls|gls|downhill_wls|downhill_gls|wideband] \\
-        [--outfile post.par] [--device cuda]
+        [--outfile post.par] [--plot [--plotfile resid.png]] \\
+        [--device cuda]
 
 The fit runs on ``--device`` (default ``cuda``). ``--fitter auto``
 picks WidebandDownhillFitter for wideband TOAs (-pp_dm flags),
 DownhillGLSFitter with correlated noise and DownhillWLSFitter without.
-``--plot`` raises ``NotImplementedError``, as ``Fitter.plot`` does:
-``plot_utils.py`` is not ported (ROADMAP §1 item 1).
+``--plot`` saves the post-fit residuals with their error bars to
+``--plotfile`` (matplotlib's Agg backend, on the host).
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ def main(argv=None) -> int:
                    choices=("auto", "wls", "gls", "downhill_wls",
                             "downhill_gls", "wideband"))
     p.add_argument("--outfile", help="write the post-fit par file here")
-    p.add_argument("--plot", action="store_true",
-                   help="save a residual plot (not ported)")
+    p.add_argument("--plot", action="store_true", help="save resid plot")
     p.add_argument("--plotfile", default="pintempo_resids.png")
     p.add_argument("--maxiter", type=int, default=10)
     p.add_argument("--device", default="cuda",
@@ -43,10 +43,6 @@ def main(argv=None) -> int:
     from ..models import get_model
     from ..toa import get_TOAs
 
-    if args.plot:
-        raise NotImplementedError(
-            "--plot needs plot_utils.py, which is not ported to "
-            "pint_tpu_torch yet (ROADMAP §1 item 1)")
     device = resolve_device(args.device)
     model = get_model(args.parfile)
     toas = get_TOAs(args.timfile, model=model)
@@ -65,6 +61,22 @@ def main(argv=None) -> int:
     if args.outfile:
         fit.model.write_parfile(args.outfile)
         print(f"Wrote {args.outfile}")
+    if args.plot:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        import numpy as np
+
+        r_us = np.asarray(fit.resids.time_resids) * 1e6
+        mjd = toas.day + toas.sec / 86400.0
+        plt.figure(figsize=(8, 4.5))
+        plt.errorbar(mjd, r_us, yerr=toas.error_us, fmt=".", ms=3)
+        plt.xlabel("MJD")
+        plt.ylabel("Residual (us)")
+        plt.title(f"{getattr(model, 'PSR').value or args.parfile} post-fit")
+        plt.tight_layout()
+        plt.savefig(args.plotfile, dpi=120)
+        print(f"Wrote {args.plotfile}")
     return 0
 
 

@@ -11,13 +11,17 @@ observatory (``obs="gbt"`` by default) — then the phase on ``device``.
 Tables are built with ``TOAs.from_arrays`` (no per-TOA objects).
 ``wideband=True`` attaches -pp_dm/-pp_dme measurements at the model DM,
 drawn from the same generator in the JAX package's order.
+:func:`calculate_random_models` draws parameter vectors from a fit's
+covariance on the host (in the normalized space, as the reference
+does) and evaluates their residuals on the fit's device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from . import resolve_device
+from . import DTYPE, resolve_device
 from .residuals import Residuals
 from .toa import TOAs
 
@@ -203,3 +207,31 @@ def make_fake_toas_fromtim(timfile, model, add_noise=False,
         _add_wideband_dm(toas, model, rng, dm_error_pccm3, add_noise,
                          device=device)
     return toas
+
+
+def calculate_random_models(fitter, toas, n_models=100, seed=None):
+    """Sample models from the fit covariance; return residual spread [s]
+    as a host array (n_models, n_toas).
+
+    (reference: simulation.py::calculate_random_models) The draws are
+    made on the host from ``np.random.default_rng(seed)`` in the
+    column-normalized parameter space, as the reference does (its
+    ``fac`` scaling): a covariance whose diagonal spans ~1e30 (F0, F1,
+    DM) loses its small-variance directions to the SVD that
+    ``multivariate_normal`` factors it with, so drawing from it
+    directly, as the JAX package does, realizes the wrong covariance
+    (ROADMAP §3). Each draw's residuals are evaluated on the fitter's
+    device and the stack comes back in one copy."""
+    rng = np.random.default_rng(seed)
+    prepared = fitter.model.prepare(toas, device=fitter.device)
+    x0 = prepared.vector_from_params().cpu().numpy()
+    cov = np.asarray(fitter.parameter_covariance_matrix, dtype=np.float64)
+    sd = np.sqrt(np.diag(cov))
+    fac = np.where(sd > 0, sd, 1.0)
+    covn = cov / np.outer(fac, fac)
+    draws = x0 + rng.multivariate_normal(np.zeros(len(x0)), covn,
+                                         size=n_models) * fac
+    r = Residuals(toas, fitter.model, prepared=prepared)
+    xs = torch.as_tensor(draws, dtype=DTYPE, device=prepared.device)
+    out = [r.calc_time_resids(prepared.params_with_vector(x)) for x in xs]
+    return torch.stack(out).cpu().numpy()

@@ -402,8 +402,13 @@ def test_auto_fitter_choice(ngc, noise_batch):
 
 def test_fitter_guards(ngc, noise_batch):
     """The injected solver_diverge fault raises ConvergenceFailure; WLS
-    refuses correlated noise; fit-quality probes and Fitter.plot name
-    the ROADMAP items they wait for; precision is validated."""
+    refuses correlated noise; every fitter's fit_toas takes exactly the
+    JAX package's parameters (the fit-quality probes are switched on
+    process-wide by obs.fitquality.enable(), not by an argument);
+    Fitter.plot draws; precision is validated."""
+    import inspect
+
+    import pint_tpu.fitter as jf
     from pint_tpu_torch import fitter as tf
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.resilience import faultinject
@@ -421,14 +426,24 @@ def test_fitter_guards(ngc, noise_batch):
     with pytest.raises(tf.CorrelatedErrors, match="EcorrNoise"):
         tf.WLSFitter(port_toas(jts[0]), get_model(pars[0]),
                      device="cpu").fit_toas()
+    for name in ("Fitter", "WLSFitter", "DownhillWLSFitter", "GLSFitter",
+                 "DownhillGLSFitter", "WidebandTOAFitter",
+                 "WidebandDownhillFitter", "WidebandLMFitter",
+                 "PowellFitter"):
+        params = inspect.signature(getattr(tf, name).fit_toas).parameters
+        jparams = inspect.signature(getattr(jf, name).fit_toas).parameters
+        assert [(p.name, p.default) for p in params.values()] \
+            == [(p.name, p.default) for p in jparams.values()], name
     f = tf.GLSFitter(t, m, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="item 3, serving and observability"):
+    with pytest.raises(TypeError, match="fit_quality"):
         f.fit_toas(fit_quality=True)
     with pytest.raises(ValueError, match="precision"):
         f.fit_toas(precision="f32")
-    with pytest.raises(NotImplementedError, match="item 1, applications"):
-        f.plot()
+    import matplotlib.pyplot as plt
+
+    fig = f.plot()
+    assert fig.axes[0].get_ylabel() == "Residual (us)"
+    plt.close(fig)
     with pytest.raises(ValueError, match="fit_toas"):
         f.get_noise_resids()
     assert tf.degraded_f64() is False

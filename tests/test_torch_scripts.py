@@ -137,9 +137,13 @@ def test_pintempo_matches_jax(tmp_path):
                     15.0 if a.angle_unit == "hourangle" else 1.0))
             assert abs(a.value - b.value) <= 1e-6 * unc + tick, p
             assert b.uncertainty == pytest.approx(unc, rel=1e-4), p
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tscript.main([str(PORT_NGC_PAR), str(PORT_NGC_TIM), "--plot",
-                      "--device", "cpu"])
+    plot = tmp_path / "resid.png"
+    rt, ot, _ = _run(tscript.main, [str(PORT_NGC_PAR), str(PORT_NGC_TIM),
+                                    "--fitter", "wls", "--maxiter", "1",
+                                    "--plot", "--plotfile", str(plot),
+                                    "--device", "cpu"])
+    assert rt == 0 and f"Wrote {plot}" in ot
+    assert plot.stat().st_size > 1000
 
 
 def test_pintempo_auto_on_the_wideband_pack(tmp_path):

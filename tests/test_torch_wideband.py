@@ -625,9 +625,12 @@ def test_dmjump_recovers_receiver_offset():
 
 
 def test_refusals_keep_the_jax_messages(pack):
-    """A free DMEFAC is refused by every wideband fitter, a free DMJUMP
-    by every narrowband fitter, ``fit_quality=True`` raises, each with
-    the JAX package's words."""
+    """A free DMEFAC is refused by every wideband fitter and a free
+    DMJUMP by every narrowband fitter, each with the JAX package's
+    words; the wideband fit_toas take the JAX package's parameters, so
+    ``fit_quality=True`` is a TypeError in both."""
+    import inspect
+
     import pint_tpu.fitter as jf
     import pint_tpu_torch.fitter as tf
 
@@ -652,9 +655,13 @@ def test_refusals_keep_the_jax_messages(pack):
                 getattr(pkg, cls)(toas, nb, **kw).fit_toas()
     for cls in ("WidebandTOAFitter", "WidebandDownhillFitter",
                 "WidebandLMFitter"):
-        with pytest.raises(NotImplementedError,
-                           match="item 3, serving and observability"):
-            getattr(tf, cls)(t, m, device="cpu").fit_toas(fit_quality=True)
+        assert inspect.signature(getattr(tf, cls).fit_toas) \
+            == inspect.signature(getattr(jf, cls).fit_toas)
+        for pkg, model, toas, kw in ((jf, jm, jt, {}),
+                                     (tf, m, t, {"device": "cpu"})):
+            with pytest.raises(TypeError, match="fit_quality"):
+                getattr(pkg, cls)(toas, model, **kw).fit_toas(
+                    fit_quality=True)
 
 
 def test_auto_fitter_picks_wideband_downhill(pack):
