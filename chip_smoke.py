@@ -10,7 +10,8 @@ It drives the port's main path — GBT TOAs read from tim files by
 timing array (~670k TOAs, NANOGrav-15yr-like ragged counts) through
 ``PTAFleet(toa_bucket="plan").fit(method="gls", maxiter=2,
 precision="mixed")`` — then the GW detection stage on the fitted fleet,
-the streaming append lanes, the photon path with its satellite, polyco
+the streaming append lanes, the serving engine (fit, residual, phase and
+append requests, sync and async), the photon path with its satellite, polyco
 and CALC variants, fftfit, the photon MCMC and a chi2 grid, and checks
 each, in these phases (with, after the main path, the fit-quality probes
 on it, an interactive pintk session and binary conversions):
@@ -212,6 +213,34 @@ on it, an interactive pintk session and binary conversions):
    card; then ``[kernel] delta_gram``: K1′ at the lane shape (64 x 6)
    and the scenario's (64 x 12) against its plain version, timed beside
    one f32 ``torch.mm`` and the bound;
+12a. ``[serve]``: the in-process serving engine (``serve/``) over
+   ``pint_serve_bench``'s fleet at NANOGrav-sized counts
+   (``build_serve_fleet(sizes=(1000, 4000, 12000), per_combo=8)``: 72
+   pulsars, spin-only / EFAC-EQUAD / + TNREDC 10 red noise, one-pass
+   TOAs at 1400 MHz), ``max_batch=8``, ``bucket_floor=256``, f64 fits
+   with ``maxiter=3`` (:func:`serve_phase`). ``[serve] stream``:
+   ``run_serve_stream`` (216 fit requests, 9 slots in buckets 1024 /
+   4096 / 16384, concurrent prewarm): every status ok, no capture after
+   warm-up, hit rate >= 0.9, exactly one terminal lifecycle state, the
+   ledger bitwise neutral, served vs the offline fleet <= 1e-12
+   relative and <= 1e-6 sigma; ``[serve] trace``: the stream again on
+   another engine untraced and traced, bitwise, spans by name, then one
+   warm flush taken apart (pack, copy into the program, replay, pull);
+   ``[serve] mixed``: the 24 red-noise pulsars in mixed vs their f64
+   fleet fit <= 1e-6 sigma, no degraded_mixed; ``[serve] cache reuse``:
+   disjoint pulsars through one warm slot (spin-only and red-noise at
+   16384) and through a pow2 fleet's program adopted by
+   ``prefill_from_fleet``, each equal to its own offline fit; ``[serve]
+   resid/phase``: one residual and one phase request per structure and
+   bucket and the main path's 30,000-TOA pulsar (spilled solo) vs an
+   unpadded batch, 1e-12 s and 1e-9 cycles; ``[serve] append``: 8 mixed
+   lanes (the 12,000-TOA spin-only and EFAC pulsars over converged TOAs
+   at their epochs, two receivers) registered through the engine, 4
+   appends of 64 TOAs each: exactly 32 K1′ launches (counted in the
+   kernel line's ``launches_new_paths``), bitwise a refitter fed the
+   same appends, <= 1e-6 sigma of a fresh f64 fit of the same rows;
+   ``[serve] async``: ``AsyncServeEngine`` with 4 producer threads,
+   bitwise the sync engine;
 13. ``[photon]``: bench.py's photon stage (4,000,000 photons, 1,000,000
    pulsed at phase 0.3 with sigma 0.04, seed 0) over one year as a
    barycentred NICER event file with a PSRPROB weight column, written
@@ -4296,6 +4325,496 @@ def apps_binaryconvert(torch, counts, device="cuda"):
     check("[apps] binaryconvert", checks)
 
 
+# -- [serve]: the in-process serving engine over a NANOGrav-sized fleet --
+
+# pint_serve_bench's fleet at NANOGrav-sized TOA counts: 3 structures
+# (spin-only, EFAC/EQUAD, + TNREDC 10 red noise) x 3 sizes x 8 pulsars
+SERVE_SIZES, SERVE_PER_COMBO, SERVE_REQUESTS = (1000, 4000, 12000), 8, 216
+SERVE_MAX_BATCH, SERVE_FLOOR, SERVE_MAXITER = 8, 256, 3
+SERVE_APPENDS, SERVE_APPEND_TOAS = 4, 64
+SERVE_OVERSIZE_TOAS = 30_000  # the main path's largest pulsar
+SERVE_ASYNC_WAIT_S = 300.0  # bound on the async phase's wait for results
+TOL_SERVE_REL = 1e-12  # served vs offline parameters, relative
+
+
+def serve_buckets():
+    """The slots' TOA buckets of SERVE_SIZES (pow2 from SERVE_FLOOR)."""
+    from pint_tpu_torch.serve import pow2_bucket
+
+    return [pow2_bucket(n, SERVE_FLOOR) for n in SERVE_SIZES]
+
+
+def load_ms(torch, prog, data):
+    """CUDA-event mean of one full copy of a batch's data into a
+    captured program (``GraphProgram.load`` with its loaded record
+    cleared, so every tensor is copied)."""
+    def load():
+        prog._loaded = [(lambda: None, -1)] * len(prog._loaded)
+        prog.load(*data)
+
+    return cuda_ms(torch, load, reps=5, warmup=1)
+
+
+def serve_index(structure, size, k):
+    """Index in build_serve_fleet's order of pulsar k of (structure,
+    size index)."""
+    return (structure * len(SERVE_SIZES) + size) * SERVE_PER_COMBO + k
+
+
+def serve_gaps(results, x, cov):
+    """Max relative and max sigma gap of served fits to reference
+    per-request (x, cov)."""
+    rel = sig = 0.0
+    for res, xr, cr in zip(results, x, cov):
+        mine, xr = np.asarray(res.value["x"]), np.asarray(xr)
+        rel = float(np.maximum(rel, np.max(np.abs(mine - xr) / np.maximum(
+            np.abs(xr), 1e-30))))
+        sig = float(np.maximum(sig, np.max(np.abs(mine - xr) / np.sqrt(
+            np.diag(np.asarray(cr))))))
+    return rel, sig
+
+
+def serve_offline(models, toas, bucket, method, device="cuda"):
+    """The offline fit of the given pulsars in one batch padded to the
+    slot's bucket (eager; a fresh PTABatch)."""
+    from pint_tpu_torch.parallel import PTABatch
+
+    b = PTABatch(models, toas, pad_toas=bucket, device=device)
+    if method == "gls":
+        return b.gls_fit(maxiter=SERVE_MAXITER)
+    return b.wls_fit(maxiter=SERVE_MAXITER)
+
+
+def serve_lane_base(model, toas, device="cuda", seed=6):
+    """A lane's base TOAs: the fleet pulsar's epochs again, as converged
+    (``iterations=2``) noisy TOAs of its model alternating between 800
+    and 1400 MHz (``alternating_freqs``, as the main path's). The
+    fleet's one-pass 1400 MHz TOAs keep a ~ms systematic that a lane's
+    two registration sweeps do not absorb (on the CPU the lane's next
+    solve still moved F1 by 45 sigma) and leave DM degenerate with the
+    offset; a mixed lane's f32 delta Grams then err in proportion
+    (6e-3 sigma on the CPU)."""
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    mjds = np.asarray(toas.day, np.float64) + np.asarray(toas.sec) / 86400.0
+    t = make_fake_toas_fromMJDs(mjds, model, error_us=1.0,
+                                freq_mhz=alternating_freqs(len(mjds)),
+                                obs="gbt", add_noise=True, seed=seed,
+                                iterations=2, device=device)
+    for f in t.flags:
+        f["f"] = "L-wide"
+    return t
+
+
+def serve_append_traffic(models, lanes, device="cuda", seed=5):
+    """SERVE_APPENDS chunks of SERVE_APPEND_TOAS TOAs per lane, after the
+    fleet's span (MJD 56810-57100): converged noisy TOAs alternating
+    between 800 and 1400 MHz, flagged as build_serve_fleet flags its
+    EFAC pulsars, from the lane's model at the lane's registered fit
+    (``lanes``: StreamingLane), as an observatory's new TOAs follow the
+    current ephemeris."""
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    out = []
+    n = SERVE_APPENDS * SERVE_APPEND_TOAS
+    for i, (m, lane) in enumerate(zip(models, lanes)):
+        m = copy.deepcopy(m)
+        for name, v in zip(lane.free_names, lane.x):
+            getattr(m, name).value = float(v)
+        rng = np.random.default_rng([seed, i])
+        mjds = np.sort(rng.uniform(56810, 57100, n))
+        t = make_fake_toas_fromMJDs(mjds, m, error_us=1.0,
+                                    freq_mhz=alternating_freqs(n),
+                                    obs="gbt", add_noise=True,
+                                    seed=seed * 1000 + i, iterations=2,
+                                    device=device)
+        for f in t.flags:
+            f["f"] = "L-wide"
+        which = np.arange(len(t)) // SERVE_APPEND_TOAS
+        out.append([t.mask(which == k) for k in range(SERVE_APPENDS)])
+    return out
+
+
+def serve_fresh_fit(refitter, model, chunks):
+    """A fresh f64 fit of a lane's base TOAs and its appended ``chunks``
+    built from scratch at the lane's frozen linearization and column
+    normalization: every row evaluated as the lane evaluates it (the
+    base batch, then each chunk's own padded batch, whose weighted mean
+    residual is removed per chunk), one f64 normal state over all of
+    them (``streaming.LANE_RIDGE`` ridge) and its solve, on a copy of
+    the lane. Returns (x, sigma)."""
+    from pint_tpu_torch.kernels import incremental as inc
+    from pint_tpu_torch.serve import streaming
+
+    lane = copy.copy(refitter.lane(model))
+    base = lane.base_toas
+    n = streaming._pad_len(len(base), streaming.APPEND_PAD)
+    M, r, winv = refitter._eval_rows(lane, refitter._batch(model, base, n))
+    rows = [(M / lane.norm[None, :], r, winv)]
+    for c in chunks:
+        a = refitter._chunk_arrays(lane, c)
+        rows.append((a["X"], a["r"], a["winv"]))
+    X, r, winv = (np.concatenate(col) for col in zip(*rows))
+    lane.state = inc.build_normal(
+        X, r, winv, q=np.full(X.shape[1], streaming.LANE_RIDGE),
+        block=min(streaming.BASE_BLOCK, streaming._pad_len(len(X), 8)),
+        device=refitter.device)
+    x, _, _ = refitter._solve(lane)
+    return x, lane_sigma(lane)
+
+
+def serve_phase(torch, device="cuda"):
+    """The ``[serve]`` phases (module docstring, phase 21). Returns K1′'s
+    launches in ``[serve] append``."""
+    from pint_tpu_torch.kernels.incremental import delta_gram_cuda
+    from pint_tpu_torch.obs import trace as obs_trace
+    from pint_tpu_torch.parallel import PTABatch, PTAFleet
+    from pint_tpu_torch.scripts import pint_serve_bench as bench
+    from pint_tpu_torch.serve import (AppendToasRequest, AsyncServeEngine,
+                                      FitRequest, PhasePredictRequest,
+                                      ResidualRequest, ServeEngine,
+                                      StreamingRefitter, policy,
+                                      result_digest)
+
+    t_phase = time.perf_counter()
+    buckets = serve_buckets()
+    t0 = time.perf_counter()
+    models, toas = bench.build_serve_fleet(
+        sizes=SERVE_SIZES, per_combo=SERVE_PER_COMBO, device=device)
+    build_s = time.perf_counter() - t0
+    n_psr = len(models)
+    log(f"[serve] fleet: {n_psr} pulsars, {sum(len(t) for t in toas)} TOAs "
+        f"(pint_serve_bench's structures at sizes {SERVE_SIZES}) made in "
+        f"{build_s:.2f} s")
+
+    def req(i, **kw):
+        return FitRequest(models[i % n_psr], toas[i % n_psr],
+                          maxiter=SERVE_MAXITER, **kw)
+
+    # [serve] stream: the bench's stream on this fleet (built once)
+    made = bench.build_serve_fleet
+    bench.build_serve_fleet = lambda **kw: (models, toas)
+    try:
+        t0 = time.perf_counter()
+        rep = bench.run_serve_stream(
+            n_requests=SERVE_REQUESTS, max_batch=SERVE_MAX_BATCH,
+            bucket_floor=SERVE_FLOOR, sizes=SERVE_SIZES,
+            per_combo=SERVE_PER_COMBO, maxiter=SERVE_MAXITER,
+            concurrent_prewarm=True, device=device)
+        stream_s = time.perf_counter() - t0
+    finally:
+        bench.build_serve_fleet = made
+    digests = rep.pop("result_digests")
+    rep.pop("tail_artifact")
+    log(f"[serve] stream report: {json.dumps(rep, default=float)}")
+    log(f"[serve] stream: prewarm (capture of {rep['warmup_executables']} "
+        f"programs) {rep['prewarm_wall_s']:.3f} s; {SERVE_REQUESTS} fits in "
+        f"{rep['stream_wall_s']:.3f} s ({rep['requests_per_s']:.1f} "
+        f"requests/s); total p50 / p99 {rep['serve_p50_latency_s'] * 1e3:.2f}"
+        f" / {rep['serve_p99_latency_s'] * 1e3:.2f} ms, execute p50 / p99 "
+        f"{rep['execute_p50_s'] * 1e3:.2f} / {rep['execute_p99_s'] * 1e3:.2f}"
+        f" ms; max |x - x_offline| {rep['max_param_rel_diff_vs_offline']:.3e}"
+        f" relative, {rep['max_param_sigma_diff_vs_offline']:.3e} sigma; the "
+        f"whole call {stream_s:.2f} s; {gpu_line()}")
+    check("[serve] stream", {
+        "every status ok": rep["statuses"] == {"ok": SERVE_REQUESTS},
+        "9 slots in buckets 1024/4096/16384":
+            rep["toa_buckets"] == buckets and rep["warmup_executables"] == 9,
+        "no recompile after warm-up": rep["recompiles_after_warmup"] == 0,
+        "cache hit rate >= 0.9": (rep["cache"]["hit_rate"] or 0.0) >= 0.9,
+        "exactly one terminal lifecycle state":
+            rep["reqlife_exactly_one_terminal"],
+        "ledger on/off bitwise": rep["reqlife_bitwise_on_off"],
+        "offline fleet <= 1e-12 relative":
+            rep["max_param_rel_diff_vs_offline"] <= TOL_SERVE_REL,
+        "offline fleet <= 1e-6 sigma":
+            rep["max_param_sigma_diff_vs_offline"] <= TOL_MIXED,
+        "fleet pipelined bitwise sequential": rep["fleet_pipeline_bitwise"],
+    })
+
+    # the phase's own engine: concurrent prewarm, the stream untraced
+    # and traced, a warm flush taken apart
+    eng = ServeEngine(max_batch=SERVE_MAX_BATCH, bucket_floor=SERVE_FLOOR,
+                      device=device)
+    t0 = time.perf_counter()
+    n_warm = eng.prewarm_concurrent([req(i) for i in range(n_psr)])
+    warm_s = time.perf_counter() - t0
+    plain = eng.run_stream([req(i) for i in range(SERVE_REQUESTS)])
+    obs_trace.reset()
+    obs_trace.enable(jax_annotations=True)
+    try:
+        t0 = time.perf_counter()
+        traced = eng.run_stream([req(i) for i in range(SERVE_REQUESTS)])
+        traced_s = time.perf_counter() - t0
+    finally:
+        obs_trace.disable()
+    spans = {}
+    for sp in obs_trace.spans():
+        spans[sp["name"]] = spans.get(sp["name"], 0) + 1
+    obs_trace.reset()
+    d_plain = [result_digest(r.value) for r in plain]
+    d_traced = [result_digest(r.value) for r in traced]
+    log(f"[serve] trace: prewarm_concurrent captured {n_warm} programs in "
+        f"{warm_s:.3f} s; the traced stream {traced_s:.3f} s; spans "
+        f"{json.dumps(dict(sorted(spans.items())))}")
+    check("[serve] trace", {
+        "9 programs captured": n_warm == 9,
+        "traced results bitwise the untraced": d_traced == d_plain,
+        "this engine bitwise the stream's engine": d_plain == digests,
+        "27 flush, pack and run spans": spans.get("serve.flush") == 27
+            and spans.get("serve.pack") == 27
+            and spans.get("serve.run") == 27,
+        "no capture while serving": "serve.compile" not in spans
+            and eng.executables_compiled == 9,
+    })
+
+    # where a warm flush's time goes: pack, copy, run, pull (the red-
+    # noise 16384 slot, its 8 largest pulsars)
+    idx = [serve_index(2, 2, k) for k in range(SERVE_PER_COMBO)]
+    t0 = time.perf_counter()
+    pta = eng._padded_batch(buckets[2], [models[i] for i in idx],
+                            [toas[i] for i in idx])
+    sync()
+    pack_s = time.perf_counter() - t0
+    slot = eng.batcher.slot_key(req(idx[0]), policy.resolve(req(idx[0])))
+    pta._fns = eng.cache.lookup(eng._exec_key(slot, SERVE_MAX_BATCH, pta))
+    prog = pta._fns[pta.program_key("gls", SERVE_MAXITER)]
+    copied, copy_s, copy_ms = 0, 0.0, 0.0
+    if prog.captured:  # an eager program (the CPU) copies nothing
+        t0 = time.perf_counter()
+        copied = prog.load(pta._x0(), *pta._leaves())
+        sync()
+        copy_s = time.perf_counter() - t0
+        copy_ms = load_ms(torch, prog, (pta._x0(),) + pta._leaves())
+    t0 = time.perf_counter()
+    handle = pta._dispatch_gls(SERVE_MAXITER)
+    sync()
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pta._finalize_gls(handle)
+    pull_s = time.perf_counter() - t0
+    log(f"[serve] a warm flush of the red-noise {buckets[2]} slot: pack "
+        f"{pack_s * 1e3:.2f} ms, copy of {copied / 2**20:.2f} MiB into the "
+        f"program {copy_s * 1e3:.3f} ms (the copy alone by CUDA events "
+        f"{copy_ms:.3f} ms), run (replay) {run_s * 1e3:.2f} ms, pull + "
+        f"finalize {pull_s * 1e3:.2f} ms")
+    del pta, prog
+
+    # [serve] mixed: the 24 red-noise pulsars in mixed vs their f64 fit
+    rn = [serve_index(2, s, k) for s in range(len(SERVE_SIZES))
+          for k in range(SERVE_PER_COMBO)]
+    t0 = time.perf_counter()
+    mixed = eng.run_stream([req(i, method="gls", precision="mixed")
+                            for i in rn])
+    mixed_s = time.perf_counter() - t0
+    xs64, _, covs64 = PTAFleet([models[i] for i in rn], [toas[i] for i in rn],
+                               device=device).fit(method="gls",
+                                                  maxiter=SERVE_MAXITER)
+    _, d_mixed = serve_gaps(mixed, xs64, covs64)
+    log(f"[serve] mixed: 24 red-noise fits (3 slots captured in their first "
+        f"flush) {mixed_s:.3f} s, max |x_mixed - x_f64| {d_mixed:.3e} sigma, "
+        f"degraded {eng.telemetry.counters.get('degraded_mixed', 0)}")
+    check("[serve] mixed", {
+        "every status ok": all(r.status == "ok" for r in mixed),
+        "mixed vs f64 <= 1e-6 sigma": d_mixed <= TOL_MIXED,
+        "no degraded_mixed": not eng.telemetry.counters.get(
+            "degraded_mixed"),
+    })
+
+    # [serve] cache reuse: disjoint pulsars through one warm slot each
+    reuse = {}
+    for name, structure, method in (("spin-only", 0, "wls"),
+                                    ("red-noise", 2, "gls")):
+        idx = [serve_index(structure, 2, k) for k in range(SERVE_PER_COMBO)]
+        before = eng.executables_compiled
+        runs = [eng.run_stream([req(i) for i in part])
+                for part in (idx[:4], idx[4:], idx[:4])]
+        for part, out in zip((idx[:4], idx[4:]), runs):
+            x, _, cov = serve_offline([models[i] for i in part],
+                                      [toas[i] for i in part], buckets[2],
+                                      method, device)
+            reuse[f"{name} {part[0]}-{part[-1]}"] = serve_gaps(out, x, cov)
+        reuse[f"{name} repeat bitwise"] = all(
+            np.array_equal(a.value["x"], b.value["x"])
+            for a, b in zip(runs[0], runs[2]))
+        reuse[f"{name} no capture"] = eng.executables_compiled == before
+        reuse[f"{name} other pulsars differ"] = not np.allclose(
+            runs[1][0].value["x"], runs[0][0].value["x"], rtol=1e-9)
+    # a pow2 fleet's program adopted by an engine: the fleet's batch is
+    # as wide as the slot's bucket (1024 TOAs) so its entry can hit
+    pm, pt = bench.build_serve_fleet(sizes=(buckets[0],),
+                                     per_combo=SERVE_PER_COMBO, seed=1,
+                                     device=device)
+    fleet = PTAFleet(pm[-SERVE_PER_COMBO:], pt[-SERVE_PER_COMBO:],
+                     toa_bucket="pow2", bucket_floor=SERVE_FLOOR,
+                     device=device)
+    fleet.precompile(method="auto", maxiter=SERVE_MAXITER)
+    first = fleet.fit(method="auto", maxiter=SERVE_MAXITER)
+    pf = ServeEngine(max_batch=SERVE_MAX_BATCH, bucket_floor=SERVE_FLOOR,
+                     device=device)
+    n_pf = pf.prefill_from_fleet(fleet, maxiter=SERVE_MAXITER)
+    idx = [serve_index(2, 0, k) for k in range(SERVE_PER_COMBO)]
+    for part in (idx[:4], idx[4:]):
+        out = pf.run_stream([req(i) for i in part])
+        x, _, cov = serve_offline([models[i] for i in part],
+                                  [toas[i] for i in part], buckets[0], "gls",
+                                  device)
+        reuse[f"prefill {part[0]}-{part[-1]}"] = serve_gaps(out, x, cov)
+    again = fleet.fit(method="auto", maxiter=SERVE_MAXITER)
+    reuse["prefill fleet refit bitwise"] = all(
+        np.array_equal(a, b) for a, b in zip(first[0], again[0]))
+    log(f"[serve] cache reuse: {json.dumps(reuse, default=float)}; prefill "
+        f"hits {pf.cache.hits}, captures {pf.executables_compiled}")
+    check("[serve] cache reuse", {
+        **{f"{k} <= 1e-12 relative and 1e-6 sigma":
+           v[0] <= TOL_SERVE_REL and v[1] <= TOL_MIXED
+           for k, v in reuse.items() if isinstance(v, tuple)},
+        **{k: v for k, v in reuse.items() if isinstance(v, bool)},
+        "prefill adopted 1 entry, 2 hits, no capture":
+            n_pf == 1 and pf.cache.hits == 2
+            and pf.executables_compiled == 0,
+    })
+    del fleet, pf
+
+    # [serve] resid/phase: one request of each per structure and bucket,
+    # and the main path's largest pulsar spilled solo
+    big_m, big_t = build_pta([SERVE_OVERSIZE_TOAS], device)
+    rp_models = [models[serve_index(s, j, 0)] for s in range(3)
+                 for j in range(len(SERVE_SIZES))] + big_m
+    rp_toas = [toas[serve_index(s, j, 0)] for s in range(3)
+               for j in range(len(SERVE_SIZES))] + big_t
+    t0 = time.perf_counter()
+    resid = [eng.submit(ResidualRequest(m, t))
+             for m, t in zip(rp_models, rp_toas)]
+    phase = [eng.submit(PhasePredictRequest(m, t))
+             for m, t in zip(rp_models, rp_toas)]
+    eng.drain()
+    rp_s = time.perf_counter() - t0
+    d_r = d_p = 0.0
+    for m, t, rr, pp in zip(rp_models, rp_toas, resid, phase):
+        b = PTABatch([m], [t], device=device)
+        r_off = b.time_residuals()[0].cpu().numpy()[0]
+        p_off = b.phases()[0].cpu().numpy()[0]
+        d_r = max(d_r, float(np.max(np.abs(rr.value["resid_s"] - r_off))))
+        d_p = max(d_p, float(np.max(np.abs(pp.value["phase"] - p_off))))
+    log(f"[serve] resid/phase: 20 requests in {rp_s:.3f} s, max |resid - "
+        f"unpadded| {d_r:.3e} s, |phase - unpadded| {d_p:.3e} cycles; the "
+        f"{SERVE_OVERSIZE_TOAS}-TOA pulsar spilled: "
+        f"{resid[-1].telemetry['spilled']}, {phase[-1].telemetry['spilled']}")
+    check("[serve] resid/phase", {
+        "every status ok": all(r.status == "ok" for r in resid + phase),
+        "residuals <= 1e-12 s": d_r <= 1e-12,
+        "phases <= 1e-9 cycles": d_p <= 1e-9,
+        "the oversize pulsar spilled solo":
+            resid[-1].telemetry["spilled"] and phase[-1].telemetry["spilled"]
+            and len(big_t[0]) > policy.DEFAULT_OVERSIZE_TOAS,
+        "the rest batched": not any(r.telemetry["spilled"]
+                                    for r in resid[:-1] + phase[:-1]),
+    })
+
+    # [serve] append: 8 mixed lanes (the 12,000-TOA spin-only and EFAC
+    # pulsars, no correlated noise: K1′ runs) over converged TOAs at
+    # their epochs, 4 appends each
+    lanes = ([serve_index(0, 2, k) for k in range(4)]
+             + [serve_index(1, 2, k) for k in range(4)])
+    lane_base = [serve_lane_base(models[i], toas[i], device, seed=i)
+                 for i in lanes]
+    t0 = time.perf_counter()
+    for i, base in zip(lanes, lane_base):
+        eng.register_append_lane(models[i], base, precision="mixed")
+    sync()
+    register_s = time.perf_counter() - t0
+    traffic = serve_append_traffic(
+        [models[i] for i in lanes],
+        [eng.streaming.lane(models[i]) for i in lanes], device)
+    delta_gram_cuda.launches = 0
+    appended = []
+    for k in range(SERVE_APPENDS):
+        for i, chunks in zip(lanes, traffic):
+            appended.append(eng.submit(AppendToasRequest(
+                models[i], chunks[k], precision="mixed")))
+    k1p = delta_gram_cuda.launches
+    lat = np.array([r.telemetry["total_s"] for r in appended]) * 1e3
+    direct = StreamingRefitter(device=device)
+    bit = True
+    d_fresh = 0.0
+    for j, (i, chunks) in enumerate(zip(lanes, traffic)):
+        direct.register(models[i], lane_base[j], precision="mixed")
+        for k in range(SERVE_APPENDS):
+            ref = direct.append(models[i], chunks[k],
+                                rid=appended[k * len(lanes) + j]
+                                .request.request_id)
+            got = appended[k * len(lanes) + j].value
+            bit = bit and np.array_equal(got["x"], ref["x"]) \
+                and got["chi2"] == ref["chi2"]
+        x_f, sig = serve_fresh_fit(eng.streaming, models[i], chunks)
+        d_fresh = max(d_fresh, float(np.max(np.abs(got["x"] - x_f) / sig)))
+    log(f"[serve] append: 8 lanes registered in {register_s:.3f} s; "
+        f"{len(appended)} appends of {SERVE_APPEND_TOAS} TOAs, p50 / p99 "
+        f"{np.percentile(lat, 50):.2f} / {np.percentile(lat, 99):.2f} ms; "
+        f"K1′ launches {k1p}; vs a fresh f64 fit of base + appended rows "
+        f"at the lanes' linearization "
+        f"{d_fresh:.3e} sigma; escalated "
+        f"{eng.telemetry.counters.get('append_escalated', 0)}")
+    check("[serve] append", {
+        "every status ok": all(r.status == "ok" for r in appended),
+        "K1′ launched exactly 32 times through the engine": k1p == 32,
+        "bitwise the refitter fed directly": bit,
+        "fresh f64 fit of base + appended rows <= 1e-6 sigma":
+            d_fresh <= TOL_MIXED,
+        "no escalation": not eng.telemetry.counters.get("append_escalated"),
+    })
+
+    # [serve] async: 4 producer threads submit the stream's requests
+    aeng = AsyncServeEngine(max_batch=SERVE_MAX_BATCH,
+                            bucket_floor=SERVE_FLOOR, device=device)
+    try:
+        aeng.prewarm_concurrent([req(i) for i in range(n_psr)])
+        handles = [None] * SERVE_REQUESTS
+
+        def producer(p):
+            for i in range(p, SERVE_REQUESTS, 4):
+                handles[i] = aeng.submit(req(i))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=producer, args=(p,))
+                   for p in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_ASYNC_WAIT_S)
+        # a dead flusher would leave drain() waiting forever: bound it
+        deadline = time.perf_counter() + SERVE_ASYNC_WAIT_S
+        while not all(h is not None and h.done for h in handles):
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"[serve] async: requests pending after "
+                    f"{SERVE_ASYNC_WAIT_S} s (flusher restarts "
+                    f"{aeng.telemetry.counters.get('flusher_restarts', 0)})")
+            time.sleep(0.01)
+        aeng.drain()
+        async_s = time.perf_counter() - t0
+        snap = aeng.snapshot()
+    finally:
+        aeng.close()
+    d_async = [result_digest(h.value) for h in handles]
+    log(f"[serve] async: {SERVE_REQUESTS} requests from 4 producers in "
+        f"{async_s:.3f} s ({SERVE_REQUESTS / async_s:.1f} requests/s), "
+        f"{snap['counters'].get('flushes')} flushes, p50 / p99 "
+        f"{snap['total_s']['p50'] * 1e3:.2f} / "
+        f"{snap['total_s']['p99'] * 1e3:.2f} ms, flusher restarts "
+        f"{snap['counters'].get('flusher_restarts', 0)}")
+    check("[serve] async", {
+        "every status ok": all(h.status == "ok" for h in handles),
+        "bitwise the sync engine": d_async == digests,
+        "no capture after warm-up": snap["executables_compiled"] == 9,
+    })
+    del eng, aeng
+    torch.cuda.empty_cache()
+    log(f"[serve] took {time.perf_counter() - t_phase:.2f} s; {gpu_line()}")
+    return k1p
+
+
 def run():
     import torch
 
@@ -4487,6 +5006,7 @@ def run():
     scenario_rows = stream_kernel(torch)
     entries.append(delta_record(torch, lane_arrays, scenario_rows,
                                 k1p_launches))
+    entries[-1]["launches_new_paths"] = {"serve append": serve_phase(torch)}
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

@@ -109,7 +109,8 @@ def check_precision(precision, allow_auto=False):
 
 def aot_lower(fn, *args):
     """Build a fit program, timing the build: ``fn(*args)`` returns it
-    (a closure over a batch's device tensors). Torch traces nothing, so
+    (for a batch, a function of the start vectors and the batch's device
+    tensors, ``graphs.py``). Torch traces nothing, so
     ``trace_s``, the JAX package's trace time, is the build's host wall.
     Returns {"lowered", "trace_s"}; :func:`aot_backend_compile` takes
     the "lowered" program."""
@@ -118,11 +119,12 @@ def aot_lower(fn, *args):
     return {"lowered": lowered, "trace_s": time.perf_counter() - t0}
 
 
-def aot_backend_compile(lowered, x0):
-    """Make a built program ready to dispatch at its start vectors
-    ``x0``: on the card, warm it up on a side stream and capture it into
-    CUDA graphs (``graphs.GraphProgram``; the eighs and SVDs run eagerly
-    between the graphs), ``backend_compile_s`` the capture's wall; on
+def aot_backend_compile(lowered, x0, *data):
+    """Make a built program ``lowered(x0, *data)`` ready to dispatch at
+    its start vectors ``x0`` and its batch's tensors ``data``: on the
+    card, warm it up on a side stream and capture it into CUDA graphs
+    (``graphs.GraphProgram``; the eighs and SVDs run eagerly between
+    the graphs), ``backend_compile_s`` the capture's wall; on
     the CPU nothing is captured (``backend_compile_s`` 0.0, the eager
     ``graphs.Program``). A failed capture raises. Returns the JAX
     package's dict {"compiled", "backend_compile_s", "flops",
@@ -132,7 +134,7 @@ def aot_backend_compile(lowered, x0):
     plus "captured" and "pieces" (the program's graphs and eager ops in
     order)."""
     if x0.device.type == "cuda":
-        compiled = graphs.GraphProgram(lowered, x0)
+        compiled = graphs.GraphProgram(lowered, x0, *data)
         backend_s = compiled.capture_s
     else:
         compiled, backend_s = graphs.Program(lowered), 0.0

@@ -2,11 +2,18 @@
 JAX package's compiled executables (``fitter.aot_*``, the fleet's
 ``precompile`` and pipelined executor).
 
-A fit program is a closure ``fit(x0)`` over a batch's device tensors.
-:class:`Program` runs it eagerly, as every fit did before the executor
-was ported. :class:`GraphProgram` warms it up on a side stream, then
-captures it into CUDA graphs, so a fit becomes a few graph launches
-instead of thousands of kernel launches from Python.
+A fit program is a function ``fit(x0, *data)`` of the start vectors
+and the device tensors of the batch that runs it (``PTABatch._leaves``:
+params, prep, TOA fields), the torch counterpart of a jitted function
+called with ``(params, batch, prep)``. :class:`Program` runs it
+eagerly, as every fit did before the executor was ported.
+:class:`GraphProgram` warms it up on a side stream, then captures it
+into CUDA graphs, so a fit becomes a few graph launches instead of
+thousands of kernel launches from Python. A captured program reads
+private copies of the data it was captured on; a call with another
+batch's tensors copies them in first, so a program cached for one
+batch and handed to another (the serve engine's executable cache)
+fits the batch that calls it.
 
 What runs in a graph and what runs eagerly is fixed here, not decided
 at run time. ATen checks the ``info`` tensor of ``torch.linalg.eigh``
@@ -34,7 +41,8 @@ Bookkeeping that the capture changes:
   opens a new one, since a pool dies with its last graph). Two programs
   may then share memory for their intermediates, which is safe while
   replays run one at a time on one stream — the fleet dispatches from
-  the caller's thread only.
+  the caller's thread only, the serve engine from one thread at a time
+  (the async front door's flusher holds its work mutex).
 """
 
 from __future__ import annotations
@@ -86,9 +94,31 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _data_map(fn, tree):
+    """``fn`` over the tensors of a data tree (dicts, tuples, lists and
+    namedtuples of tensors), keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _data_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_data_map(fn, t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_data_map(fn, t) for t in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _data_leaves(tree):
+    """The tensors of a data tree in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _data_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _data_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
 class Program:
-    """A fit program run eagerly: what a bucket's program table holds
-    until it is captured, and always on the CPU."""
+    """A program run eagerly on the arguments of each call: what a
+    bucket's program table holds until it is captured, and always on
+    the CPU."""
 
     captured = False
     launches = {}
@@ -97,9 +127,9 @@ class Program:
     def __init__(self, fn):
         self.fn = fn
 
-    def __call__(self, x0):
+    def __call__(self, *args):
         with torch.no_grad():
-            return self.fn(x0)
+            return self.fn(*args)
 
 
 class _Recording:
@@ -154,16 +184,20 @@ def _as_tuple(out):
 
 
 class GraphProgram:
-    """A fit program captured at ``x0``'s shape as CUDA graphs with its
-    eager ops between them (see the module docstring). ``capture_s`` is
-    the capture's host wall, warm-up included. A call copies ``x0``
-    into the captured input, replays the pieces in order and returns
-    clones of the outputs. A failed capture raises: there is no eager
+    """A program ``fn(x0, *data)`` captured at the shapes of ``x0`` and
+    ``data`` as CUDA graphs with its eager ops between them (see the
+    module docstring). The graphs read private copies of ``x0`` and of
+    every tensor of ``data``. ``capture_s`` is the capture's host wall,
+    warm-up included. A call copies ``x0`` into its copy, and each data
+    tensor unless it is the tensor last copied in (or captured on) and
+    has not been written since; it then replays the pieces in order and
+    returns clones of the outputs. ``copied_bytes`` counts the data
+    bytes the calls copied. A failed capture raises: there is no eager
     fallback."""
 
     captured = True
 
-    def __init__(self, fn, x0):
+    def __init__(self, fn, x0, *data):
         dev = x0.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA tensor, got {dev}")
@@ -171,19 +205,24 @@ class GraphProgram:
         self.device = dev
         main = torch.cuda.current_stream(dev)
         self.x0 = x0.clone()
+        self.data = _data_map(torch.clone, data)
+        self._inputs = _data_leaves(self.data)
+        self._loaded = [(weakref.ref(t), t._version)
+                        for t in _data_leaves(data)]
+        self.copied_bytes = 0
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(main)
         with torch.no_grad(), torch.cuda.stream(side):
             # warm-up: library handles and workspaces, the Gram wrappers'
             # occupancy query and launch plans, all before the capture
-            fn(self.x0)
+            fn(self.x0, *self.data)
         torch.cuda.synchronize(dev)
         rec = _Recording(pool(dev))
         _STATE.recording = rec
         try:
             with torch.no_grad(), torch.cuda.stream(side):
                 rec.begin()
-                self.out = fn(self.x0)
+                self.out = fn(self.x0, *self.data)
                 rec.end()
         finally:
             _STATE.recording = None
@@ -215,9 +254,28 @@ class GraphProgram:
                 else getattr(p[1], "__name__", repr(p[1]))
                 for p in self.pieces]
 
-    def __call__(self, x0):
+    def load(self, x0, *data):
+        """Copy a call's inputs into the captured ones (see the class
+        docstring); returns the data bytes copied."""
         if x0 is not self.x0:
             self.x0.copy_(x0)
+        leaves = _data_leaves(data)
+        if len(leaves) != len(self._inputs):
+            raise ValueError(f"program captured on {len(self._inputs)} "
+                             f"data tensors, called with {len(leaves)}")
+        copied = 0
+        for i, (dst, src) in enumerate(zip(self._inputs, leaves)):
+            ref, version = self._loaded[i]
+            if ref() is src and src._version == version:
+                continue
+            dst.copy_(src)
+            self._loaded[i] = (weakref.ref(src), src._version)
+            copied += src.numel() * src.element_size()
+        self.copied_bytes += copied
+        return copied
+
+    def __call__(self, x0, *data):
+        self.load(x0, *data)
         for p in self.pieces:
             _run(p, self.wrappers)
         return _tree_map(torch.clone, self.out)

@@ -9,7 +9,12 @@
 - :mod:`fitquality` — the fit-quality probes the fitters and
   ``PTAFleet`` record when ``fitquality.enable()`` is on (:data:`FITQ`);
 - :mod:`drift` — EWMA/CUSUM sentinels (the streaming lanes' drift
-  watch).
+  watch);
+- :mod:`trace` — structured spans in a ring (:func:`trace.enable`; the
+  serve engine's ``serve.*`` spans, optionally named torch profiler
+  ranges);
+- :mod:`reqlife` — the per-request lifecycle ledger the serve engine
+  records (:data:`reqlife.REQLIFE`).
 
 Quick start::
 
@@ -19,15 +24,17 @@ Quick start::
     xs, chi2, covs = fleet.fit(method="gls", maxiter=2)
     print(fitquality.check_report(fitquality.FITQ.snapshot()))
 
-Not ported yet (ROADMAP §1 item 3): tracing spans (``trace.py``), the
-cost model, ``DriftBoard``, the burn-rate monitor and the serve packs
-of ``slo.py``, the request lifecycle, the baseline gate, the exporter
-and the ``python -m pint_tpu.obs`` CLIs.
+Not ported yet (ROADMAP §1 item 3's observability queue): the cost
+model, ``DriftBoard``, the burn-rate monitor and the serve packs of
+``slo.py``, the baseline gate, the exporter and the ``python -m
+pint_tpu.obs`` CLIs.
 """
 
 from . import clock  # noqa: F401
 from . import fitquality  # noqa: F401
+from . import reqlife  # noqa: F401
 from . import slo  # noqa: F401
+from . import trace  # noqa: F401
 from .fitquality import FITQ, FitQualityLedger, fit_quality_slos  # noqa: F401
 from .metricsreg import (REGISTRY, Counter, Gauge, Histogram,  # noqa: F401
                          Registry, percentile, prometheus_text, summary)

@@ -583,17 +583,25 @@ class PTABatch:
     def _sigma_fn(self):
         return pure_sigma_fn(self.template, self.static)
 
+    def _leaves(self):
+        """The batch's device data as a program's arguments: (params,
+        tensor prep, TOA fields), the tensors :meth:`shape_signature`
+        walks. Every program in ``_fns`` computes on the data it is
+        called with (``graphs.py``), so a program built on one batch
+        runs any batch of the same signature."""
+        return self.params, _tensor_tree(self.prep), self.batch
+
     def _resid_fn(self):
-        """p -> (residual seconds, sigma us), each (B, n): every
-        pulsar's phase residual with its weighted mean removed, over F0
-        — the JAX package's ``_resid_fn`` with the pulsar axis written
-        out. Unpacked layout only (see :meth:`_slots` for the packed)."""
+        """(p, batch, prep) -> (residual seconds, sigma us), each (B,
+        n): every pulsar's phase residual with its weighted mean
+        removed, over F0 — the JAX package's ``_resid_fn`` with the
+        pulsar axis written out. Unpacked layout only (see
+        :meth:`_slots` for the packed)."""
         vmap = torch.func.vmap
         phase_fn = self._phase_fn()
         sigma_fn = self._sigma_fn()
-        batch, prep = self.batch, _tensor_tree(self.prep)
 
-        def resid(p):
+        def resid(p, batch, prep):
             ph = vmap(phase_fn)(p, batch, prep)
             frac = ph - torch.floor(ph + 0.5)
             sig = vmap(sigma_fn)(p, batch, prep)
@@ -611,18 +619,19 @@ class PTABatch:
         and prep over every row (``slot_env``), the owner-masked merge
         of per-slot (R, W, ...) evaluations (``combine``) and the
         residual seconds of merged phases (``resid``). Built once per
-        batch (the pack and prep never change)."""
+        batch on its own data (the pack and prep never change); the
+        packed program builds it inside ``fit`` on the data it is
+        called with (:meth:`_build_slots`)."""
         if self._slot_cache is None:
-            self._slot_cache = self._build_slots()
+            self._slot_cache = self._build_slots(self.params,
+                                                 _tensor_tree(self.prep))
         return self._slot_cache
 
-    def _build_slots(self):
+    def _build_slots(self, params, prep):
         pack = self._pack
         S = int(pack["n_slots"])
         Q = int(pack["quantum"])
         slot_keys = frozenset(pack["slot_keys"])
-        params = self.params
-        prep = _tensor_tree(self.prep)
         R, W = self.batch.tdb_sec.shape
         RS = R * S
         rows = torch.arange(R, device=self.device)[:, None]
@@ -721,14 +730,13 @@ class PTABatch:
                     and self.prep["ecorr_owner"].shape[-1] > 0)
 
     def _design_fn(self):
-        """(x, p) -> (B, n, 1 + k) time design matrix of every pulsar:
-        the offset column, then d(phase)/dx / F0 by jacfwd."""
+        """(x, p, params, batch, prep) -> (B, n, 1 + k) time design
+        matrix of every pulsar: the offset column, then d(phase)/dx /
+        F0 by jacfwd."""
         vmap = torch.func.vmap
         phase_fn = self._phase_fn()
-        params, batch = self.params, self.batch
-        prep = _tensor_tree(self.prep)
 
-        def design(x, p):
+        def design(x, p, params, batch, prep):
             def phase_of(xv, ps, b, pr):
                 return phase_fn(self._overlay(ps, xv), b, pr)
 
@@ -741,9 +749,9 @@ class PTABatch:
     # -- the WLS program --
 
     def _build_wls(self, maxiter=3, threshold=1e-12):
-        """(program key, fit(x0) -> (x, chi2, (covn, norm))) for the
-        whole batch — the JAX package's ``_build_wls`` with the pulsar
-        axis written out:
+        """(program key, fit(x0, params, prep, batch) -> (x, chi2,
+        (covn, norm))) for the whole batch — the JAX package's
+        ``_build_wls`` with the pulsar axis written out:
         per iteration the column-normalized whitened SVD step
         (fitter.wls_step, batched) and chi2 at the linearization,
         |rw - Mw dx|^2. Unpacked batches only: the planner gives
@@ -755,36 +763,36 @@ class PTABatch:
                 "(PTABatch(..., pad_toas=width)) instead")
         resid = self._resid_fn()
         design = self._design_fn()
-        params = self.params
 
-        def one_step(x):
+        def one_step(x, params, prep, batch):
             p = self._overlay(params, x)
-            r, sig = resid(p)
+            r, sig = resid(p, batch, prep)
             sigma_s = sig * 1e-6
-            Mw = design(x, p) / sigma_s[..., None]
+            Mw = design(x, p, params, batch, prep) / sigma_s[..., None]
             rw = r / sigma_s
             dx, covn, norm = wls_step(Mw, rw, threshold)
             chi2 = torch.sum(torch.square(rw - _mv(Mw, dx)), dim=-1)
             return x - dx[..., 1:], chi2, (covn[..., 1:, 1:], norm[..., 1:])
 
-        def fit(x0):
+        def fit(x0, params, prep, batch):
             x = x0
             for _ in range(maxiter):
-                x, chi2, cov = one_step(x)
+                x, chi2, cov = one_step(x, params, prep, batch)
             return x, chi2, cov
 
         return ("wls", maxiter, threshold), fit
 
     def _dispatch(self, method, key, fit, **opts):
-        """Run the bucket's program for ``key`` WITHOUT pulling its
-        results: the device work is queued (a captured program replays
-        its graphs) and a handle returns for the finalize. The lazy path
-        installs the eager ``fit`` under ``key`` on first use."""
+        """Run the bucket's program for ``key`` on this batch's start
+        vectors and data WITHOUT pulling its results: the device work is
+        queued (a captured program replays its graphs) and a handle
+        returns for the finalize. The lazy path installs the eager
+        ``fit`` under ``key`` on first use."""
         t0 = time.perf_counter()
         prog = self._fns.setdefault(key, graphs.Program(fit))
         x0 = self._x0()
         return {"method": method, "t0": t0, "replayed": prog.captured,
-                "x0": x0, "out": prog(x0), **opts}
+                "x0": x0, "out": prog(x0, *self._leaves()), **opts}
 
     def _dispatch_wls(self, maxiter=3, threshold=1e-12):
         """Dispatch the WLS program (see :meth:`_dispatch`); wls_fit ==
@@ -844,9 +852,10 @@ class PTABatch:
 
     def _build_gls(self, maxiter=2, threshold=1e-12, ecorr_mode="auto",
                    precision="f64", fused=None):
-        """(program key, fit(x0) -> (x, chi2, (covn, norm, worst
-        relres))) for the whole batch — the JAX package's ``_build_gls``
-        with the pulsar axis written out, keyed as it keys its
+        """(program key, fit(x0, params, prep, batch) -> (x, chi2,
+        (covn, norm, worst relres))) for the whole batch — the JAX
+        package's ``_build_gls`` with the pulsar axis written out, keyed
+        as it keys its
         executables. ECORR epochs are marginalized analytically
         (per-epoch Sherman-Morrison through segment sums); with every
         noise parameter frozen the x-independent blocks are hoisted out
@@ -866,15 +875,13 @@ class PTABatch:
         noise_bw = self._noise_bw_fn(exclude_ecorr=marginalize)
         ecorr = (self.template.components["EcorrNoise"] if marginalize
                  else None)
-        params, batch = self.params, self.batch
-        prep = _tensor_tree(self.prep)
         static = self.static
-        Bn_ = batch.tdb_sec.shape[0]
+        Bn_ = self.batch.tdb_sec.shape[0]
         dev = self.device
         resid = self._resid_fn()
         design = self._design_fn()
 
-        def bases(p):
+        def bases(p, prep):
             if noise_bw is None:
                 return None, None
             return vmap(noise_bw)(p, prep)
@@ -887,7 +894,7 @@ class PTABatch:
                               Bn_ * (k + 1))
             return out.reshape((Bn_, k + 1) + vals.shape[2:])[:, :k]
 
-        def epoch_setup(p, a):
+        def epoch_setup(p, a, prep):
             eidx, w_us2 = vmap(lambda pp, pr: ecorr.epoch_index_weight(
                 pp, {**pr, **static}))(p, prep)
             k = w_us2.shape[-1]
@@ -896,11 +903,12 @@ class PTABatch:
             w_s2 = w_us2 * 1e-12
             return e_idx, k, w_s2 / (1.0 + w_s2 * s)  # w=0 (padding) -> c=0
 
-        def one_step_dense(x):
+        def one_step_dense(x, params, prep, batch):
             p = self._overlay(params, x)
-            r, sig = resid(p)
+            r, sig = resid(p, batch, prep)
             sigma_s = sig * 1e-6
-            Mfull, spi, nparam = stack_noise_bases(design(x, p), bases(p))
+            Mfull, spi, nparam = stack_noise_bases(
+                design(x, p, params, batch, prep), bases(p, prep))
             Mn, norm, q = gls_whiten(Mfull, sigma_s, spi)
             z = r / sigma_s
             A, b, rNr = gls_fused_normal(Mn, z, q, precision)
@@ -914,16 +922,17 @@ class PTABatch:
             chi2 = rNr - torch.sum(b * dxn, -1)
             return finish(x, dxn / norm, chi2, covn, norm, relres, nparam)
 
-        def one_step_marg(x):
+        def one_step_marg(x, params, prep, batch):
             p = self._overlay(params, x)
-            r, sig = resid(p)
+            r, sig = resid(p, batch, prep)
             sigma_s = sig * 1e-6
-            Mfull, spi, nparam = stack_noise_bases(design(x, p), bases(p))
+            Mfull, spi, nparam = stack_noise_bases(
+                design(x, p, params, batch, prep), bases(p, prep))
             Mn, norm, q = gls_whiten(Mfull, sigma_s, spi)
             z = r / sigma_s
             a = 1.0 / sigma_s
             A0q, b0, rNr = gls_fused_normal(Mn, z, q, precision)
-            e_idx, k, c = epoch_setup(p, a)
+            e_idx, k, c = epoch_setup(p, a, prep)
             G = epoch_sums(Mn * a[..., None], e_idx, k)
             t = epoch_sums(z * a, e_idx, k)
             Gc = torch.sqrt(c)[..., None] * G
@@ -942,7 +951,7 @@ class PTABatch:
             chi2 = rCr - torch.sum(bn * dxn, -1)
             return finish(x, dxn / norm, chi2, covn, norm, relres, nparam)
 
-        def precompute_marg():
+        def precompute_marg(params, prep, batch):
             # x-independent pieces (sigma, whitened noise basis and its
             # Gram, epoch weights), evaluated at the packed params
             p = params
@@ -950,21 +959,21 @@ class PTABatch:
             sigma_s = sig * 1e-6
             a = 1.0 / sigma_s
             B, spi_B, _ = stack_noise_bases(
-                sigma_s.new_zeros(sigma_s.shape + (0,)), bases(p))
+                sigma_s.new_zeros(sigma_s.shape + (0,)), bases(p, prep))
             Bn, normB, qB = gls_whiten(B, sigma_s, spi_B)
             FtF = gls_gram(Bn, torch.zeros_like(qB), precision)
-            e_idx, k, c = epoch_setup(p, a)
+            e_idx, k, c = epoch_setup(p, a, prep)
             sc = torch.sqrt(c)
             GcB = sc[..., None] * epoch_sums(Bn * a[..., None], e_idx, k)
             return dict(sigma_s=sigma_s, a=a, Bn=Bn, qB=qB, normB=normB,
                         FtF=FtF, e_idx=e_idx, k=k, c=c, sc=sc, GcB=GcB,
                         GcBtGcB=GcB.mT @ GcB)
 
-        def one_step_marg_hoisted(x, pre):
+        def one_step_marg_hoisted(x, pre, params, prep, batch):
             p = self._overlay(params, x)
-            r, _ = resid(p)
+            r, _ = resid(p, batch, prep)
             sigma_s, a, k = pre["sigma_s"], pre["a"], pre["k"]
-            M = design(x, p)
+            M = design(x, p, params, batch, prep)
             nparam = M.shape[-1]
             Mn_p, normM, _ = gls_whiten(M, sigma_s, M.new_zeros(Bn_, nparam))
             z = r / sigma_s
@@ -1010,17 +1019,20 @@ class PTABatch:
                     (covn[..., 1:nparam, 1:nparam], norm[..., 1:nparam],
                      relres))
 
-        def fit(x0):
+        def fit(x0, params, prep, batch):
             x = x0
             worst = x0.new_zeros(Bn_)
-            pre = precompute_marg() if hoist else None
+            pre = precompute_marg(params, prep, batch) if hoist else None
             for _ in range(maxiter):
                 if hoist:
-                    x, chi2, (covn, norm, relres) = one_step_marg_hoisted(x, pre)
+                    x, chi2, (covn, norm, relres) = one_step_marg_hoisted(
+                        x, pre, params, prep, batch)
                 elif marginalize:
-                    x, chi2, (covn, norm, relres) = one_step_marg(x)
+                    x, chi2, (covn, norm, relres) = one_step_marg(
+                        x, params, prep, batch)
                 else:
-                    x, chi2, (covn, norm, relres) = one_step_dense(x)
+                    x, chi2, (covn, norm, relres) = one_step_dense(
+                        x, params, prep, batch)
                 worst = torch.maximum(worst, relres)
             return x, chi2, (covn, norm, worst)
 
@@ -1029,9 +1041,11 @@ class PTABatch:
 
     def _build_gls_packed(self, maxiter=2, threshold=1e-12,
                           ecorr_mode="auto", precision="f64", fused=True):
-        """(program key, fit(x0)) for the segment-packed layout — the
-        JAX package's ``_build_gls_packed`` over ALL rows at once: x0
-        (R, S, k).
+        """(program key, fit(x0, params, prep, batch)) for the
+        segment-packed layout — the JAX package's ``_build_gls_packed``
+        over ALL rows at once: x0 (R, S, k). The slot machinery
+        (:meth:`_build_slots`) is built inside ``fit`` from the prep it
+        is given.
 
         Each slot evaluates phase/design/noise with ITS params over the
         whole row (torch.func.vmap over rows); foreign rows are masked
@@ -1060,16 +1074,15 @@ class PTABatch:
         vmap = torch.func.vmap
         phase_fn = self._phase_fn()
         sigma_fn = self._sigma_fn()
-        sl = self._slots()
-        S, Q, R, W, RS = sl.S, sl.Q, sl.R, sl.W, sl.RS
-        rows, bseg, gown = sl.rows, sl.bseg, sl.gown
-        osum, slot_env, combine = sl.osum, sl.slot_env, sl.combine
+        S = int(self._pack["n_slots"])
+        Q = int(self._pack["quantum"])
+        R, W = self.batch.tdb_sec.shape
+        RS = R * S
         Qe = int(self._pack["e_quantum"])
-        batch = self.batch
-        prep = _tensor_tree(self.prep)
         static = self.static
 
-        def combine_noise(x):
+        def combine_noise(x, sl, batch):
+            slot_env, combine = sl.slot_env, sl.combine
             sigs, Bs, spis = [], [], []
             w_ec = None
             for s in range(S):
@@ -1090,7 +1103,8 @@ class PTABatch:
                     w_ec = wec_s if w_ec is None else w_ec + wec_s
             return combine(sigs), combine(Bs), torch.stack(spis, 1), w_ec
 
-        def combine_design(x):
+        def combine_design(x, sl, batch):
+            slot_env, combine = sl.slot_env, sl.combine
             phs, Ms, f0s = [], [], []
             for s in range(S):
                 ps, full = slot_env(s)
@@ -1108,9 +1122,10 @@ class PTABatch:
             M = torch.cat([torch.ones_like(M[..., :1]), M], dim=-1)
             return combine(phs), M, torch.stack(f0s, 1)
 
-        def one_step(x, noise):
+        def one_step(x, noise, sl, prep, batch):
+            rows, bseg, gown, osum = sl.rows, sl.bseg, sl.gown, sl.osum
             sig, B, spiB, w_ec = noise
-            ph, M, F0 = combine_design(x)
+            ph, M, F0 = combine_design(x, sl, batch)
             nparam = M.shape[-1]
             Mfull = (torch.cat([M, B], dim=-1) if B.shape[-1] else M)
             K = Mfull.shape[-1]
@@ -1195,13 +1210,15 @@ class PTABatch:
                      norm[:, 1:nparam].reshape(R, S, nparam - 1),
                      relres.reshape(R, S)))
 
-        def fit(x0):
+        def fit(x0, params, prep, batch):
+            sl = self._build_slots(params, prep)
             x = x0
             worst = x0.new_zeros((R, S))
-            noise = combine_noise(x0) if hoist else None
+            noise = combine_noise(x0, sl, batch) if hoist else None
             for _ in range(maxiter):
                 x, chi2, (covn, norm, relres) = one_step(
-                    x, noise if hoist else combine_noise(x))
+                    x, noise if hoist else combine_noise(x, sl, batch), sl,
+                    prep, batch)
                 worst = torch.maximum(worst, relres)
             return x, chi2, (covn, norm, worst)
 
@@ -1315,18 +1332,19 @@ class PTABatch:
         if choice is not None:
             return choice
         x0 = self._x0()
+        data = self._leaves()
         timings = {}
         mixed_failed = False
         for mode in ("f64", "mixed"):
             pkey, fit = self._build_gls(maxiter, threshold, ecorr_mode, mode,
                                         fused=fused)
             prog = self._fns.setdefault(pkey, graphs.Program(fit))
-            out = prog(x0)  # warm-up
+            out = prog(x0, *data)  # warm-up
             if mode == "mixed":
                 mixed_failed = relres_failed(_np(out[2][2]))
             self._sync()
             t0 = time.perf_counter()
-            prog(x0)
+            prog(x0, *data)
             self._sync()
             timings[mode] = time.perf_counter() - t0
         choice = _PRECISION_AUTO_CACHE.setdefault(
@@ -1386,10 +1404,12 @@ class PTABatch:
 
     def _aot_backend_compile(self, low):
         """Capture an :meth:`aot_lower` handle at this batch's start
-        vectors (``fitter.aot_backend_compile``: CUDA graphs on the card,
+        vectors and data (``fitter.aot_backend_compile``: CUDA graphs on
+        the card,
         the eager program on the CPU), install it in the program table
         and return the info dict. Runs on the caller's thread."""
-        info = fitter.aot_backend_compile(low["lowered"], self._x0())
+        info = fitter.aot_backend_compile(low["lowered"], self._x0(),
+                                          *self._leaves())
         self._fns[low["key"]] = info.pop("compiled")
         return {"method": low["method"], "trace_s": low["trace_s"], **info}
 
@@ -1437,15 +1457,47 @@ class PTABatch:
 
     def time_residuals(self):
         """(n_psr, n_toa_max) residual seconds at the batch's params, and
-        the (numpy) validity mask. Unpacked batches only, as in the JAX
-        package."""
+        the (numpy) validity mask. The program is kept in ``_fns`` under
+        ``("resid",)`` like the fit programs, eager, and runs on the data
+        it is given (a serve slot's cached table reuses it). Unpacked
+        batches only, as in the JAX package."""
         if self._pack:
             raise RuntimeError("time_residuals is not supported on packed "
-                               "plan batches")
-        with torch.no_grad():
-            r, _ = self._resid_fn()(self.params)
+                               "plan batches (serve lanes use regular "
+                               "ladder-width batches)")
+        key = ("resid",)
+        if key not in self._fns:
+            resid_fn = self._resid_fn()
+
+            def resid(params, prep, batch):
+                return resid_fn(params, batch, prep)[0]
+
+            self._fns[key] = graphs.Program(resid)
+        r = self._fns[key](*self._leaves())
         mask = np.arange(r.shape[1])[None, :] < np.asarray(self.n_toas)[:, None]
         return r, mask
+
+    def phases(self):
+        """(n_psr, n_toa_max) continuous pulse phase and the validity
+        mask — the phase-predict surface of the serve engine (polyco-style
+        evaluation at the request's TOAs, through the full timing model).
+        Kept in ``_fns`` under ``("phase",)`` like :meth:`time_residuals`.
+        Unpacked batches only, as in the JAX package."""
+        if self._pack:
+            raise RuntimeError("phases is not supported on packed plan "
+                               "batches (serve lanes use regular "
+                               "ladder-width batches)")
+        key = ("phase",)
+        if key not in self._fns:
+            phase_fn = torch.func.vmap(self._phase_fn())
+
+            def phase(params, prep, batch):
+                return phase_fn(params, batch, prep)
+
+            self._fns[key] = graphs.Program(phase)
+        ph = self._fns[key](*self._leaves())
+        mask = np.arange(ph.shape[1])[None, :] < np.asarray(self.n_toas)[:, None]
+        return ph, mask
 
     def _gw_eval_packed(self, x):
         """Packed-plan half of :meth:`gw_arrays`: scatter the per-pulsar
@@ -1486,7 +1538,8 @@ class PTABatch:
                 r, sig = self._gw_eval_packed(x)
             else:
                 xp = self._pulsar_vectors(x)
-                r, sig = self._resid_fn()(self._overlay(self.params, xp))
+                r, sig = self._resid_fn()(self._overlay(self.params, xp),
+                                          self.batch, _tensor_tree(self.prep))
         r, sig = _np(r), _np(sig)
         if not self._pack:
             mask = np.arange(r.shape[1])[None, :] < n_toas[:, None]
@@ -1533,8 +1586,8 @@ class PTABatch:
 def fleet_aot_compile(jobs, max_workers=None):
     """Build and capture many bucket programs. ``jobs`` is a list of
     (batch, kwargs), kwargs as :meth:`PTABatch.aot_compile` takes them
-    (with "method"). The program builds (``aot_lower``, host prep: the
-    closures over each batch's tensors) run in a pool of
+    (with "method"). The program builds (``aot_lower``, host prep of
+    each batch's programs) run in a pool of
     ``max_workers`` threads; the captures then run serially on the
     caller's thread in job order. A capture is host launch work under
     the GIL, like the JAX package's serial trace phase, and captures in

@@ -1,16 +1,28 @@
 """Deterministic fault injection (the JAX package's
-``resilience/faultinject.py``, for the sites the streaming path and the
-fleet executor have).
+``resilience/faultinject.py``).
 
-The failure modes these paths handle cannot be produced
+The failure modes the serving and fitting paths handle (poisoned TOAs,
+transient compile failures, slow dispatches, solver divergence, a
+wedged flusher, an overflowing intake) cannot be produced
 deterministically by normal inputs, so this registry gives each one a
 NAMED injection point with seeded, countable trigger semantics:
 production code calls :func:`fire` (or :func:`fire_kill`) at the site
 where the real fault would surface, and tests arm points with
-:func:`inject` to make the fault happen on demand.
+:func:`inject` (or the ``PINT_TPU_FAULTS`` env spec, the JAX package's
+name, read once at import by :func:`arm_from_env`) to make the fault
+happen on demand.
 
-Injection points of the port:
+:data:`POINTS` names every point of the JAX package, so a spec written
+for it parses here. The port's sites:
 
+- ``toa_nan`` / ``toa_inf_error`` — a request arrives with a NaN TOA
+  value / a non-finite uncertainty (``serve.engine.ServeEngine.submit``
+  intake, on a deep copy of the request; payload ``index``).
+- ``compile_fail`` — a failed capture of a cold slot's program
+  (``serve.engine`` cold flush; payload ``retryable``, True unless
+  given).
+- ``dispatch_slow`` — a slow dispatch (``serve.engine`` flush, before
+  the run; payload ``delay_s``).
 - ``solver_diverge`` — an incremental lane solve is treated as
   non-finite (``serve.streaming.StreamingRefitter.append``): the lane
   quarantines the result and escalates to a full refit; in a batch fit
@@ -20,12 +32,21 @@ Injection points of the port:
   failing (the pipelined fleet executor's per-bucket dispatch loop,
   ``parallel.pta.PTAFleet._fit_pipelined``). Payload ``delay_s`` sets
   the injected stall, ``lane`` pins the slow bucket index.
+- ``flusher_stall`` — the async front door's flusher wedges at its
+  loop top, before any dequeue (``serve.frontdoor``; payload
+  ``hang_s``): the watchdog must supersede and restart it.
+- ``intake_overflow`` — the async front door refuses an accepted
+  request as if the intake were full
+  (``serve.frontdoor.AsyncServeEngine.submit``).
 - ``process_kill`` — the process dies by SIGKILL at a named durability
   site (:func:`fire_kill`); the port's one site is
   ``append_delta_write``, just before a delta segment's atomic publish
   (``store.deltas.DeltaStore.append``). Payload ``at`` pins the site.
 
-Disarmed sites cost one falsy-dict check.
+``checkpoint_corrupt``, ``device_loss``, ``collective_timeout``,
+``journal_torn_write`` and ``executable_cache_corrupt`` have no site in
+the port yet: their modules wait (ROADMAP §1 item 2, multi-device; item
+3's durability queue). Disarmed sites cost one falsy-dict check.
 """
 
 from __future__ import annotations
@@ -36,7 +57,37 @@ from contextlib import contextmanager
 
 import numpy as np
 
-POINTS = ("solver_diverge", "straggler_delay", "process_kill")
+POINTS = ("toa_nan", "toa_inf_error", "compile_fail", "dispatch_slow",
+          "solver_diverge", "checkpoint_corrupt", "device_loss",
+          "collective_timeout", "straggler_delay", "process_kill",
+          "journal_torn_write", "executable_cache_corrupt",
+          "flusher_stall", "intake_overflow")
+
+# named durability sites where an armed ``process_kill`` can SIGKILL
+# the serving process (see fire_kill). Each is a distinct point in the
+# journal/commit/cache protocol with a distinct recovery obligation;
+# the chaos harness kills at every one of them. ``flusher_take`` is
+# the async front door's flusher-death leg: the worker dies with a
+# request dequeued but nothing flushed or committed.
+KILL_SITES = ("intake_append", "pre_commit", "mid_commit",
+              "post_commit", "excache_store", "store_write",
+              "append_delta_write", "flusher_take")
+
+# the device-level failure domain: points that model a chip / lane
+# dying, hanging, or straggling rather than a bad request
+DEVICE_POINTS = ("device_loss", "collective_timeout", "straggler_delay")
+
+
+class FaultInjected(RuntimeError):
+    """Raised at sites whose fault effect is an exception (e.g.
+    ``compile_fail``). ``retryable`` steers the serve retry policy:
+    True models a transient failure, False a persistent one."""
+
+    def __init__(self, point, retryable=True, detail=None):
+        super().__init__(f"injected fault: {point}")
+        self.point = point
+        self.retryable = bool(retryable)
+        self.detail = dict(detail or {})
 
 
 class FaultPoint:
@@ -49,7 +100,9 @@ class FaultPoint:
     after: skip the first ``after`` eligibility checks (lets a fault
         land mid-stream instead of on the first request).
     payload: site-interpreted detail merged into :func:`fire`'s return
-        (e.g. ``{"at": "append_delta_write"}`` for process_kill).
+        (e.g. ``{"lanes": [1]}`` for solver_diverge, ``{"delay_s":
+        0.5}`` for dispatch_slow, ``{"retryable": False}`` for
+        compile_fail).
     """
 
     def __init__(self, name, rate=1.0, count=None, after=0, seed=0,
@@ -87,10 +140,11 @@ class FaultPoint:
 # check)
 _armed: dict = {}
 
-# observers called with (name, payload) on every actual firing: the obs
-# flight recorder subscribes here so a dump can name the fault that
-# started the cascade. This module never imports obs (the dependency
-# arrow stays obs -> resilience).
+# observers called with (name, payload) on every actual firing — the
+# obs flight recorder subscribes here so chaos dumps can name the
+# fault that started the cascade. Faults are rare, so the per-fire
+# fan-out costs nothing on the happy path; this module never imports
+# obs (the dependency arrow stays obs -> resilience).
 _observers: list = []
 
 
@@ -118,20 +172,37 @@ def fire(name, **ctx):
     return payload
 
 
+def kill_armed_at(site):
+    """True when an armed ``process_kill`` point targets ``site`` —
+    its ``at`` payload matches (or is omitted). A pure peek: trigger
+    state (checks/count/rng) does not advance, so call sites can
+    stage a torn write before dying without consuming a fire on
+    mismatched sites."""
+    pt = _armed.get("process_kill")
+    if pt is None:
+        return False
+    at = pt.payload.get("at")
+    return at is None or at == site
+
+
 def fire_kill(site, **ctx):
     """SIGKILL this process at a named durability site when an armed
-    ``process_kill`` point targets it (its ``at`` payload matches or is
-    omitted). SIGKILL cannot be caught: no atexit hooks, no finally
-    blocks, no flushes run. Returns False when the site is disarmed,
-    another site is targeted or the trigger says not this time; on an
-    actual fire the call never returns."""
-    pt = _armed.get("process_kill")
-    if pt is None or pt.payload.get("at") not in (None, site):
+    ``process_kill`` point targets it. SIGKILL cannot be caught: no
+    atexit hooks, no finally blocks, no flushes run — exactly the
+    crash the journal's recovery contract must survive. Returns False
+    (site disarmed / wrong site / trigger said not this time);
+    on an actual fire the call never returns."""
+    if not kill_armed_at(site):
         return False
     if fire("process_kill", site=site, **ctx) is None:
         return False
     os.kill(os.getpid(), signal.SIGKILL)
     return True  # not reached: SIGKILL terminates before returning
+
+
+def armed():
+    """Read-only view of the currently armed points."""
+    return dict(_armed)
 
 
 def arm(point: FaultPoint):
@@ -153,8 +224,8 @@ def inject(*points):
     """Arm FaultPoints (or bare point names, meaning fire-always) for
     the duration of the block, restoring the previous arming after::
 
-        with inject(FaultPoint("solver_diverge", count=1)):
-            refitter.append(model, toas)
+        with inject(FaultPoint("toa_nan", rate=0.05, seed=7)):
+            engine.run_stream(requests)
     """
     before = dict(_armed)
     try:
@@ -164,3 +235,58 @@ def inject(*points):
     finally:
         _armed.clear()
         _armed.update(before)
+
+
+def parse_spec(spec):
+    """Parse a ``PINT_TPU_FAULTS`` spec string into FaultPoints.
+
+    Grammar: ``point[:key=value[,key=value...]][;point...]`` with keys
+    rate/count/after/seed/delay_s/retryable/lanes — unknown keys land
+    in the payload. Example::
+
+        PINT_TPU_FAULTS="toa_nan:rate=0.05,seed=7;compile_fail:count=1"
+    """
+    points = []
+    for part in str(spec).split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, rest = part.partition(":")
+        kw = {"rate": 1.0, "count": None, "after": 0, "seed": 0}
+        payload = {}
+        for item in rest.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            k, _, v = item.partition("=")
+            k = k.strip()
+            v = v.strip()
+            if k in ("rate",):
+                kw[k] = float(v)
+            elif k in ("count", "after", "seed"):
+                kw[k] = int(v)
+            elif k == "lanes":
+                payload[k] = [int(x) for x in v.split("+")]
+            elif k == "lane":
+                # device-level points address one DeviceLane by index
+                payload[k] = int(v)
+            elif k == "retryable":
+                payload[k] = v.lower() in ("1", "true", "yes")
+            else:
+                try:
+                    payload[k] = float(v)
+                except ValueError:
+                    payload[k] = v
+        points.append(FaultPoint(name.strip(), payload=payload, **kw))
+    return points
+
+
+def arm_from_env(env="PINT_TPU_FAULTS"):
+    """Arm every point named in the env var (no-op when unset).
+    Called once at package import so ``PINT_TPU_FAULTS=... python
+    -m pint_tpu_torch.scripts.pint_serve_bench`` injects without code
+    changes; returns the armed points."""
+    spec = os.environ.get(env)
+    if not spec:
+        return []
+    return [arm(p) for p in parse_spec(spec)]

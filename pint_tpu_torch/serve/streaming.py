@@ -44,12 +44,14 @@ their chain instead — their accumulators are refreshed in place,
 because the replayed rows exist only as accumulators and a merge would
 silently drop them.
 
-Differences from the JAX package: there is no mesh argument (the port
-has no mesh yet) and no per-lane compiled evaluator — torch runs
-eagerly, so a lane's rows are evaluated by a function built on the batch
-at hand; registration builds the lane's base batch once and reuses it
-for its linearization sweeps (the batch does not depend on the
-linearization point, so the numbers are those of a rebuild).
+Differences from the JAX package: ``mesh=`` raises (the port has no
+mesh yet, ROADMAP §1 item 2) and there is no per-lane compiled
+evaluator — torch runs eagerly, so a lane's rows are evaluated by a
+function built on the batch at hand; registration builds the lane's
+base batch once and reuses it for its linearization sweeps (the batch
+does not depend on the linearization point, so the numbers are those
+of a rebuild). ``clock`` is the owning engine's (monotonic) clock, as
+in the JAX package (``ServeEngine`` hands it its own).
 """
 
 from __future__ import annotations
@@ -149,13 +151,22 @@ class StreamingRefitter:
     {StreamingRefitter._lock, DeltaStore._lock} — and nothing acquires a
     lane lock while holding the refitter lock. The optional ``deltas``
     store (store/deltas.py) persists each append before its result is
-    visible. Row evaluation and the appended rows' Grams run on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    visible; ``clock`` follows the owning engine's (monotonic) clock.
+    Row evaluation and the appended rows' Grams run on ``device`` (the
+    card unless the caller asks for the CPU)."""
 
-    def __init__(self, deltas=None, device="cuda"):
+    def __init__(self, deltas=None, clock=None, mesh=None, device="cuda"):
+        import time
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "StreamingRefitter(mesh=) waits with multi-device "
+                "(ROADMAP §1 item 2)")
         self._lock = threading.RLock()
         self.lanes = {}
         self.deltas = deltas
+        self.clock = clock or time.monotonic
+        self.mesh = None
         self.device = resolve_device(device)
         self.appends = 0
         self.escalated = 0
@@ -189,7 +200,7 @@ class StreamingRefitter:
 
         def rows(x):
             p = pta._overlay(pta.params, x)
-            r, sig = resid_fn(p)
+            r, sig = resid_fn(p, pta.batch, prep)
             M = jac(x, pta.params, pta.batch, prep) / p["F"][:, 0, None, None]
             M = torch.cat([torch.ones_like(M[..., :1]), M], dim=-1)
             return M, r, 1.0 / (sig * 1e-6)

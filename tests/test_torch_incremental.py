@@ -322,7 +322,7 @@ def test_faultinject_trigger_semantics():
     from pint_tpu_torch.resilience import faultinject as fi
 
     with pytest.raises(ValueError, match="unknown fault point"):
-        fi.FaultPoint("compile_fail")
+        fi.FaultPoint("not_a_point")
     assert fi.fire("solver_diverge") is None
     with fi.inject(fi.FaultPoint("solver_diverge", count=1, after=1,
                                  payload={"lanes": [0]})):
