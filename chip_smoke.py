@@ -238,7 +238,8 @@ on it, an interactive pintk session and binary conversions):
    at their epochs, two receivers) registered through the engine, 4
    appends of 64 TOAs each: exactly 32 K1′ launches (counted in the
    kernel line's ``launches_new_paths``), bitwise a refitter fed the
-   same appends, <= 1e-6 sigma of a fresh f64 fit of the same rows;
+   same appends, <= 1e-6 sigma of an f64 WLS fit of base + appended
+   TOAs that shares no code with the refitter (``serve_fresh_fit``);
    ``[serve] async``: ``AsyncServeEngine`` with 4 producer threads,
    bitwise the sync engine;
 13. ``[photon]``: bench.py's photon stage (4,000,000 photons, 1,000,000
@@ -4435,32 +4436,41 @@ def serve_append_traffic(models, lanes, device="cuda", seed=5):
     return out
 
 
-def serve_fresh_fit(refitter, model, chunks):
-    """A fresh f64 fit of a lane's base TOAs and its appended ``chunks``
-    built from scratch at the lane's frozen linearization and column
-    normalization: every row evaluated as the lane evaluates it (the
-    base batch, then each chunk's own padded batch, whose weighted mean
-    residual is removed per chunk), one f64 normal state over all of
-    them (``streaming.LANE_RIDGE`` ridge) and its solve, on a copy of
-    the lane. Returns (x, sigma)."""
-    from pint_tpu_torch.kernels import incremental as inc
+def serve_fresh_fit(model, lane, chunks, device="cuda"):
+    """An f64 WLS fit of a lane's base TOAs and its appended ``chunks``
+    that shares none of the refitter's code: one PTABatch whose rows are
+    the pieces (the base, then each chunk, so each keeps its own
+    weighted mean residual removed, as the lane's rows do), its design
+    (``_design_fn``) and residuals (``_resid_fn``) at the lane's frozen
+    ``x``, then one Gauss-Newton step from ``x`` by a least-squares
+    solve of the whitened, column-normalized rows with the lane's ridge
+    prior (``streaming.LANE_RIDGE``) as extra rows. Returns (x,
+    sigma)."""
+    import torch
+
+    from pint_tpu_torch.parallel import PTABatch
     from pint_tpu_torch.serve import streaming
 
-    lane = copy.copy(refitter.lane(model))
-    base = lane.base_toas
-    n = streaming._pad_len(len(base), streaming.APPEND_PAD)
-    M, r, winv = refitter._eval_rows(lane, refitter._batch(model, base, n))
-    rows = [(M / lane.norm[None, :], r, winv)]
-    for c in chunks:
-        a = refitter._chunk_arrays(lane, c)
-        rows.append((a["X"], a["r"], a["winv"]))
-    X, r, winv = (np.concatenate(col) for col in zip(*rows))
-    lane.state = inc.build_normal(
-        X, r, winv, q=np.full(X.shape[1], streaming.LANE_RIDGE),
-        block=min(streaming.BASE_BLOCK, streaming._pad_len(len(X), 8)),
-        device=refitter.device)
-    x, _, _ = refitter._solve(lane)
-    return x, lane_sigma(lane)
+    pieces = [lane.base_toas] + list(chunks)
+    pta = PTABatch([model] * len(pieces), pieces, device=device)
+    params, prep, batch = pta._leaves()
+    x = torch.as_tensor(np.tile(lane.x, (len(pieces), 1)), device=device)
+    with torch.no_grad():
+        p = pta._overlay(params, x)
+        r, sig = pta._resid_fn()(p, batch, prep)
+        M = pta._design_fn()(x, p, params, batch, prep)
+    valid = np.arange(r.shape[1])[None, :] < np.asarray(pta.n_toas)[:, None]
+    winv = 1.0 / (sig.cpu().numpy()[valid] * 1e-6)
+    Mw = M.cpu().numpy()[valid] * winv[:, None]
+    rw = r.cpu().numpy()[valid] * winv
+    norm = np.linalg.norm(Mw, axis=0)
+    k = Mw.shape[1]
+    A = np.concatenate([Mw / norm, streaming.LANE_RIDGE * np.eye(k)])
+    dxn = np.linalg.lstsq(A, np.concatenate([rw, np.zeros(k)]),
+                          rcond=None)[0]
+    covn = np.linalg.inv(A.T @ A)
+    return (np.asarray(lane.x) - (dxn / norm)[1:],
+            (np.sqrt(np.diag(covn)) / norm)[1:])
 
 
 def serve_phase(torch, device="cuda"):
@@ -4747,20 +4757,21 @@ def serve_phase(torch, device="cuda"):
             got = appended[k * len(lanes) + j].value
             bit = bit and np.array_equal(got["x"], ref["x"]) \
                 and got["chi2"] == ref["chi2"]
-        x_f, sig = serve_fresh_fit(eng.streaming, models[i], chunks)
+        x_f, sig = serve_fresh_fit(models[i], eng.streaming.lane(models[i]),
+                                   chunks, device)
         d_fresh = max(d_fresh, float(np.max(np.abs(got["x"] - x_f) / sig)))
     log(f"[serve] append: 8 lanes registered in {register_s:.3f} s; "
         f"{len(appended)} appends of {SERVE_APPEND_TOAS} TOAs, p50 / p99 "
         f"{np.percentile(lat, 50):.2f} / {np.percentile(lat, 99):.2f} ms; "
-        f"K1′ launches {k1p}; vs a fresh f64 fit of base + appended rows "
-        f"at the lanes' linearization "
+        f"K1′ launches {k1p}; vs an independent f64 WLS fit of base + "
+        f"appended TOAs at the lanes' linearization "
         f"{d_fresh:.3e} sigma; escalated "
         f"{eng.telemetry.counters.get('append_escalated', 0)}")
     check("[serve] append", {
         "every status ok": all(r.status == "ok" for r in appended),
         "K1′ launched exactly 32 times through the engine": k1p == 32,
         "bitwise the refitter fed directly": bit,
-        "fresh f64 fit of base + appended rows <= 1e-6 sigma":
+        "independent f64 fit of base + appended TOAs <= 1e-6 sigma":
             d_fresh <= TOL_MIXED,
         "no escalation": not eng.telemetry.counters.get("append_escalated"),
     })

@@ -39,10 +39,18 @@ Bookkeeping that the capture changes:
 - Memory: every graph draws on the pool of the programs alive on its
   device (:func:`pool`; the first capture after all of them are freed
   opens a new one, since a pool dies with its last graph). Two programs
-  may then share memory for their intermediates, which is safe while
-  replays run one at a time on one stream — the fleet dispatches from
-  the caller's thread only, the serve engine from one thread at a time
-  (the async front door's flusher holds its work mutex).
+  may then share memory for their intermediates.
+- Threads: a call writes the program's private inputs, replays graphs
+  whose intermediates may share memory with another program's, and
+  clones the outputs, so no two may overlap. Every capture and every
+  call holds one lock of the process (``_LOCK``) from its first copy to
+  its last clone, and its device work first waits for the event that
+  the one before it recorded (``_after_last``), so that the work of
+  callers on different streams runs in turn on the card too. A fleet
+  fitting on one thread and a serve engine flushing on another thus
+  each get their own batch's fit. A capture runs in ``thread_local``
+  mode: another thread's eager work (an uncaptured program, a K1′
+  append) may go on while it captures.
 """
 
 from __future__ import annotations
@@ -55,6 +63,24 @@ import torch
 
 _STATE = threading.local()
 _LIVE = weakref.WeakSet()  # captured GraphPrograms
+_LOCK = threading.RLock()  # held by every capture and every call
+_DONE = {}  # device -> event recorded after the last capture or call
+
+
+def _after_last(stream):
+    """Make ``stream`` wait for the device work of the last capture or
+    call on its device (hold ``_LOCK``)."""
+    done = _DONE.get(stream.device)
+    if done is not None:
+        stream.wait_event(done)
+
+
+def _mark_done(stream):
+    """Record the end of this capture's or call's work on ``stream``
+    (hold ``_LOCK``)."""
+    done = torch.cuda.Event()
+    done.record(stream)
+    _DONE[stream.device] = done
 
 
 def pool(device):
@@ -144,7 +170,8 @@ class _Recording:
     def begin(self):
         self.before = [w.launches for w in self.wrappers]
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.capture_begin(pool=self.pool)
+        self.graph.capture_begin(pool=self.pool,
+                                 capture_error_mode="thread_local")
 
     def end(self):
         self.graph.capture_end()
@@ -192,8 +219,9 @@ class GraphProgram:
     tensor unless it is the tensor last copied in (or captured on) and
     has not been written since; it then replays the pieces in order and
     returns clones of the outputs. ``copied_bytes`` counts the data
-    bytes the calls copied. A failed capture raises: there is no eager
-    fallback."""
+    bytes the calls copied. Captures and calls run one at a time in the
+    process (the module docstring's threads). A failed capture raises:
+    there is no eager fallback."""
 
     captured = True
 
@@ -201,9 +229,15 @@ class GraphProgram:
         dev = x0.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA tensor, got {dev}")
+        with _LOCK:
+            self._capture(fn, x0, data)
+
+    def _capture(self, fn, x0, data):
+        dev = x0.device
         t0 = time.perf_counter()
         self.device = dev
         main = torch.cuda.current_stream(dev)
+        _after_last(main)
         self.x0 = x0.clone()
         self.data = _data_map(torch.clone, data)
         self._inputs = _data_leaves(self.data)
@@ -233,6 +267,7 @@ class GraphProgram:
                 except Exception:  # noqa: BLE001
                     pass
         main.wait_stream(side)
+        _mark_done(main)
         torch.cuda.synchronize(dev)
         self.pieces = rec.pieces
         self.wrappers = rec.wrappers
@@ -256,7 +291,8 @@ class GraphProgram:
 
     def load(self, x0, *data):
         """Copy a call's inputs into the captured ones (see the class
-        docstring); returns the data bytes copied."""
+        docstring); returns the data bytes copied. Hold ``_LOCK`` until
+        the replay that reads them has been queued."""
         if x0 is not self.x0:
             self.x0.copy_(x0)
         leaves = _data_leaves(data)
@@ -275,7 +311,12 @@ class GraphProgram:
         return copied
 
     def __call__(self, x0, *data):
-        self.load(x0, *data)
-        for p in self.pieces:
-            _run(p, self.wrappers)
-        return _tree_map(torch.clone, self.out)
+        with _LOCK:
+            stream = torch.cuda.current_stream(self.device)
+            _after_last(stream)
+            self.load(x0, *data)
+            for p in self.pieces:
+                _run(p, self.wrappers)
+            out = _tree_map(torch.clone, self.out)
+            _mark_done(stream)
+        return out

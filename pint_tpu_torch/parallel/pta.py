@@ -430,6 +430,59 @@ def _tensor_tree(tree):
     return {k: v for k, v in tree.items() if isinstance(v, torch.Tensor)}
 
 
+def _slot_machinery(pack, shape, params, prep):
+    """The packed layout's slot machinery (:meth:`PTABatch._slots`) of
+    a batch of (R, W) = ``shape`` rows with pack metadata ``pack``, on
+    the given params and prep (their device)."""
+    S = int(pack["n_slots"])
+    Q = int(pack["quantum"])
+    slot_keys = frozenset(pack["slot_keys"])
+    R, W = shape
+    RS = R * S
+    block_slot = prep["_pack_block_slot"]  # (R, W/Q)
+    rows = torch.arange(R, device=block_slot.device)[:, None]
+    owner = torch.repeat_interleave(block_slot, Q, dim=1)  # (R, W)
+    bseg = (rows * S + block_slot).reshape(-1)  # global block segment
+    gown = (rows * S + owner).reshape(-1)  # global per-TOA segment
+    shared = {k: v for k, v in prep.items()
+              if k not in slot_keys and not k.startswith("_pack_")}
+
+    def osum(v):
+        # per-TOA values (R*W, ...) -> per-segment sums (R*S, ...)
+        return block_segment_sum(v, bseg, RS, Q)
+
+    def slot_env(s):
+        ps = {k: v[:, s] for k, v in params.items()}
+        full = dict(shared)
+        for k in slot_keys:
+            full[k] = prep[k][:, s]
+        return ps, full
+
+    def combine(parts):
+        # slot-major list of (R, W, ...) -> row combination by owner
+        out = parts[0]
+        for s in range(1, S):
+            m = (owner == s).reshape(owner.shape
+                                     + (1,) * (parts[s].ndim - 2))
+            out = torch.where(m, parts[s], out)
+        return out
+
+    def resid(ph, sig, F0):
+        # merged (R, W) phase and sigma, (R, S) F0 -> flat (R*W,)
+        # residual seconds and sigma, per-segment weighted phase mean
+        # removed
+        frac = (ph - torch.floor(ph + 0.5)).reshape(-1)
+        sig = sig.reshape(-1)
+        wts = 1.0 / torch.square(sig)
+        frac = frac - (osum(frac * wts) / osum(wts))[gown]
+        return frac / F0.reshape(-1)[gown], sig
+
+    return SimpleNamespace(S=S, Q=Q, R=R, W=W, RS=RS, rows=rows,
+                           bseg=bseg, gown=gown, osum=osum,
+                           slot_env=slot_env, combine=combine,
+                           resid=resid)
+
+
 class PTABatch:
     """Batched multi-pulsar GLS fitting; all models share component
     structure (see stack_prepared / stack_packed)."""
@@ -577,6 +630,16 @@ class PTABatch:
     def _overlay(self, params, x):
         return _overlay_params(x, params, tuple(self.free_map()))
 
+    def _overlay_fn(self):
+        """:meth:`_overlay` as a closure over the free map alone, for
+        programs (which hold nothing of the batch that built them)."""
+        fmap = tuple(self.free_map())
+
+        def overlay(params, x):
+            return _overlay_params(x, params, fmap)
+
+        return overlay
+
     def _phase_fn(self):
         return pure_phase_fn(self.template, self.static)
 
@@ -621,61 +684,12 @@ class PTABatch:
         residual seconds of merged phases (``resid``). Built once per
         batch on its own data (the pack and prep never change); the
         packed program builds it inside ``fit`` on the data it is
-        called with (:meth:`_build_slots`)."""
+        called with (:func:`_slot_machinery`)."""
         if self._slot_cache is None:
-            self._slot_cache = self._build_slots(self.params,
-                                                 _tensor_tree(self.prep))
+            self._slot_cache = _slot_machinery(
+                self._pack, tuple(self.batch.tdb_sec.shape), self.params,
+                _tensor_tree(self.prep))
         return self._slot_cache
-
-    def _build_slots(self, params, prep):
-        pack = self._pack
-        S = int(pack["n_slots"])
-        Q = int(pack["quantum"])
-        slot_keys = frozenset(pack["slot_keys"])
-        R, W = self.batch.tdb_sec.shape
-        RS = R * S
-        rows = torch.arange(R, device=self.device)[:, None]
-        block_slot = prep["_pack_block_slot"]  # (R, W/Q)
-        owner = torch.repeat_interleave(block_slot, Q, dim=1)  # (R, W)
-        bseg = (rows * S + block_slot).reshape(-1)  # global block segment
-        gown = (rows * S + owner).reshape(-1)  # global per-TOA segment
-        shared = {k: v for k, v in prep.items()
-                  if k not in slot_keys and not k.startswith("_pack_")}
-
-        def osum(v):
-            # per-TOA values (R*W, ...) -> per-segment sums (R*S, ...)
-            return block_segment_sum(v, bseg, RS, Q)
-
-        def slot_env(s):
-            ps = {k: v[:, s] for k, v in params.items()}
-            full = dict(shared)
-            for k in slot_keys:
-                full[k] = prep[k][:, s]
-            return ps, full
-
-        def combine(parts):
-            # slot-major list of (R, W, ...) -> row combination by owner
-            out = parts[0]
-            for s in range(1, S):
-                m = (owner == s).reshape(owner.shape
-                                         + (1,) * (parts[s].ndim - 2))
-                out = torch.where(m, parts[s], out)
-            return out
-
-        def resid(ph, sig, F0):
-            # merged (R, W) phase and sigma, (R, S) F0 -> flat (R*W,)
-            # residual seconds and sigma, per-segment weighted phase mean
-            # removed
-            frac = (ph - torch.floor(ph + 0.5)).reshape(-1)
-            sig = sig.reshape(-1)
-            wts = 1.0 / torch.square(sig)
-            frac = frac - (osum(frac * wts) / osum(wts))[gown]
-            return frac / F0.reshape(-1)[gown], sig
-
-        return SimpleNamespace(S=S, Q=Q, R=R, W=W, RS=RS, rows=rows,
-                               bseg=bseg, gown=gown, osum=osum,
-                               slot_env=slot_env, combine=combine,
-                               resid=resid)
 
     def _noise_bw_fn(self, exclude_ecorr=False):
         """Pure (params, prep) -> (B, w_us2) of one pulsar, stacking
@@ -735,10 +749,11 @@ class PTABatch:
         F0 by jacfwd."""
         vmap = torch.func.vmap
         phase_fn = self._phase_fn()
+        overlay = self._overlay_fn()
 
         def design(x, p, params, batch, prep):
             def phase_of(xv, ps, b, pr):
-                return phase_fn(self._overlay(ps, xv), b, pr)
+                return phase_fn(overlay(ps, xv), b, pr)
 
             M = vmap(torch.func.jacfwd(phase_of))(x, params, batch, prep)
             M = M / p["F"][:, 0, None, None]
@@ -763,9 +778,10 @@ class PTABatch:
                 "(PTABatch(..., pad_toas=width)) instead")
         resid = self._resid_fn()
         design = self._design_fn()
+        overlay = self._overlay_fn()
 
         def one_step(x, params, prep, batch):
-            p = self._overlay(params, x)
+            p = overlay(params, x)
             r, sig = resid(p, batch, prep)
             sigma_s = sig * 1e-6
             Mw = design(x, p, params, batch, prep) / sigma_s[..., None]
@@ -880,6 +896,7 @@ class PTABatch:
         dev = self.device
         resid = self._resid_fn()
         design = self._design_fn()
+        overlay = self._overlay_fn()
 
         def bases(p, prep):
             if noise_bw is None:
@@ -904,7 +921,7 @@ class PTABatch:
             return e_idx, k, w_s2 / (1.0 + w_s2 * s)  # w=0 (padding) -> c=0
 
         def one_step_dense(x, params, prep, batch):
-            p = self._overlay(params, x)
+            p = overlay(params, x)
             r, sig = resid(p, batch, prep)
             sigma_s = sig * 1e-6
             Mfull, spi, nparam = stack_noise_bases(
@@ -923,7 +940,7 @@ class PTABatch:
             return finish(x, dxn / norm, chi2, covn, norm, relres, nparam)
 
         def one_step_marg(x, params, prep, batch):
-            p = self._overlay(params, x)
+            p = overlay(params, x)
             r, sig = resid(p, batch, prep)
             sigma_s = sig * 1e-6
             Mfull, spi, nparam = stack_noise_bases(
@@ -970,7 +987,7 @@ class PTABatch:
                         GcBtGcB=GcB.mT @ GcB)
 
         def one_step_marg_hoisted(x, pre, params, prep, batch):
-            p = self._overlay(params, x)
+            p = overlay(params, x)
             r, _ = resid(p, batch, prep)
             sigma_s, a, k = pre["sigma_s"], pre["a"], pre["k"]
             M = design(x, p, params, batch, prep)
@@ -1044,7 +1061,7 @@ class PTABatch:
         """(program key, fit(x0, params, prep, batch)) for the
         segment-packed layout — the JAX package's ``_build_gls_packed``
         over ALL rows at once: x0 (R, S, k). The slot machinery
-        (:meth:`_build_slots`) is built inside ``fit`` from the prep it
+        (:func:`_slot_machinery`) is built inside ``fit`` from the prep it
         is given.
 
         Each slot evaluates phase/design/noise with ITS params over the
@@ -1080,6 +1097,9 @@ class PTABatch:
         RS = R * S
         Qe = int(self._pack["e_quantum"])
         static = self.static
+        overlay = self._overlay_fn()
+        pack = {k: self._pack[k] for k in ("n_slots", "quantum",
+                                           "slot_keys")}
 
         def combine_noise(x, sl, batch):
             slot_env, combine = sl.slot_env, sl.combine
@@ -1087,7 +1107,7 @@ class PTABatch:
             w_ec = None
             for s in range(S):
                 ps, full = slot_env(s)
-                p = self._overlay(ps, x[:, s])
+                p = overlay(ps, x[:, s])
                 sigs.append(vmap(sigma_fn)(p, batch, full))
                 bw = ((vmap(noise_bw)(p, full) if noise_bw is not None
                        else None) or (None, None))
@@ -1108,11 +1128,11 @@ class PTABatch:
             phs, Ms, f0s = [], [], []
             for s in range(S):
                 ps, full = slot_env(s)
-                p = self._overlay(ps, x[:, s])
+                p = overlay(ps, x[:, s])
                 phs.append(vmap(phase_fn)(p, batch, full))
 
                 def phase_of(xv, pp, b, pr):
-                    return phase_fn(self._overlay(pp, xv), b, pr)
+                    return phase_fn(overlay(pp, xv), b, pr)
 
                 M_s = vmap(torch.func.jacfwd(phase_of))(x[:, s], ps, batch,
                                                         full)
@@ -1211,7 +1231,7 @@ class PTABatch:
                      relres.reshape(R, S)))
 
         def fit(x0, params, prep, batch):
-            sl = self._build_slots(params, prep)
+            sl = _slot_machinery(pack, (R, W), params, prep)
             x = x0
             worst = x0.new_zeros((R, S))
             noise = combine_noise(x0, sl, batch) if hoist else None

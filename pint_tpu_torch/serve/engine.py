@@ -133,9 +133,9 @@ class ServeEngine:
         self.health = health or HealthMonitor(clock=clock)
         self.bisect_depth = int(bisect_depth)
         self.executables_compiled = 0
-        # serializes device work (flushes, captures, registrations):
-        # captured programs share one graph pool per device, which is
-        # safe only while replays run one at a time (graphs.py)
+        # serializes the engine's own work (flushes, captures,
+        # registrations); graphs.py's process lock orders its replays
+        # against every other program's (another engine's, a fleet's)
         self._work_mutex = threading.RLock()
         # slot_key -> set of exec_keys seen: a second DISTINCT
         # executable for a slot is an unexpected recompile (shapes are

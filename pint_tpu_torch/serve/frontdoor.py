@@ -31,10 +31,11 @@ decouples intake from flush so overload is a real, measurable state:
 
 All device work runs on one thread at a time, the one holding the
 engine's ``_work_mutex`` — the flusher's while traffic flows
-(producers only enqueue). Captured programs share one graph memory
-pool per device, which is safe only while their replays run one at a
-time (``graphs.py``), so a watchdog restart never leaves two threads
-replaying. The flusher makes the engine's device its current device
+(producers only enqueue) — so a watchdog restart never leaves two
+threads flushing. Captured programs share one graph memory pool per
+device; ``graphs.py`` runs their captures and replays one at a time in
+the process, so a fleet fitting on the caller's thread, or a second
+engine, cannot interleave with a flush either. The flusher makes the engine's device its current device
 before anything else, since a slot's first capture happens inside a
 flush on that thread.
 

@@ -444,10 +444,10 @@ def test_faultinject_has_straggler_delay():
 # -- on the card ------------------------------------------------------
 
 
-def _card_fleet():
-    """A noise fleet on the card with a packed bucket (K1/K2 in mixed),
-    from the port's own fake-TOA maker (the card's machine need not
-    have JAX)."""
+def _card_fleet(device="cuda"):
+    """A noise fleet on the card (or ``device``) with a packed bucket
+    (K1/K2 in mixed), from the port's own fake-TOA maker (the card's
+    machine need not have JAX)."""
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.parallel import PTAFleet
     from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
@@ -463,7 +463,7 @@ def _card_fleet():
             mjds, models[-1], error_us=1.0,
             freq_mhz=np.where(np.arange(len(mjds)) % 2, 1400.0, 800.0),
             add_noise=True, seed=i, flags={"f": "L-wide"}, device="cpu"))
-    return PTAFleet(models, pts, device="cuda", **PLAN)
+    return PTAFleet(models, pts, device=device, **PLAN)
 
 
 @pytest.mark.cuda
@@ -520,3 +520,223 @@ def test_pipelined_bitwise_on_card():
     assert rep["fleet_compile_serial_s"] > 0
     assert all(p.captured for b in fleet.batches.values()
                for p in b._fns.values())
+
+
+# -- a program holds nothing of the batch that built it ------------------
+
+
+def _reachable(root):
+    """Objects reachable from a function through closures, defaults,
+    bound methods, partials and containers (not through other objects'
+    attributes)."""
+    import functools
+    import types
+
+    seen, out, stack = set(), [], [root]
+    while stack:
+        obj = stack.pop()
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        out.append(obj)
+        if isinstance(obj, types.FunctionType):
+            for cell in obj.__closure__ or ():
+                try:
+                    stack.append(cell.cell_contents)
+                except ValueError:  # an empty cell
+                    pass
+            stack.extend(obj.__defaults__ or ())
+            stack.extend((obj.__kwdefaults__ or {}).values())
+        elif isinstance(obj, types.MethodType):
+            stack.extend((obj.__self__, obj.__func__))
+        elif isinstance(obj, functools.partial):
+            stack.extend((obj.func, *obj.args, *obj.keywords.values()))
+        elif isinstance(obj, dict):
+            stack.extend(obj.values())
+        elif isinstance(obj, (list, tuple, set, frozenset)):
+            stack.extend(obj)
+        elif isinstance(obj, types.SimpleNamespace):
+            stack.extend(vars(obj).values())
+    return out
+
+
+@pytest.fixture(scope="module")
+def plan_fleet(pulsars):
+    """The packed noise fleet of the card tests, on the CPU, and the
+    spin + noise pulsars' unpacked buckets: (packed fleet, fleet)."""
+    return _card_fleet("cpu"), _mixed_fleet(pulsars)
+
+
+@pytest.mark.parametrize("build", [
+    ("wls", {}), ("gls", {}), ("gls", {"precision": "mixed"}),
+    ("gls", {"ecorr_mode": "dense"}), ("packed", {}),
+    ("packed", {"fused": False}), ("resid", {}), ("phase", {})])
+def test_programs_hold_nothing_of_their_batch(plan_fleet, build):
+    """A program in a batch's table reaches neither the batch nor any of
+    its device tensors, so a cached table (the serve engine's) keeps
+    only the programs' own data alive, and runs on the data it is
+    given."""
+    from pint_tpu_torch.parallel import PTABatch
+
+    kind, opts = build
+    packed = [b for f in plan_fleet for b in f.batches.values() if b._pack]
+    plain = [b for b in plan_fleet[1].batches.values()]
+    assert packed and not [b for b in plain if b._pack]
+    if kind == "packed":
+        b = packed[0]
+        fit = b._build_gls(2, **opts)[1]
+    elif kind in ("resid", "phase"):
+        b = plain[0]
+        (b.time_residuals if kind == "resid" else b.phases)()
+        fit = b._fns[(kind,)].fn
+    else:
+        b = next(b for b in plain
+                 if ("EcorrNoise" in b.template.components) == (kind == "gls"))
+        fit = (b._build_wls(3) if kind == "wls"
+               else b._build_gls(2, **opts))[1]
+    leaves = {id(t) for t in
+              [*b.params.values(), *b.prep.values(), *b.batch]
+              if isinstance(t, torch.Tensor)}
+    found = _reachable(fit)
+    assert not [o for o in found if isinstance(o, PTABatch)]
+    assert not [o for o in found if id(o) in leaves]
+
+
+# -- captured programs on other batches and other threads (the card) -----
+
+
+def _card_batches():
+    """Three unpacked noise batches on the card: A and B of one
+    signature with disjoint pulsars, C of a wider one (another program
+    on the same graph memory pool)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel import PTABatch
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+    from test_torch_pta import par
+
+    rng = np.random.default_rng(5)
+    out = []
+    for first, days in ((0, 24), (2, 24), (4, 48)):
+        models, pts = [], []
+        for i in (first, first + 1):
+            models.append(get_model(par(i)))
+            d = np.sort(rng.uniform(54000, 57000, days - 2 * (i % 2)))
+            mjds = (d[:, None] + np.arange(4) * 0.5 / 86400.0).reshape(-1)
+            pts.append(make_fake_toas_fromMJDs(
+                mjds, models[-1], error_us=1.0,
+                freq_mhz=np.where(np.arange(len(mjds)) % 2, 1400.0, 800.0),
+                add_noise=True, seed=20 + i, flags={"f": "L-wide"},
+                device="cpu"))
+        out.append(PTABatch(models, pts, pad_toas=4 * days, device="cuda"))
+    return out
+
+
+def _replay(prog, b):
+    """(x, chi2) of ``prog`` run on batch ``b``'s start vectors and
+    data, and the data bytes the call copied in."""
+    before = prog.copied_bytes
+    x, chi2, _ = prog(b._x0(), *b._leaves())
+    return (x, chi2), prog.copied_bytes - before
+
+
+def _same(a, b):
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_captured_program_copies_or_skips_its_inputs():
+    """On the card: a program captured on batch A and called with B's
+    tensors copies all of them in and fits B (bitwise B's own captured
+    program; B's eager fit to 1e-6 sigma and chi2 to 1e-9 relative, the
+    batched-fit tier of the module docstring); called with A's again
+    it copies them back; a leaf of A written in place is copied alone
+    and the fit sees it; an unchanged call copies nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pint_tpu_torch.graphs import _data_leaves
+
+    bA, bB, _ = _card_batches()
+    assert bA.shape_signature() == bB.shape_signature()
+    def near(fit, ref):
+        sig = np.sqrt(np.array([np.diag(c) for c in ref[2]]))
+        assert np.max(np.abs(np.asarray(fit[0]) - ref[0]) / sig) <= 1e-6
+        np.testing.assert_allclose(fit[1], ref[1], rtol=1e-9)
+
+    eager = {}
+    for name, b in (("A", bA), ("B", bB)):
+        eager[name] = tuple(np.asarray(v) for v in b.gls_fit(maxiter=2))
+        b.aot_compile("gls", 2)
+    key = bA.program_key("gls", 2)
+    P, Q = bA._fns[key], bB._fns[key]
+    assert P.captured and Q.captured
+    own_A, copied = _replay(P, bA)
+    assert copied == 0  # the tensors P was captured on
+    own_B, _ = _replay(Q, bB)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _data_leaves(bB._leaves()))
+
+    on_B, copied = _replay(P, bB)
+    assert copied == nbytes
+    assert _same(on_B, own_B) and not _same(on_B, own_A)
+    bB._fns = bA._fns  # a cached table adopted by another batch
+    near(bB.gls_fit(maxiter=2), eager["B"])
+
+    again, copied = _replay(P, bA)
+    assert copied == nbytes and _same(again, own_A)
+
+    err = bA.batch.error_us
+    err[1] *= 2.0  # in place: the pulsar's weights drop by 4
+    written, copied = _replay(P, bA)
+    assert copied == err.numel() * err.element_size()
+    assert float(written[1][1]) != float(own_A[1][1])
+    bA._fns = {}
+    near([t.cpu().numpy() for t in written],
+         tuple(np.asarray(v) for v in bA.gls_fit(maxiter=2)))  # eager
+
+    unchanged, copied = _replay(P, bA)
+    assert copied == 0 and _same(unchanged, written)
+
+
+@pytest.mark.cuda
+def test_replays_from_threads_fit_their_own_batches():
+    """On the card: threads on their own streams replay one program on
+    two batches, and a second program on the same graph memory pool on
+    a third, at the same time; every result is bitwise that batch's
+    replay alone (graphs.py runs the calls one at a time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import threading
+
+    from pint_tpu_torch import graphs
+
+    bA, bB, bC = _card_batches()
+    for b in (bA, bC):
+        b.aot_compile("gls", 2)
+    P = bA._fns[bA.program_key("gls", 2)]
+    R = bC._fns[bC.program_key("gls", 2)]
+    assert R.pool is P.pool == graphs.pool(P.device)
+    jobs = [(P, bA), (P, bB), (R, bC)]
+    alone = [tuple(t.cpu() for t in _replay(p, b)[0]) for p, b in jobs]
+    assert not _same(alone[0], alone[1])
+    bad, errors = [], []
+    start = threading.Barrier(len(jobs))
+
+    def work(j):
+        prog, b = jobs[j]
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                start.wait()
+                for it in range(12):
+                    got = tuple(t.cpu() for t in _replay(prog, b)[0])
+                    if not _same(got, alone[j]):
+                        bad.append((j, it))
+        except Exception as exc:  # noqa: BLE001
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work, args=(j,))
+               for j in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and not bad
