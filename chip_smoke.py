@@ -11,7 +11,9 @@ timing array (~670k TOAs, NANOGrav-15yr-like ragged counts) through
 ``PTAFleet(toa_bucket="plan").fit(method="gls", maxiter=2,
 precision="mixed")`` — then the GW detection stage on the fitted fleet,
 the streaming append lanes, the serving engine (fit, residual, phase and
-append requests, sync and async), the photon path with its satellite, polyco
+append requests, sync and async) and its durability (the pack store, a
+checkpointed fit, journal recovery, the chaos stream and the SIGKILL
+matrix), the photon path with its satellite, polyco
 and CALC variants, fftfit, the photon MCMC and a chi2 grid, and checks
 each, in these phases (with, after the main path, the fit-quality probes
 on it, an interactive pintk session and binary conversions):
@@ -67,6 +69,22 @@ on it, an interactive pintk session and binary conversions):
    within the bound of the two parameterizations, round trips within
    1e-10, and a WLS refit of the DDS conversion within 1e-6 sigma of the
    DD one (:func:`apps_binaryconvert`);
+4d. right after the main path, on its models, TOAs and fleet (at its
+   3-sigma start): ``[durable] store``: ``PTAFleet(toa_bucket="plan",
+   store=PackStore(tmp))`` twice — the miss writes one entry per bucket
+   (put wall, bytes), the hit rebuilds every bucket through
+   ``PTABatch.from_packed`` (hit wall against the live fleet pack,
+   ``scan()`` counts); its mixed fit (K1/K2 counts set to 0 just before
+   and read just after) bitwise the live fleet's (x, chi2, covariances)
+   with the live fit's launches; one flipped byte in the packed bucket's
+   entry warns, deletes and rebuilds, and that fleet's fit is bitwise
+   too (:func:`durable_store`); ``[durable] checkpoint``:
+   ``checkpointed_pta_fit`` on the packed bucket (``method="gls"``,
+   ``precision="mixed"``, ``every=1``, ``maxiter=2``): stopped after
+   one chunk and resumed, bitwise the uninterrupted run; the
+   uninterrupted run's latest snapshot damaged, the resume falls back
+   to ``.prev`` and is bitwise again; K1 and K2 launch in every chunk
+   (:func:`durable_checkpoint`);
 5. the kernel phase: each GLS kernel on the inputs the main path gave
    it (recorded in one more mixed fit; the ``[zoo] fleet``'s shapes
    under the record's ``zoo`` key), held against its plain f32
@@ -242,6 +260,36 @@ on it, an interactive pintk session and binary conversions):
    TOAs that shares no code with the refitter (``serve_fresh_fit``);
    ``[serve] async``: ``AsyncServeEngine`` with 4 producer threads,
    bitwise the sync engine;
+12b. ``[durable]`` on the ``[serve]`` fleet. ``restart`` (in process):
+   a durable engine (``max_batch=8``, no flush timer) that served one
+   warm-up flush of the 8 red-noise 4,000-TOA pulsars in mixed
+   (capturing the slot and persisting it) journals those fits again
+   as r0..r7 — r0..r3 committed with sentinel values — and one
+   64-TOA mixed append per ``[serve] append`` lane, saves its state
+   and dies; a fresh engine on the directory re-captures the slot in
+   the background while the 8 lanes register, then ``recover()``.
+   Checks: the sentinels come back from the journal; r4..r7 (replayed
+   in lanes 0..3 of a new flush, where the fault-free run had them in
+   lanes 4..7 beside r0..r3) and the appends bitwise a fault-free
+   durable engine's; K1′ once per replayed append (counted just around
+   the recovery, the kernel line's ``launches_new_paths``); a second
+   ``recover()`` replays nothing; the slot came from the persisted tier
+   (no capture on the request path) (:func:`durable_restart`).
+   ``chaos``: ``run_chaos_stream`` at bench.py's parameters (216
+   requests, ``toa_nan`` at rate 0.05, ``bucket_floor=64``) on this
+   fleet: every uninjected request ok with the fault-free run's digest,
+   every injected one a structured rejection, health healthy, no
+   unexpected recompile (:func:`durable_chaos`). ``kill``:
+   ``run_kill_chaos()`` at its defaults (bench.py's: 8,192 TOAs, 4
+   lanes, 40-iteration red-noise GLS) over all 8 ``KILL_SITES``, each
+   leg a subprocess on the card: every site killed, 0 lost, 0
+   duplicated, 0 digest mismatches, every probe ok, warm and bitwise
+   the reference's, no capture at the warm sites and a new one at
+   ``excache_store``, torn bytes at ``mid_commit``, 0 corrupt and >= 1
+   valid store entry at ``store_write``, 0 corrupt-or-stale delta
+   segments at ``append_delta_write``; each site's cold / warm walls
+   and their ratio against the 2.0 bound are printed
+   (:func:`durable_kill`);
 13. ``[photon]``: bench.py's photon stage (4,000,000 photons, 1,000,000
    pulsed at phase 0.3 with sigma 0.04, seed 0) over one year as a
    barycentred NICER event file with a PSRPROB weight column, written
@@ -4473,9 +4521,23 @@ def serve_fresh_fit(model, lane, chunks, device="cuda"):
             (np.sqrt(np.diag(covn)) / norm)[1:])
 
 
+@contextlib.contextmanager
+def bench_fleet(bench, models, toas):
+    """pint_serve_bench's runs inside stream over ``models``/``toas``
+    (the fleet ``[serve]`` built once) instead of building their own."""
+    made = bench.build_serve_fleet
+    bench.build_serve_fleet = lambda **kw: (models, toas)
+    try:
+        yield
+    finally:
+        bench.build_serve_fleet = made
+
+
 def serve_phase(torch, device="cuda"):
-    """The ``[serve]`` phases (module docstring, phase 21). Returns K1′'s
-    launches in ``[serve] append``."""
+    """The ``[serve]`` phases (module docstring, phase 12a). Returns
+    {"k1p": K1′'s launches in ``[serve] append``, "models", "toas": the
+    fleet, "lanes": the append lanes' pulsar indices, "lane_base":
+    their base TOAs} for the ``[durable]`` phases."""
     from pint_tpu_torch.kernels.incremental import delta_gram_cuda
     from pint_tpu_torch.obs import trace as obs_trace
     from pint_tpu_torch.parallel import PTABatch, PTAFleet
@@ -4502,9 +4564,7 @@ def serve_phase(torch, device="cuda"):
                           maxiter=SERVE_MAXITER, **kw)
 
     # [serve] stream: the bench's stream on this fleet (built once)
-    made = bench.build_serve_fleet
-    bench.build_serve_fleet = lambda **kw: (models, toas)
-    try:
+    with bench_fleet(bench, models, toas):
         t0 = time.perf_counter()
         rep = bench.run_serve_stream(
             n_requests=SERVE_REQUESTS, max_batch=SERVE_MAX_BATCH,
@@ -4512,8 +4572,6 @@ def serve_phase(torch, device="cuda"):
             per_combo=SERVE_PER_COMBO, maxiter=SERVE_MAXITER,
             concurrent_prewarm=True, device=device)
         stream_s = time.perf_counter() - t0
-    finally:
-        bench.build_serve_fleet = made
     digests = rep.pop("result_digests")
     rep.pop("tail_artifact")
     log(f"[serve] stream report: {json.dumps(rep, default=float)}")
@@ -4823,7 +4881,349 @@ def serve_phase(torch, device="cuda"):
     del eng, aeng
     torch.cuda.empty_cache()
     log(f"[serve] took {time.perf_counter() - t_phase:.2f} s; {gpu_line()}")
+    return {"k1p": k1p, "models": models, "toas": toas, "lanes": lanes,
+            "lane_base": lane_base}
+
+
+def durable_fit(torch, fleet, x_start):
+    """One mixed fit of ``fleet`` from ``x_start`` with K1/K2's counts set
+    to 0 just before and read just after: ((xs, chi2, covs), launches)."""
+    from pint_tpu_torch.kernels.fusedgls import fused_block_gls_cuda
+    from pint_tpu_torch.kernels.seggram import block_grams_cuda
+
+    set_start(fleet, x_start)
+    fused_block_gls_cuda.launches = 0
+    block_grams_cuda.launches = 0
+    xs, chi2, covs = fleet.fit(method="gls", maxiter=2, precision="mixed")
+    sync()
+    return ((np.array(xs), np.asarray(chi2), [np.asarray(c) for c in covs]),
+            {"K1": fused_block_gls_cuda.launches,
+             "K2": block_grams_cuda.launches})
+
+
+def durable_store(torch, models, toas, fleet, x_start, pack_s, tmp,
+                  device="cuda"):
+    """``[durable] store`` (module docstring, phase 4d) on the main path's
+    models, TOAs and fleet. Returns K1 and K2's launches in the
+    store-built fleet's fit."""
+    from pint_tpu_torch.parallel.pta import PTAFleet
+    from pint_tpu_torch.store import PackStore
+
+    d = os.path.join(tmp, "store")
+
+    def build(store):
+        t0 = time.perf_counter()
+        built = PTAFleet(models, toas, toa_bucket="plan", store=store,
+                         device=device)
+        sync()
+        return built, time.perf_counter() - t0
+
+    cold = PackStore(d)
+    _, put_s = build(cold)
+    warm = PackStore(d)
+    hit_fleet, hit_s = build(warm)
+    scan = warm.scan()
+    ref, ref_launches = durable_fit(torch, fleet, x_start)
+    hit, launches = durable_fit(torch, hit_fleet, x_start)
+    key = next((k for k, b in hit_fleet.batches.items() if b._pack),
+               next(iter(hit_fleet.batches)))
+    warm._damage(hit_fleet._store_sig, key)
+    del hit_fleet
+    hurt = PackStore(d)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        re_fleet, re_s = build(hurt)
+    rebuilt, _ = durable_fit(torch, re_fleet, x_start)
+    del re_fleet
+    cc, wc, hc = cold.counters(), warm.counters(), hurt.counters()
+    log(f"[durable] store: put (live pack + write) {put_s:.3f} s, "
+        f"{cc['puts']} entries, {cc['bytes_written'] / 2**20:.1f} MiB "
+        f"written; hit {hit_s:.3f} s against the live fleet pack "
+        f"{pack_s:.3f} s ({wc['hits']} hits, "
+        f"{wc['bytes_mapped'] / 2**20:.1f} MiB mapped); scan {scan}; "
+        f"K1/K2 in the hit fleet's mixed fit {launches} (live "
+        f"{ref_launches}); one flipped byte in the width {key[1][1]} "
+        f"entry: rebuild {re_s:.3f} s, counters {hc}; {gpu_line()}")
+    check("[durable] store", {
+        "the miss wrote one entry per bucket": cc["puts"] == len(
+            fleet.batches) and cc["misses"] == cc["puts"],
+        "the hit ran no host prep": wc["hits"] == len(fleet.batches)
+            and wc["misses"] == 0 and wc["puts"] == 0,
+        "scan: every entry valid": scan["valid"] == scan["entries"]
+            == len(fleet.batches) and scan["corrupt_or_stale"] == 0,
+        "hit fleet's mixed fit bitwise the live fleet's": bitwise_fit(
+            hit, ref),
+        "K1 and K2 launched in the hit fleet's fit":
+            launches["K1"] > 0 and launches["K2"] > 0
+            and launches == ref_launches,
+        "a flipped byte warns, deletes and rebuilds": any(
+            "unusable" in str(w.message) for w in caught)
+            and hc["corrupt"] == 1 and hc["rebuilds"] == 1
+            and hc["puts"] == 1,
+        "the rebuilt fleet's fit bitwise the live fleet's": bitwise_fit(
+            rebuilt, ref),
+    })
+    return launches["K1"], launches["K2"]
+
+
+def durable_checkpoint(torch, fleet, x_start, tmp):
+    """``[durable] checkpoint`` (module docstring, phase 4d). Returns K1
+    and K2's launches in the uninterrupted two-chunk fit."""
+    from pint_tpu_torch.checkpoint import FitCheckpointer, checkpointed_pta_fit
+    from pint_tpu_torch.kernels.fusedgls import fused_block_gls_cuda
+    from pint_tpu_torch.kernels.seggram import block_grams_cuda
+
+    key = next(k for k, b in fleet.batches.items() if b._pack)
+    batch = fleet.batches[key]
+    start = x_start[fleet.group_indices[key]]
+    kw = dict(method="gls", precision="mixed", every=1)
+
+    def run(d, maxiter):
+        fused_block_gls_cuda.launches = 0
+        block_grams_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = checkpointed_pta_fit(batch, os.path.join(tmp, d),
+                                   maxiter=maxiter, **kw)
+        sync()
+        return out, time.perf_counter() - t0, (
+            fused_block_gls_cuda.launches, block_grams_cuda.launches)
+
+    batch.set_start_vector(start)
+    full, full_s, full_l = run("full", 2)
+    batch.set_start_vector(start)
+    _, chunk1_s, chunk1_l = run("resumed", 1)  # stopped after chunk 1
+    batch.set_start_vector(start)  # a restart begins from the par file
+    resumed, resume_s, chunk2_l = run("resumed", 2)
+    # a torn write of the last snapshot: the resume reads .prev
+    FitCheckpointer(os.path.join(tmp, "full"))._corrupt_snapshot("pta")
+    batch.set_start_vector(start)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fallback, fallback_s, fallback_l = run("full", 2)
+    batch.set_start_vector(start)
+    log(f"[durable] checkpoint: the packed bucket (width {key[1][1]}, "
+        f"{batch.n_pulsars} pulsars), gls mixed every=1 maxiter=2: "
+        f"uninterrupted {full_s:.3f} s, K1/K2 {full_l}; chunk 1 "
+        f"{chunk1_s:.3f} s, K1/K2 {chunk1_l}; resumed chunk 2 "
+        f"{resume_s:.3f} s, K1/K2 {chunk2_l}; from .prev after a torn "
+        f"latest snapshot {fallback_s:.3f} s, K1/K2 {fallback_l}")
+    same = [all(np.array_equal(np.asarray(a), np.asarray(b))
+                for a, b in zip(full, other))
+            for other in (resumed, fallback)]
+    check("[durable] checkpoint", {
+        "resumed bitwise uninterrupted": same[0],
+        "a corrupted latest snapshot falls back to .prev":
+            any("previous snapshot" in str(w.message) for w in caught),
+        "the .prev resume bitwise uninterrupted": same[1],
+        "K1 and K2 launched in every chunk": min(
+            chunk1_l + chunk2_l + fallback_l) > 0
+            and full_l == tuple(2 * n for n in chunk1_l),
+    })
+    return full_l
+
+
+def durable_restart(torch, serve, tmp, device="cuda"):
+    """``[durable] restart`` (module docstring, phase 12b). Returns K1′'s
+    launches in the recovery."""
+    from pint_tpu_torch.kernels.incremental import delta_gram_cuda
+    from pint_tpu_torch.serve import (AppendToasRequest, FitRequest,
+                                      ServeEngine, result_digest,
+                                      save_serve_state)
+
+    models, toas = serve["models"], serve["toas"]
+    lanes, lane_base = serve["lanes"], serve["lane_base"]
+    fits = [serve_index(2, 1, k) for k in range(SERVE_PER_COMBO)]
+    n_done = len(fits) // 2
+    # no flush timer: a slot flushes when full or at drain, so the
+    # flush compositions are the ones described above
+    kw = dict(max_batch=SERVE_MAX_BATCH, bucket_floor=SERVE_FLOOR,
+              max_latency_s=1e9, device=device)
+
+    def fit_req(i, rid):
+        return FitRequest(models[i], toas[i], method="gls",
+                          maxiter=SERVE_MAXITER, precision="mixed",
+                          request_id=rid)
+
+    def register(eng):
+        for i, base in zip(lanes, lane_base):
+            eng.register_append_lane(models[i], base, precision="mixed")
+
+    # the fault-free run: all eight fits in one flush, then the appends
+    clean = ServeEngine(durable_dir=os.path.join(tmp, "clean"), **kw)
+    register(clean)
+    chunks = [c[0] for c in serve_append_traffic(
+        [models[i] for i in lanes],
+        [clean.streaming.lane(models[i]) for i in lanes], device)]
+    truth = {r.request.request_id: result_digest(r.value)
+             for r in clean.run_stream([fit_req(i, f"r{j}")
+                                        for j, i in enumerate(fits)])}
+    for j, (i, c) in enumerate(zip(lanes, chunks)):
+        res = clean.submit(AppendToasRequest(models[i], c,
+                                             precision="mixed",
+                                             request_id=f"a{j}"))
+        truth[f"a{j}"] = result_digest(res.value)
+    clean.journal.close()
+    del clean
+
+    # the dead process: it served a warm-up flush (capturing the slot's
+    # program and persisting it), committed r0..r3 (sentinel values),
+    # and died with r4..r7 and eight appends journaled, not delivered
+    ddir = os.path.join(tmp, "dead")
+    dead = ServeEngine(durable_dir=ddir, **kw)
+    t0 = time.perf_counter()
+    dead.run_stream([fit_req(i, f"w{j}") for j, i in enumerate(fits)])
+    dead_s = time.perf_counter() - t0
+    disk = dead.cache.persistent.counters()
+    for j, i in enumerate(fits):
+        dead.journal.record_intake(fit_req(i, f"r{j}"))
+        if j < n_done:
+            dead.journal.record_commit(f"r{j}", "ok",
+                                       value={"marker": float(j)})
+    for j, (i, c) in enumerate(zip(lanes, chunks)):
+        dead.journal.record_intake(AppendToasRequest(
+            models[i], c, precision="mixed", request_id=f"a{j}"))
+    save_serve_state(dead)
+    dead.journal.sync()
+    del dead
+    torch.cuda.empty_cache()
+
+    # the restarted process: the engine's prewarm re-captures while the
+    # lanes register, then recover() replays
+    t0 = time.perf_counter()
+    eng = ServeEngine(durable_dir=ddir, **kw)
+    register(eng)
+    bringup_s = time.perf_counter() - t0
+    delta_gram_cuda.launches = 0
+    rep = eng.recover()
+    k1p = delta_gram_cuda.launches
+    recover_s = time.perf_counter() - t0 - bringup_s
+    rep2 = eng.recover()
+    pex = eng.cache.persistent.counters()
+    replayed = {rid: result_digest(r.value)
+                for rid, r in rep["replayed"].items()}
+    log(f"[durable] restart: the dead process's warm-up flush {dead_s:.3f}"
+        f" s (capture + persisted entry: {disk['bytes_written'] / 2**20:.2f}"
+        f" MiB written in {disk['store_s']:.3f} s); restart bring-up "
+        f"(engine + 8 lane registrations, the re-capture beside them) "
+        f"{bringup_s:.3f} s, re-capture {pex['recapture_s']:.3f} s; "
+        f"recover {recover_s:.3f} s ({rep['replay_wall_s']:.3f} s by the "
+        f"engine's clock): {rep['n_committed']} committed, "
+        f"{rep['n_replayed']} replayed, K1′ {k1p}; second recover "
+        f"{rep2['n_replayed']} replayed; captures on the request path "
+        f"{eng.executables_compiled}")
+    check("[durable] restart", {
+        "committed sentinels come back from the journal": all(
+            rep["committed"][f"r{j}"]["value"] == {"marker": float(j)}
+            for j in range(n_done)),
+        "every pending request replayed ok": rep["n_replayed"]
+            == len(fits) - n_done + len(lanes)
+            and all(r.status == "ok" for r in rep["replayed"].values()),
+        "replayed fits bitwise the fault-free run (other lanes)": all(
+            replayed[f"r{j}"] == truth[f"r{j}"]
+            for j in range(n_done, len(fits))),
+        "replayed appends bitwise the fault-free run": all(
+            replayed[f"a{j}"] == truth[f"a{j}"] for j in range(len(lanes))),
+        "K1′ launched once per replayed append": k1p == len(lanes),
+        "a second recover replays nothing": rep2["n_replayed"] == 0,
+        "the program came from the persisted tier, no capture":
+            eng.executables_compiled == 0 and eng.cache.disk_hits == 1
+            and pex["recaptures"] == 1,
+    })
+    eng.journal.close()
+    del eng
+    torch.cuda.empty_cache()
     return k1p
+
+
+def durable_chaos(torch, serve, device="cuda"):
+    """``[durable] chaos`` (module docstring, phase 12b)."""
+    from pint_tpu_torch.scripts import pint_serve_bench as bench
+
+    with bench_fleet(bench, serve["models"], serve["toas"]):
+        t0 = time.perf_counter()
+        rep = bench.run_chaos_stream(
+            n_requests=SERVE_REQUESTS, fault_rate=0.05,
+            fault_point="toa_nan", max_batch=SERVE_MAX_BATCH,
+            bucket_floor=64, sizes=SERVE_SIZES, per_combo=SERVE_PER_COMBO,
+            maxiter=SERVE_MAXITER, device=device)
+        wall = time.perf_counter() - t0
+    log(f"[durable] chaos: {rep['injected']} of {rep['n_requests']} "
+        f"requests injected ({rep['fault_point']} at "
+        f"{rep['fault_rate']}), healthy failures "
+        f"{rep['healthy_failures']}, digest mismatches vs the fault-free "
+        f"run {rep['digest_mismatches']}, max rel diff "
+        f"{rep['max_rel_diff_vs_clean']:.3e}, health "
+        f"{rep['health_state']}, unexpected recompiles "
+        f"{rep['unexpected_recompiles']}; chaos stream "
+        f"{rep['stream_wall_s']:.3f} s, the whole call {wall:.2f} s")
+    check("[durable] chaos", {
+        "every uninjected request ok and equal to the fault-free run":
+            rep["healthy_failures"] == 0 and rep["digest_mismatches"] == 0,
+        "every injected request a structured rejection":
+            rep["injected_structured"] and rep["injected"] == rep["fires"]
+            and rep["injected"] > 0,
+        "health ends healthy": rep["health_state"] == "healthy",
+        "no unexpected recompile": rep["unexpected_recompiles"] == 0,
+        "the stream finished": rep["all_done"],
+    })
+
+
+def durable_kill(torch, tmp, device="cuda", **kill_kw):
+    """``[durable] kill`` (module docstring, phase 12b): the SIGKILL
+    matrix at its defaults over every kill site."""
+    from pint_tpu_torch.resilience.faultinject import KILL_SITES
+    from pint_tpu_torch.scripts import pint_serve_bench as bench
+
+    t0 = time.perf_counter()
+    rep = bench.run_kill_chaos(workdir=os.path.join(tmp, "kill"),
+                               device=device, **kill_kw)
+    wall = time.perf_counter() - t0
+    sites = rep.get("sites", {})
+    for site, e in sites.items():
+        log(f"[durable] kill {site}: killed {e.get('killed')}, lost "
+            f"{e.get('lost')}, duplicated {e.get('duplicated')}, replayed "
+            f"{e.get('replayed')}, digest mismatches "
+            f"{e.get('digest_mismatches')}, recompiles "
+            f"{e.get('recompiles')}, torn {e.get('torn_truncated')} B; "
+            f"cold first result {e.get('cold_first_result_s')} s, warm "
+            f"refit {e.get('warm_refit_s')} s, ratio "
+            f"{e.get('cold_vs_warm_ratio')}; bring-up "
+            f"{e.get('bringup_s')} s; legs {e.get('kill_wall_s')} / "
+            f"{e.get('recover_wall_s')} s")
+    log(f"[durable] kill: {len(sites)} sites in {wall:.1f} s (reference "
+        f"leg {rep.get('reference_wall_s', 0.0):.1f} s); max cold/warm "
+        f"ratio {rep.get('cold_vs_warm_ratio')} (bound 2.0), lost "
+        f"{rep.get('lost')}, duplicated {rep.get('duplicated')}, digest "
+        f"mismatches {rep.get('digest_mismatches')}; {gpu_line()}")
+    if not rep.get("reference_ok") or set(sites) != set(KILL_SITES) or any(
+            "lost" not in e for e in sites.values()):
+        raise AssertionError(f"[durable] kill: a leg failed: "
+                             f"{json.dumps(rep, default=str)[-4000:]}")
+    warm = [s for s in sites if s != "excache_store"]
+    sw, ad = sites["store_write"], sites["append_delta_write"]
+    check("[durable] kill", {
+        "every site killed": all(e["killed"] for e in sites.values()),
+        "every restart exited 0": all(e["recover_rc"] == 0
+                                      for e in sites.values()),
+        "0 lost, 0 duplicated, 0 digest mismatches": rep["lost"] == 0
+            and rep["duplicated"] == 0 and rep["digest_mismatches"] == 0,
+        "every probe ok, warm, and the reference's bits": all(
+            e["cold_probe_ok"] and e["warm_probes_ok"]
+            and e["probes_match_reference"] for e in sites.values()),
+        "no capture at the warm sites": all(
+            sites[s]["recompiles"] == 0 for s in warm),
+        "excache_store captures anew": sites["excache_store"]["recompiles"]
+            >= 1,
+        "mid_commit left torn bytes": sites["mid_commit"]["torn_truncated"]
+            > 0,
+        "store_write: 0 corrupt, >= 1 valid": sw["store_ok"]
+            and sw["store_counters"]["corrupt"] == 0
+            and sw["store_scan"]["valid"] >= 1,
+        "append_delta_write: 0 corrupt-or-stale segments": ad["delta_ok"]
+            and ad["delta_scan"]["corrupt_or_stale"] == 0,
+        "pending work replayed": rep["replayed"] > 0,
+    })
+    return rep
 
 
 def run():
@@ -4937,6 +5337,15 @@ def run():
     }
     check("main path", checks)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        store_launches = durable_store(torch, models, toas, fleet, x_start,
+                                       pack_s, tmp)
+        ckpt_launches = durable_checkpoint(torch, fleet, x_start, tmp)
+        torch.cuda.empty_cache()
+        log(f"[durable] store and checkpoint took "
+            f"{time.perf_counter() - t0:.2f} s")
+
     names = [n for n, _, _ in
              fleet.batches[next(iter(fleet.batches))].free_map()]
     t0 = time.perf_counter()
@@ -4963,6 +5372,10 @@ def run():
                       block_grams_cuda, block_grams_plain, *seen["K2"],
                       False, launches["K2"]),
     ]
+    for entry, k in ((entries[0], 0), (entries[1], 1)):
+        entry["launches_new_paths"] = {
+            "durable store": store_launches[k],
+            "durable checkpoint": ckpt_launches[k]}
 
     t0 = time.perf_counter()
     fitter_ngc6440e()
@@ -5017,7 +5430,21 @@ def run():
     scenario_rows = stream_kernel(torch)
     entries.append(delta_record(torch, lane_arrays, scenario_rows,
                                 k1p_launches))
-    entries[-1]["launches_new_paths"] = {"serve append": serve_phase(torch)}
+    serve = serve_phase(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        k1p_restart = durable_restart(torch, serve, tmp)
+        durable_chaos(torch, serve)
+        log(f"[durable] restart and chaos took "
+            f"{time.perf_counter() - t0:.2f} s")
+    entries[-1]["launches_new_paths"] = {"serve append": serve["k1p"],
+                                         "durable restart": k1p_restart}
+    del serve
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        durable_kill(torch, tmp)
+        log(f"[durable] kill took {time.perf_counter() - t0:.2f} s")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

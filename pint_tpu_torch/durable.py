@@ -1,19 +1,26 @@
-"""Atomic durable-write primitives (the JAX package's ``durable.py``:
-the functions the delta store and the flight recorder use).
+"""Atomic durable-write primitives shared by every on-disk artifact
+(the JAX package's ``durable.py``).
 
 Crash safety reduces to one idiom: write the full payload to a
 temporary file in the destination directory, fsync it, rename it over
 the destination, then fsync the directory so the rename itself is
 durable. A reader then never observes a half-written artifact — it
 sees either the old file or the new one.
+
+The checkpoint writer, the flight recorder, the pack and delta stores
+and the persisted executable tier all route through these helpers.
+Only the serve journal's CRC-framed log writes in place (append mode);
+its frames carry their own torn-tail recovery protocol.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 
-__all__ = ["atomic_write_bytes", "atomic_write_text", "fsync_dir"]
+__all__ = ["atomic_write_bytes", "atomic_write_text", "atomic_write_json",
+           "fsync_dir", "atomic_replace"]
 
 
 def fsync_dir(path):
@@ -63,3 +70,19 @@ def atomic_write_bytes(path, data):
 def atomic_write_text(path, text, encoding="utf-8"):
     """Text-mode convenience wrapper over :func:`atomic_write_bytes`."""
     return atomic_write_bytes(path, text.encode(encoding))
+
+
+def atomic_write_json(path, obj, **dumps_kwargs):
+    """Serialize ``obj`` as JSON and write it atomically."""
+    return atomic_write_text(path, json.dumps(obj, **dumps_kwargs))
+
+
+def atomic_replace(src, dst):
+    """Atomically move ``src`` over ``dst`` and fsync the directory.
+
+    The single-syscall building block for snapshot rotation: a crash
+    before the replace leaves ``dst`` intact, a crash after leaves the
+    new generation — never a mixed pair.
+    """
+    os.replace(src, dst)
+    fsync_dir(os.path.dirname(os.fspath(dst)) or ".")

@@ -39,7 +39,7 @@ import warnings
 import numpy as np
 import torch
 
-from . import graphs
+from . import autodiff, graphs
 from .residuals import (Residuals, WidebandDMResiduals,
                         WidebandTOAResiduals, wideband_dm_model)
 from .segment import block_segment_sum, segment_max
@@ -148,9 +148,11 @@ def aot_backend_compile(lowered, x0, *data):
 def aot_serialize(compiled):
     """None: a captured CUDA graph has no serialized form. Its kernels'
     arguments are device addresses of one process's allocations and
-    torch offers no way to write a graph out, so there is no payload
-    for a persisted executable cache (the JAX package returns None too
-    for anything that is not a serializable executable)."""
+    torch offers no way to write a graph out (the JAX package returns
+    None too for anything that is not a serializable executable). The
+    persisted tier (``serve/excache.py``) stores the batch and the
+    ``aot_compile`` options instead and captures again in a fresh
+    process."""
     return None
 
 
@@ -944,7 +946,7 @@ def _wls_fused_fns(prepared, threshold=1e-12, track_mode="nearest",
                            batch, prep)
 
     def step_fn(x, rw, sigma_s):
-        M = torch.func.jacfwd(phase_of)(x)
+        M = autodiff.jacfwd(phase_of)(x)
         if incoffset:
             M = torch.cat([M.new_ones((M.shape[0], 1)), M], dim=1)
         Mw = (M / f0) / sigma_s[:, None]
@@ -1224,7 +1226,7 @@ class WidebandTOAFitter(GLSFitter):
             return dm[idx]
 
         x0 = prepared.vector_from_params()
-        M_dm = -torch.func.jacfwd(dm_model)(x0)  # resid = measured - model
+        M_dm = -autodiff.jacfwd(dm_model)(x0)  # resid = measured - model
         names = [n for n, _, _ in prepared.free_param_map()]
         units = [f"pc cm^-3/({getattr(self.model, n).units or '1'})"
                  for n in names]

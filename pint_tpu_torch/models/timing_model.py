@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import DTYPE, resolve_device
+from .. import DTYPE, autodiff, resolve_device
 from ..constants import SECS_PER_DAY
 from ..mjd import LD
 from ..toa import TOABatch
@@ -468,6 +468,8 @@ def host_to_device(tree, device):
             out[k] = torch.as_tensor(np.array(v, np.int64), device=device)
         elif kind == "b":
             out[k] = torch.as_tensor(np.array(v, bool), device=device)
+        elif isinstance(v, np.ndarray) and not v.flags.writeable:
+            out[k] = np.array(v)  # a read-only view (a mapped file)
         else:
             out[k] = v
     return out
@@ -634,7 +636,7 @@ class PreparedTiming:
                                batch, prep)
 
         def dm(x):
-            M = torch.func.jacfwd(phase_of)(x)
+            M = autodiff.jacfwd(phase_of)(x)
             if incoffset:
                 M = torch.cat([torch.ones((M.shape[0], 1), dtype=M.dtype,
                                           device=M.device), M], dim=1)

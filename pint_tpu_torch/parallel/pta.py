@@ -42,9 +42,10 @@ pulls once, so a fleet can dispatch every bucket before it pulls any.
 With ``obs.fitquality.enable()`` each finalize records the fit-quality
 probes of its bucket from the host arrays it has already pulled
 (:meth:`PTABatch._record_quality`; ``PTABatch.quality``,
-``PTAFleet.fit_quality``). The pack store (``store=``, ROADMAP §1 item
-3), the device mesh (``mesh=``, item 2) and the observability spans
-(item 3) are not ported yet.
+``PTAFleet.fit_quality``). ``PTAFleet(store=)`` builds each bucket
+store-first from a ``store.PackStore``. The device mesh (``mesh=``,
+ROADMAP §1 item 2) and the observability spans (item 3) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .. import DTYPE, fitter, graphs, gw, resolve_device
+from .. import DTYPE, autodiff, fitter, graphs, gw, resolve_device
 from ..fitter import (_mtv, _mv, check_precision, gls_eigh_refine,
                       gls_eigh_solve, gls_fused_normal, gls_gram, gls_whiten,
                       relres_failed, seg_gls_eigh_refine, seg_gls_norm,
@@ -556,17 +557,24 @@ class PTABatch:
     def from_packed(cls, template_model, state, device="cuda"):
         """Rebuild a PTABatch from a ``pack_state()`` dict — this
         package's or the JAX package's — skipping host TOA prep.
-        ``template_model`` provides the component structure."""
+        ``template_model`` provides the component structure. The host
+        arrays it keeps are copies, so the state may be read-only views
+        (a ``store.PackStore`` hit maps its file); the device tensors are
+        copies anyway (``_to_device``)."""
+        def own(tree):
+            return {k: np.array(v) if isinstance(v, np.ndarray) else v
+                    for k, v in tree.items()}
+
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         n_psr = int(len(state["n_toas"]))
         self.models = [template_model] * n_psr
         self.template = template_model
         self.preps = None
-        self._pack = dict(state["pack"]) if "pack" in state else None
+        self._pack = own(state["pack"]) if "pack" in state else None
         self._free_map = [tuple(x) for x in state["free_map"]]
-        self.static = dict(state["static"])
-        self.n_toas = np.asarray(state["n_toas"])
+        self.static = own(state["static"])
+        self.n_toas = np.array(state["n_toas"])
         self._to_device(state["params"], state["prep"], state["batch"])
         return self
 
@@ -755,7 +763,7 @@ class PTABatch:
             def phase_of(xv, ps, b, pr):
                 return phase_fn(overlay(ps, xv), b, pr)
 
-            M = vmap(torch.func.jacfwd(phase_of))(x, params, batch, prep)
+            M = vmap(autodiff.jacfwd(phase_of))(x, params, batch, prep)
             M = M / p["F"][:, 0, None, None]
             return torch.cat([torch.ones_like(M[..., :1]), M], dim=-1)
 
@@ -1134,7 +1142,7 @@ class PTABatch:
                 def phase_of(xv, pp, b, pr):
                     return phase_fn(overlay(pp, xv), b, pr)
 
-                M_s = vmap(torch.func.jacfwd(phase_of))(x[:, s], ps, batch,
+                M_s = vmap(autodiff.jacfwd(phase_of))(x[:, s], ps, batch,
                                                         full)
                 Ms.append(M_s / p["F"][:, 0, None, None])
                 f0s.append(p["F"][:, 0])
@@ -1801,7 +1809,7 @@ class PTAFleet:
     def __init__(self, models, toas_list, toa_bucket=None,
                  bucket_floor=256, pipeline=False, plan_compile_budget=None,
                  plan_max_pack=None, plan_quantum=None,
-                 plan_min_width=None, device="cuda"):
+                 plan_min_width=None, store=None, device="cuda"):
         """toa_bucket=None groups by model structure only (each batch
         pads to its own max TOA count); "pow2" also buckets pulsars by
         the next power of two >= their TOA count (from
@@ -1816,7 +1824,18 @@ class PTAFleet:
         move to the device) to a worker pool, so they overlap each other
         and whatever the caller does next, and makes :meth:`fit` default
         to the pipelined executor. Results are bitwise those of
-        ``pipeline=False``: only the scheduling changes."""
+        ``pipeline=False``: only the scheduling changes.
+
+        ``store`` (a ``store.PackStore``) short-circuits the host prep:
+        each bucket first consults the store under the fleet's content
+        signature and, on a verified hit, rebuilds through
+        :meth:`PTABatch.from_packed` straight from the mmap'd columns —
+        the host chain never runs. Misses (cold store, stale signature,
+        corrupt entry) fall back to live prep and write the fresh pack
+        state back, so the next bring-up hits. The inline and the
+        pipelined build take the same detour, and a store-built fleet
+        fits bitwise as the live-built one (the store round-trips
+        ``pack_state`` exactly)."""
         self.device = resolve_device(device)
         groups, build_kwargs, self.plans = self.plan_groups(
             models, toas_list, toa_bucket=toa_bucket,
@@ -1830,13 +1849,36 @@ class PTAFleet:
         self.batches = {}
         self._batch_futures = {}
         self._prep_pool = None
+        self.store = store
+        self._store_sig = None
+        if store is not None:
+            from ..store import content_signature
+
+            # one signature for the whole fleet, computed WITHOUT
+            # running prep
+            self._store_sig = content_signature(
+                models, toas_list, plans=self.plans,
+                toa_bucket=toa_bucket, bucket_floor=bucket_floor,
+                plan_compile_budget=plan_compile_budget,
+                plan_max_pack=plan_max_pack, plan_quantum=plan_quantum,
+                plan_min_width=plan_min_width)
 
         def make(key):
+            """Store-first bucket build: verified hit -> from_packed,
+            else live prep (+ write-back)."""
             idxs = groups[key]
-            return PTABatch([models[i] for i in idxs],
-                            [toas_list[i] for i in idxs],
-                            device=self.device,
-                            **build_kwargs.get(key, {}))
+            if store is not None:
+                state = store.load(self._store_sig, key)
+                if state is not None:
+                    return PTABatch.from_packed(models[idxs[0]], state,
+                                                device=self.device)
+            batch = PTABatch([models[i] for i in idxs],
+                             [toas_list[i] for i in idxs],
+                             device=self.device,
+                             **build_kwargs.get(key, {}))
+            if store is not None:
+                store.put(self._store_sig, key, batch.pack_state())
+            return batch
 
         if self.pipeline and len(groups) > 1:
             self._prep_pool = ThreadPoolExecutor(
@@ -1881,6 +1923,8 @@ class PTAFleet:
         fleet._lock = threading.RLock()
         fleet._batch_futures = {}
         fleet._prep_pool = None
+        fleet.store = None
+        fleet._store_sig = None
         fleet.batches = dict(enumerate(batches))
         fleet.group_indices = {}
         start = 0

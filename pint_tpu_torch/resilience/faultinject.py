@@ -38,15 +38,33 @@ for it parses here. The port's sites:
 - ``intake_overflow`` — the async front door refuses an accepted
   request as if the intake were full
   (``serve.frontdoor.AsyncServeEngine.submit``).
-- ``process_kill`` — the process dies by SIGKILL at a named durability
-  site (:func:`fire_kill`); the port's one site is
-  ``append_delta_write``, just before a delta segment's atomic publish
-  (``store.deltas.DeltaStore.append``). Payload ``at`` pins the site.
+- ``process_kill`` — the serving process dies by SIGKILL at a named
+  durability site (:func:`fire_kill` calls placed in ``serve.engine``
+  — ``intake_append`` after a flush's pre-execution journal sync,
+  ``pre_commit`` with results computed and none committed,
+  ``post_commit`` after the commit sync —, ``serve.journal``
+  (``mid_commit`` tears a commit frame), ``serve.excache``
+  (``excache_store`` before a persisted entry's atomic publish),
+  ``store.packstore`` (``store_write`` before the pack store's atomic
+  publish), ``store.deltas`` (``append_delta_write`` before a delta
+  segment's atomic publish) and ``serve.frontdoor`` (``flusher_take``
+  right after the async flusher dequeues a request); payload ``at``
+  pins one of :data:`KILL_SITES`, omitted means the first site
+  reached). The process does not get to clean up — that is the
+  point; recovery is proven by ``ServeEngine.recover`` afterwards.
+- ``checkpoint_corrupt`` — a snapshot is damaged on disk after a save
+  (``checkpoint.FitCheckpointer.save``).
+- ``journal_torn_write`` — a journal append is torn mid-frame, as a
+  power cut would leave it (``serve.journal`` frame writer; payload
+  ``frac`` sets the fraction of the frame that lands). The reader must
+  truncate-and-replay, never crash.
+- ``executable_cache_corrupt`` — a persisted entry's bytes are damaged
+  on disk after the store (``serve.excache`` persistent tier). The
+  loader must warn and capture anew, never crash.
 
-``checkpoint_corrupt``, ``device_loss``, ``collective_timeout``,
-``journal_torn_write`` and ``executable_cache_corrupt`` have no site in
-the port yet: their modules wait (ROADMAP §1 item 2, multi-device; item
-3's durability queue). Disarmed sites cost one falsy-dict check.
+``device_loss`` and ``collective_timeout`` have no site in the port
+yet: their modules wait with multi-device (ROADMAP §1 item 2).
+Disarmed sites cost one falsy-dict check.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """End-to-end driver for the online timing service (pint_tpu_torch.serve;
-the JAX package's ``scripts/pint_serve_bench.py``, its default mode):
-build a mixed fleet (several model structures x several TOA bucket
-sizes), prewarm the executable cache, stream a few hundred requests
-through ServeEngine, and report latency percentiles + cache counters,
-optionally cross-checking every fit against the offline PTAFleet
-path.
+the JAX package's ``scripts/pint_serve_bench.py``): build a mixed fleet
+(several model structures x several TOA bucket sizes), prewarm the
+executable cache, stream a few hundred requests through ServeEngine,
+and report latency percentiles + cache counters, optionally
+cross-checking every fit against the offline PTAFleet path.
 
 This is the serving acceptance harness: a mixed-shape stream must
 complete with ZERO captures after warmup (cache hit rate ~100%) and
@@ -13,25 +12,38 @@ parameters matching the offline path to ~1e-12.
     python -m pint_tpu_torch.scripts.pint_serve_bench            # the card
     python -m pint_tpu_torch.scripts.pint_serve_bench --device cpu \\
         --requests 24 --bucket-floor 32
+    python -m pint_tpu_torch.scripts.pint_serve_bench --chaos   # faults
+    python -m pint_tpu_torch.scripts.pint_serve_bench --chaos \\
+        --fault-point process_kill                   # the SIGKILL matrix
 
-The JAX package's chaos, kill, device and arrival-sweep modes and its
-``--trace-out`` export wait with ROADMAP §1 item 3 (the journal, the
-trace exporter) and item 2 (device lanes).
+``--chaos`` runs the chaos acceptance stream (:func:`run_chaos_stream`:
+low-rate intake faults against a fault-free reference);
+``--fault-point process_kill`` the process-kill matrix
+(:func:`run_kill_chaos`: a serving subprocess SIGKILLed at every named
+durability site, restarted, and held to exactly-once bitwise replay).
+The JAX package's device chaos (``--devices``, device-level fault
+points) waits with multi-device (ROADMAP §1 item 2); its arrival sweep
+and ``--trace-out`` export wait with the observability queue (item 3).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
 import sys
 
 import numpy as np
 
 from pint_tpu_torch.obs import clock as obs_clock
 
+DEVICE_CHAOS_WAITS = ("device chaos waits with multi-device (ROADMAP §1 "
+                      "item 2: parallel/fleetmesh.py, the serve device "
+                      "lanes)")
+
 WAITING_MODES = {
-    "chaos": "the chaos streams wait with the durability queue and "
-             "multi-device (ROADMAP §1 items 3 and 2)",
+    "devices": DEVICE_CHAOS_WAITS,
     "arrival_sweep": "the open-loop arrival sweep waits with the "
                      "observability queue (ROADMAP §1 item 3)",
     "trace_out": "the Chrome trace exporter (obs/export.py) waits with "
@@ -258,6 +270,735 @@ def run_serve_stream(n_requests=216, max_batch=8, max_latency_s=0.05,
     return report
 
 
+def run_chaos_stream(n_requests=216, fault_rate=0.05,
+                     fault_point="toa_nan", max_batch=8,
+                     max_latency_s=0.05, bucket_floor=64,
+                     cache_capacity=32, sizes=(48, 96, 180),
+                     per_combo=3, maxiter=3, precision="f64",
+                     mesh=None, seed=0, rel_tol=1e-9, device="cuda"):
+    """Chaos acceptance run: the serve stream with a low-rate fault
+    schedule injected at intake, differenced against a fault-free run
+    of the same stream.
+
+    The contract being checked: every UNINJECTED request completes
+    "ok" with results identical (to fp tolerance) to the fault-free run
+    — a poisoned neighbor must cost nothing; every INJECTED request
+    gets a structured rejection (or quarantine); the engine finishes
+    the stream (no hang), ends in the "healthy" state, and performs
+    zero unexpected recompiles. Returns a JSON-safe report with
+    report["ok"] summarizing all of it. Beyond the JAX package's keys,
+    ``digest_mismatches`` counts the uninjected results whose
+    ``result_digest`` differs from the fault-free run's (the injected
+    requests shift the flush compositions, so 0 means no lane's bits
+    depend on its neighbours), and ``stream_wall_s`` the chaos
+    stream's host wall."""
+    from pint_tpu_torch.resilience import FaultPoint, inject
+    from pint_tpu_torch.serve import FitRequest, ServeEngine, result_digest
+
+    models, toas_list = build_serve_fleet(sizes=sizes, per_combo=per_combo,
+                                          seed=seed, device=device)
+    n_pulsars = len(models)
+
+    def req(i):
+        return FitRequest(models[i % n_pulsars],
+                          toas_list[i % n_pulsars],
+                          maxiter=maxiter, precision=precision)
+
+    def engine():
+        return ServeEngine(max_batch=max_batch,
+                           max_latency_s=max_latency_s,
+                           bucket_floor=bucket_floor,
+                           cache_capacity=cache_capacity, mesh=mesh,
+                           device=device)
+
+    # fault-free reference stream
+    eng0 = engine()
+    eng0.prewarm([req(i) for i in range(n_pulsars)])
+    clean = eng0.run_stream([req(i) for i in range(n_requests)])
+
+    # chaos stream: prewarm UNARMED (warmup is part of deployment,
+    # not of the fault schedule), then inject for the stream itself
+    eng1 = engine()
+    warm_compiles = eng1.prewarm([req(i) for i in range(n_pulsars)])
+    pt = FaultPoint(fault_point, rate=fault_rate, seed=seed)
+    t_stream = obs_clock.now()
+    with inject(pt):
+        chaos = eng1.run_stream([req(i) for i in range(n_requests)])
+    stream_wall_s = obs_clock.now() - t_stream
+    snap = eng1.snapshot()
+
+    injected = [i for i, r in enumerate(chaos)
+                if (r.telemetry.get("detail", {}) or {})
+                .get("injected_point")]
+    inj_structured = all(
+        chaos[i].status == "rejected"
+        and chaos[i].telemetry.get("rejected") is True
+        for i in injected)
+    worst = 0.0
+    healthy_failures = 0
+    digest_mismatches = 0
+    for i, (rc, rf) in enumerate(zip(clean, chaos)):
+        if i in injected:
+            continue
+        if rf.status != "ok" or rc.status != "ok":
+            healthy_failures += 1
+            continue
+        if result_digest(rf.value) != result_digest(rc.value):
+            digest_mismatches += 1
+        rel = np.max(np.abs(np.asarray(rf.value["x"])
+                            - np.asarray(rc.value["x"]))
+                     / np.maximum(np.abs(np.asarray(rc.value["x"])),
+                                  1e-30))
+        if not np.isfinite(rel) or rel > rel_tol:
+            healthy_failures += 1
+        worst = float(np.maximum(worst, rel))
+    counters = snap["counters"]
+    report = {
+        "n_requests": n_requests,
+        "fault_point": fault_point,
+        "fault_rate": fault_rate,
+        "injected": len(injected),
+        "fires": pt.fires,
+        "injected_structured": bool(inj_structured),
+        "healthy": n_requests - len(injected),
+        "healthy_failures": healthy_failures,
+        "max_rel_diff_vs_clean": worst,
+        "digest_mismatches": digest_mismatches,
+        "stream_wall_s": stream_wall_s,
+        "all_done": all(r.done for r in chaos),
+        "warmup_executables": warm_compiles,
+        "recompiles_after_warmup": (snap["executables_compiled"]
+                                    - warm_compiles),
+        "unexpected_recompiles": counters.get("unexpected_recompiles",
+                                              0),
+        "health_state": snap["health"]["state"],
+        "health": snap["health"],
+        "breaker": snap["breaker"],
+        "shed": sum(v for k, v in counters.items()
+                    if k.startswith("shed_")),
+        "retries": counters.get("retries", 0),
+        "quarantined": counters.get("quarantined", 0),
+        "counters": counters,
+    }
+    report["ok"] = bool(
+        report["all_done"]
+        and report["healthy_failures"] == 0
+        and report["injected"] == report["fires"]
+        and report["injected_structured"]
+        and report["health_state"] == "healthy"
+        and report["unexpected_recompiles"] == 0)
+    return report
+
+
+def run_device_chaos(*args, **kwargs):
+    """The JAX package's device-level chaos acceptance; raises: its
+    device lanes wait with multi-device (ROADMAP §1 item 2)."""
+    raise NotImplementedError(f"run_device_chaos: {DEVICE_CHAOS_WAITS}")
+
+
+def _run_chaos_child(config):
+    """One serving process of the process-kill chaos harness.
+
+    ``mode: serve`` streams requests through a durable engine (the
+    parent arms ``PINT_TPU_FAULTS=process_kill:at=<site>`` so the
+    child SIGKILLs itself mid-flush; the unarmed variant is the
+    fault-free reference that also warms the shared executable cache
+    and records ground-truth result digests). ``mode: recover`` is the
+    restarted process: it measures cold-start-to-first-result off the
+    persisted caches, replays the journal, and reports exactly-once
+    bookkeeping for the parent to assert on. Results land in
+    ``config["out"]`` via an atomic write (a crashed child leaves no
+    file, which the parent treats as the verdict). Everything the
+    child journals is host data (serve/journal.py), so a restarted
+    child reads the dead one's log before it touches the card."""
+
+    from pint_tpu_torch.durable import atomic_write_json
+    from pint_tpu_torch.serve import (AsyncServeEngine, FitRequest,
+                                      ServeEngine, result_digest,
+                                      save_serve_state)
+
+    device = config.get("device", "cuda")
+    mode = config["mode"]
+    site = config.get("site", "")
+    ntoa = int(config.get("ntoa", 8192))
+    lanes = int(config.get("lanes", 4))
+    maxiter = int(config.get("maxiter", 40))
+    method = config.get("method", "gls")
+    structure = int(config.get("structure", 2))
+    n_requests = int(config.get("n_requests", 3 * lanes))
+    seed = int(config.get("seed", 0))
+
+    def engine():
+        # max_latency_s high: slots flush when FULL (lanes requests),
+        # so every kill strands a genuine committed/pending mixture
+        # instead of single-request flushes. The flusher_take legs
+        # run the ASYNC front door — that kill site only fires on the
+        # flusher worker thread right after a dequeue, which is where
+        # a real serving process dies; the other sites live in the
+        # shared submit/journal/cache path, so they keep the sync
+        # engine (no flusher/watchdog threads competing with the
+        # child's capture work).
+        kw = dict(max_batch=lanes, max_latency_s=600.0,
+                  bucket_floor=ntoa,
+                  durable_dir=config["durable_dir"],
+                  excache_dir=config["excache_dir"],
+                  store_dir=config.get("store_dir"), device=device)
+        if site == "flusher_take":
+            return AsyncServeEngine(**kw)
+        return ServeEngine(**kw)
+
+    def bringup(premade=None):
+        """Restart sequence a real serving process follows: construct
+        the engine FIRST (which kicks off the background re-capture
+        from the persisted tier AND the pack-store CRC prewarm), then
+        do the rest of the process bring-up — loading pulsar models
+        and TOAs — while the re-capture runs off the critical path. By
+        ready-to-serve the programs are warm; this overlap is what
+        makes the 2x cold-start bound reachable. With an explicit
+        ``store_dir``
+        in the config (the store_write chaos legs), the fleet batch
+        is additionally built THROUGH the pack store — a store hit
+        skips host prep, a miss runs it live and writes back, and the
+        armed ``store_write`` kill lands just before that write's
+        atomic publish. Returns (engine, model, toas,
+        bringup_wall)."""
+        t0 = obs_clock.now()
+        eng = premade if premade is not None else engine()
+        models, toas_list = build_serve_fleet(sizes=(ntoa,),
+                                              per_combo=1, seed=seed,
+                                              device=device)
+        # one structure, one bucket -> one program table, one .pex
+        # file; the default (red-noise GLS, 8192 TOAs, maxiter 40) is
+        # sized so a warm refit flush dominates the residual restart
+        # tax, making the 2x cold-start bound a real constraint
+        if config.get("store_dir") and eng.store is not None:
+            from pint_tpu_torch.parallel.pta import PTAFleet
+
+            PTAFleet([models[structure]], [toas_list[structure]],
+                     store=eng.store, device=device)
+        return (eng, models[structure], toas_list[structure],
+                obs_clock.now() - t0)
+
+    model = toas = None  # bound by bringup() below, used by req()
+
+    def req(request_id=None):
+        kw = {} if request_id is None else {"request_id": request_id}
+        return FitRequest(model, toas, method=method, maxiter=maxiter,
+                          **kw)
+
+    def probe_batch(tag):
+        # a full flush of `lanes` requests, so probes hit the same
+        # (bucket, batch) executable the stream compiled
+        return [req(f"probe-{tag}-{i}") for i in range(lanes)]
+
+    def append_fixture():
+        """Deterministic streaming-lane fixture shared by the
+        append_delta_write legs ACROSS processes: same par file, same
+        seeded TOAs in every child, so the lane key, base content
+        signature, and per-append delta chain signatures agree
+        between the reference, killed, and recovered runs."""
+        from pint_tpu_torch.models import get_model
+        from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+        rng = np.random.default_rng(seed + 17)
+        par = ("PSR KILL0\nRAJ 6:00:00.0\nDECJ 5:00:00.0\n"
+               "F0 173.6 1\nF1 -3e-16 1\nPEPOCH 55400\nDM 21.0 1\n")
+        lane_model = get_model(par)
+        base_toas = make_fake_toas_fromMJDs(
+            np.sort(rng.uniform(54800, 56000, 64)), lane_model,
+            error_us=1.0, freq_mhz=1400.0, obs="gbt", add_noise=True,
+            seed=seed + 17, device=device)
+        chunks = []
+        lo = 56000.0
+        for i in range(int(config.get("n_appends", 4))):
+            mj = np.sort(rng.uniform(lo, lo + 5.0, 8))
+            lo += 5.0
+            chunks.append(make_fake_toas_fromMJDs(
+                mj, lane_model, error_us=1.0, freq_mhz=1400.0,
+                obs="gbt", add_noise=True, seed=seed + 100 + i,
+                device=device))
+        return lane_model, base_toas, chunks
+
+    if mode == "serve" and config.get("append_stream"):
+        # the append_delta_write legs: stream AppendToasRequests
+        # through a registered lane instead of fit flushes. The armed
+        # child SIGKILLs itself inside a delta write (after=1 lets the
+        # first append's segment publish, so the chain on disk holds
+        # a real committed prefix when the kill lands); the unarmed
+        # variant is the digest ground truth for replay.
+        from pint_tpu_torch.serve import AppendToasRequest
+
+        eng, model, toas, _ = bringup()
+        lane_model, base_toas, chunks = append_fixture()
+        eng.register_append_lane(lane_model, base_toas)
+        results = [eng.submit(AppendToasRequest(lane_model, c))
+                   for c in chunks]
+        save_serve_state(eng)
+        eng.journal.close()
+        atomic_write_json(config["out"], {
+            "mode": mode,
+            "statuses": {r.request.request_id: r.status
+                         for r in results},
+            "digests": {r.request.request_id: result_digest(r.value)
+                        for r in results},
+            "deltas": (eng.deltas.scan()
+                       if eng.deltas is not None else None),
+        })
+        return 0
+
+    if mode == "serve":
+        eng, model, toas, _ = bringup()
+        results = eng.run_stream([req() for _ in range(n_requests)])
+        # only reached when no kill fired (the fault-free reference)
+        snap = eng.snapshot()
+        save_serve_state(eng)
+        if isinstance(eng, AsyncServeEngine):
+            eng.close()
+        eng.journal.close()
+        atomic_write_json(config["out"], {
+            "mode": mode,
+            "statuses": {r.request.request_id: r.status
+                         for r in results},
+            "digests": {r.request.request_id: result_digest(r.value)
+                        for r in results},
+            "compiles": snap["executables_compiled"],
+            "cache": snap["cache"],
+        })
+        return 0
+
+    if mode != "recover":
+        raise ValueError(f"unknown chaos-child mode {mode!r}")
+
+    # -- restarted process: cold first result, then replay ----------
+    # cold_first_result_s clocks ready-to-serve -> first delivered
+    # result; the preceding bring-up (reported separately) is where
+    # the persisted tier's re-capture overlaps, per bringup()'s note
+    eng, model, toas, bringup_s = bringup()
+    if config.get("append_stream"):
+        # the lane MUST be registered before recover(): replayed
+        # append_toas intakes resolve their lane by key, and
+        # registration is also where the persisted delta chain (the
+        # committed prefix the dead process left) folds back into the
+        # fresh base state
+        lane_model, base_toas, _chunks = append_fixture()
+        eng.register_append_lane(lane_model, base_toas)
+    t0 = obs_clock.now()
+    cold_probe = eng.run_stream(probe_batch(f"cold-{site}"))
+    cold_first_result_s = obs_clock.now() - t0
+    rep = eng.recover()
+    warm_walls = []
+    warm_probes = []
+    for k in range(3):
+        t1 = obs_clock.now()
+        warm_probes += eng.run_stream(probe_batch(f"warm-{site}-{k}"))
+        warm_walls.append(obs_clock.now() - t1)
+    snap = eng.snapshot()
+
+    # exactly-once bookkeeping straight from the journal: stream rids
+    # (req-*) with a commit are delivered; >1 commit is a double
+    # delivery; an intake with no commit after recovery is a lost
+    # request
+    jrep = eng.journal.replay()
+    commit_counts = {}
+    for r in jrep.records:
+        if r.get("t") == "commit" and str(r.get("rid", "")) \
+                .startswith("req-"):
+            commit_counts[r["rid"]] = commit_counts.get(r["rid"], 0) + 1
+    committed = {rid: {"status": rec.get("status"),
+                       "digest": result_digest(rec.get("value"))}
+                 for rid, rec in jrep.committed.items()
+                 if str(rid).startswith("req-")}
+    # recovery must leave no request mid-machine: journal returns are
+    # replayed_committed, replays ran to live terminal states, probes
+    # delivered — anything still non-terminal is a leak
+    reqlife_nonterminal = (len(eng.reqlife.nonterminal_ids())
+                           if eng.reqlife is not None else None)
+    store_rep = None
+    if config.get("store_dir") and eng.store is not None:
+        # scanned AFTER bringup's rebuild: a torn artifact from the
+        # killed writer would have shown up as a corrupt-CRC load
+        # (counters["corrupt"] > 0) during the store consult, and the
+        # scan proves the re-put entry verifies end to end
+        store_rep = {"scan": eng.store.scan(),
+                     "counters": eng.store.counters()}
+    deltas_rep = None
+    if config.get("append_stream") and eng.deltas is not None:
+        # scanned AFTER recovery replayed the pending appends: a torn
+        # delta segment from the killed writer would surface as
+        # corrupt_or_stale > 0, and the streaming counters witness the
+        # committed prefix actually replaying through registration
+        deltas_rep = {"scan": eng.deltas.scan(),
+                      "counters": eng.streaming.counters()}
+    if isinstance(eng, AsyncServeEngine):
+        eng.close()
+    eng.journal.close()
+    atomic_write_json(config["out"], {
+        "mode": mode,
+        "site": site,
+        "cold_first_result_s": cold_first_result_s,
+        "bringup_s": bringup_s,
+        "warm_refit_s": min(warm_walls),
+        "warm_walls": warm_walls,
+        "cold_probe_ok": all(r.status == "ok" for r in cold_probe),
+        # a probe that came back without fitting cannot pass: every
+        # warm probe must be ok, warm, and carry the digest the
+        # fault-free reference's identical requests delivered
+        "warm_probes_ok": all(
+            r.status == "ok" and not r.telemetry.get("cold")
+            for r in warm_probes),
+        "probe_digests": sorted({result_digest(r.value)
+                                 for r in cold_probe + warm_probes}),
+        # count only stream rids: the cold probe above also committed
+        # `lanes` probe-* requests into the journal before recover()
+        "n_committed_before": sum(
+            1 for rid in rep["committed"]
+            if str(rid).startswith("req-")),
+        "n_replayed": rep["n_replayed"],
+        "replay_wall_s": rep["replay_wall_s"],
+        "torn_truncated": rep["torn_truncated"],
+        "state_restored": rep["state_restored"],
+        "reqlife_nonterminal": reqlife_nonterminal,
+        "lost": [rid for rid in
+                 (r["rid"] for r in jrep.pending)
+                 if str(rid).startswith("req-")],
+        "duplicated": [rid for rid, n in commit_counts.items()
+                       if n > 1],
+        "committed": committed,
+        "compiles": snap["executables_compiled"],
+        "cache": snap["cache"],
+        "store": store_rep,
+        "deltas": deltas_rep,
+    })
+    return 0
+
+
+def run_kill_chaos(sites=None, ntoa=8192, lanes=4, maxiter=40,
+                   method="gls", structure=2, n_requests=None, seed=0,
+                   workdir=None, ratio_bound=2.0,
+                   child_timeout_s=600.0, device="cuda"):
+    """Process-kill chaos acceptance: SIGKILL a serving process
+    mid-flush at every named kill site, restart it, and assert the
+    crash-safety contract:
+
+    - zero lost requests: every journaled intake is committed after
+      recovery (the restarted process replays pending work);
+    - zero duplicated commits: a result committed before the kill is
+      never re-run or re-delivered;
+    - bitwise replay: every committed stream result matches the
+      fault-free reference run's digest exactly;
+    - warm restart: with the persisted program tier, the restarted
+      process captures nothing on its request path (``recompiles ==
+      0``) and its cold start to first result stays within
+      ``ratio_bound`` x a warm refit flush (``excache_store`` runs
+      against a private cold tier -- the kill lands mid-store -- so it
+      checks capture-on-absence, ``recompiles >= 1``, instead);
+    - no torn pack-store artifact: the ``store_write`` site kills just
+      before the packed-TOA store's atomic publish during bring-up;
+      the restarted process must see a clean miss (zero corrupt-CRC
+      loads), rebuild live, and re-publish a verifying entry;
+    - no torn delta segment: the ``append_delta_write`` site streams
+      ``append_toas`` requests through a registered streaming lane
+      and kills inside the SECOND append's delta write (the first
+      segment is a committed on-disk prefix). The restarted process
+      re-registers the lane (replaying the committed prefix), replays
+      the pending append exactly once, its result digest matches the
+      fault-free append reference bitwise, and the delta scan shows
+      zero corrupt-or-stale segments.
+
+    Each leg is a separate process, started with ``subprocess`` as
+    ``python -m pint_tpu_torch.scripts.pint_serve_bench --chaos-child``
+    (never forked: a forked CUDA context is unusable); the kill is a
+    genuine ``os.kill(getpid(), SIGKILL)`` fired from inside the
+    engine by the armed ``process_kill`` fault, whose
+    ``PINT_TPU_FAULTS`` spec only the killed leg's environment
+    carries. On the card the parent builds the kernels before the
+    first child starts, so children only load them. The reference legs
+    run together, then the kill legs (nothing of theirs is timed); the
+    restarted legs run one at a time, so their cold/warm walls are not
+    shared, unless ``ratio_bound`` is infinite (no wall is judged),
+    when they run together too. Returns a JSON-safe report;
+    report["ok"] summarizes all sites."""
+    import tempfile
+
+    from pint_tpu_torch.durable import atomic_write_json
+    from pint_tpu_torch.resilience import faultinject
+
+    sites = tuple(sites) if sites is not None else faultinject.KILL_SITES
+    bad = [s for s in sites if s not in faultinject.KILL_SITES]
+    if bad:
+        raise ValueError(f"unknown kill sites {bad}; pick from "
+                         f"{faultinject.KILL_SITES}")
+    if n_requests is None:
+        n_requests = 3 * lanes
+    workdir = workdir or tempfile.mkdtemp(prefix="pint_kill_chaos_")
+    os.makedirs(workdir, exist_ok=True)
+    shared_excache = os.path.join(workdir, "excache")
+    if str(device).startswith("cuda"):
+        from pint_tpu_torch.kernels import build
+
+        build.load_all(["gram"])
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+    def start(config, env_faults=None):
+        """Start one child leg; returns its handle for :func:`wait`."""
+        tag = config["tag"]
+        cfg_path = os.path.join(workdir, f"cfg_{tag}.json")
+        atomic_write_json(cfg_path, config)
+        env = dict(os.environ)
+        env.pop("PINT_TPU_FAULTS", None)
+        if env_faults:
+            env["PINT_TPU_FAULTS"] = env_faults
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (root, env.get("PYTHONPATH")) if p)
+        err = open(os.path.join(workdir, f"stderr_{tag}.log"), "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pint_tpu_torch.scripts.pint_serve_bench",
+             "--chaos-child", cfg_path],
+            env=env, stdout=subprocess.DEVNULL, stderr=err)
+        return proc, err, obs_clock.now()
+
+    def wait(handle):
+        """(returncode or None on timeout, stderr tail, wall)."""
+        proc, err, t0 = handle
+        try:
+            rc = proc.wait(timeout=max(1.0, child_timeout_s
+                                       - (obs_clock.now() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        wall = obs_clock.now() - t0
+        err.seek(0)
+        tail = err.read()[-2000:]
+        err.close()
+        return rc, (tail if rc is not None else "timeout"), wall
+
+    def run_all(jobs, parallel):
+        """[(rc, stderr, wall)] of the (config, env_faults) jobs."""
+        if parallel:
+            return [wait(h) for h in [start(*job) for job in jobs]]
+        return [wait(start(*job)) for job in jobs]
+
+    def load_out(path):
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as fh:
+            return json.load(fh)
+
+    base = {"ntoa": ntoa, "lanes": lanes, "maxiter": maxiter,
+            "method": method, "structure": structure,
+            "n_requests": n_requests, "seed": seed, "device": device}
+
+    # -- reference legs: fault-free, the first warms the shared tier -
+    t0 = obs_clock.now()
+    ref_out = os.path.join(workdir, "ref.json")
+    jobs = [(dict(base, mode="serve", tag="ref",
+                  durable_dir=os.path.join(workdir, "ref"),
+                  excache_dir=shared_excache, out=ref_out), None)]
+    aref_out = os.path.join(workdir, "append-ref.json")
+    if "append_delta_write" in sites:
+        # the streaming-lane digests; it runs no fit, so it neither
+        # reads nor writes the shared tier's entry
+        jobs.append((dict(base, mode="serve", tag="append-ref",
+                          append_stream=True,
+                          durable_dir=os.path.join(workdir, "append-ref"),
+                          excache_dir=os.path.join(workdir,
+                                                   "excache-append"),
+                          store_dir=os.path.join(workdir,
+                                                 "append-store-ref"),
+                          out=aref_out), None))
+    legs = run_all(jobs, True)
+    ref_rc, ref_err, ref_wall = legs[0]
+    ref = load_out(ref_out)
+    report = {"sites": {}, "n_sites": len(sites),
+              "n_requests": n_requests, "ntoa": ntoa, "lanes": lanes,
+              "workdir": workdir, "reference_wall_s": ref_wall,
+              "reference_ok": bool(ref_rc == 0 and ref is not None)}
+    if not report["reference_ok"]:
+        report.update(ok=False, reference_rc=ref_rc,
+                      reference_stderr=ref_err)
+        return report
+    ref_digests = ref["digests"]
+    append_ref = None
+    if "append_delta_write" in sites:
+        aref_rc, aref_err, _ = legs[1]
+        append_ref = load_out(aref_out)
+        report["append_reference_ok"] = bool(aref_rc == 0
+                                             and append_ref is not None)
+        if not report["append_reference_ok"]:
+            report["append_reference_rc"] = aref_rc
+            report["append_reference_stderr"] = aref_err
+
+    # -- kill legs ---------------------------------------------------
+    plans = {}
+    for site in sites:
+        ddir = os.path.join(workdir, f"kill-{site}")
+        # excache_store kills mid-store, so it needs a cold private
+        # tier (a warm shared tier never stores); after=1 elsewhere
+        # lets the first flush commit so the kill strands real
+        # committed-vs-pending mixtures
+        if site == "excache_store":
+            exdir = os.path.join(workdir, "excache-store-private")
+            spec = f"process_kill:at={site},after=0"
+        elif site == "store_write":
+            # store_write kills just before the pack-store's atomic
+            # publish during bring-up: a cold private store so the
+            # put actually fires, but the warm shared tier so the
+            # standard no-recapture/ratio criteria still apply
+            exdir = shared_excache
+            spec = f"process_kill:at={site},after=0"
+        else:
+            exdir = shared_excache
+            spec = f"process_kill:at={site},after=1"
+        if site == "store_write":
+            sdir = os.path.join(workdir, "store-private")
+        elif site == "append_delta_write":
+            # kill and recover legs share the delta store: the
+            # committed chain prefix the dead writer left IS the
+            # artifact under test
+            sdir = os.path.join(workdir, "append-store")
+        else:
+            sdir = None
+        extra = ({"append_stream": True}
+                 if site == "append_delta_write" else {})
+        if site == "append_delta_write" and append_ref is None:
+            report["sites"][site] = {"ok": False,
+                                     "reason": "append_ref_missing"}
+            continue
+        kill_cfg = dict(base, mode="serve", tag=f"kill-{site}",
+                        site=site, durable_dir=ddir, excache_dir=exdir,
+                        store_dir=sdir,
+                        out=os.path.join(workdir, f"kill-{site}.json"),
+                        **extra)
+        rec_cfg = dict(base, mode="recover", tag=f"recover-{site}",
+                       site=site, durable_dir=ddir, excache_dir=exdir,
+                       store_dir=sdir,
+                       out=os.path.join(workdir, f"recover-{site}.json"),
+                       **extra)
+        plans[site] = (kill_cfg, spec, rec_cfg)
+    kills = dict(zip(plans, run_all(
+        [(cfg, spec) for cfg, spec, _ in plans.values()], True)))
+    recs = dict(zip(plans, run_all(
+        [(cfg, None) for _, _, cfg in plans.values()],
+        ratio_bound == float("inf"))))
+
+    totals = {"lost": 0, "duplicated": 0, "replayed": 0,
+              "digest_mismatches": 0}
+    ratios, colds, warms = [], [], []
+    for site, (_, _, rec_cfg) in plans.items():
+        kill_rc, _, kill_wall = kills[site]
+        rec_rc, rec_err, rec_wall = recs[site]
+        rec = load_out(rec_cfg["out"])
+        entry = {"kill_rc": kill_rc, "recover_rc": rec_rc,
+                 "killed": kill_rc == -9,
+                 "kill_wall_s": round(kill_wall, 3),
+                 "recover_wall_s": round(rec_wall, 3)}
+        if rec is None:
+            entry.update(ok=False, recover_stderr=rec_err)
+            report["sites"][site] = entry
+            continue
+        digest_truth = (append_ref["digests"]
+                        if site == "append_delta_write" else ref_digests)
+        mismatches = [
+            rid for rid, c in rec["committed"].items()
+            if c["status"] == "ok"
+            and c["digest"] != digest_truth.get(rid)]
+        # every probe fits the reference stream's (identical) request
+        probes_match = bool(rec["probe_digests"]) and set(
+            rec["probe_digests"]) <= set(ref_digests.values())
+        warm_cache = site != "excache_store"
+        store_ok = True
+        if site == "store_write":
+            srep = rec.get("store") or {}
+            scan = srep.get("scan") or {}
+            cnt = srep.get("counters") or {}
+            entry["store_scan"] = scan
+            entry["store_counters"] = cnt
+            # torn-artifact contract: the killed writer left nothing
+            # behind (the recover leg's store consult was a clean
+            # miss, not a corrupt-CRC hit), the rebuild re-put the
+            # entry, and the published artifact verifies end to end
+            store_ok = bool(scan.get("corrupt_or_stale") == 0
+                            and scan.get("valid", 0) >= 1
+                            and cnt.get("corrupt") == 0
+                            and cnt.get("puts", 0) >= 1)
+            entry["store_ok"] = store_ok
+        if site == "append_delta_write":
+            drep = rec.get("deltas") or {}
+            dscan = drep.get("scan") or {}
+            dcnt = drep.get("counters") or {}
+            entry["delta_scan"] = dscan
+            entry["streaming_counters"] = dcnt
+            # torn-delta contract: the kill inside the second delta
+            # write left no corrupt/stale segment behind; the chain
+            # after recovery holds the committed prefix PLUS the
+            # replayed append (>= 2 valid segments), and registration
+            # demonstrably replayed the committed prefix rather than
+            # re-deriving it
+            store_ok = store_ok and bool(
+                dscan.get("corrupt_or_stale") == 0
+                and dscan.get("valid", 0) >= 2
+                and dcnt.get("replayed", 0) >= 1)
+            entry["delta_ok"] = store_ok
+        ratio = rec["cold_first_result_s"] / max(rec["warm_refit_s"],
+                                                 1e-9)
+        entry.update(
+            lost=len(rec["lost"]), duplicated=len(rec["duplicated"]),
+            replayed=rec["n_replayed"],
+            committed_before_kill=rec["n_committed_before"],
+            digest_mismatches=len(mismatches),
+            torn_truncated=rec["torn_truncated"],
+            cold_first_result_s=round(rec["cold_first_result_s"], 4),
+            bringup_s=round(rec["bringup_s"], 4),
+            warm_refit_s=round(rec["warm_refit_s"], 4),
+            cold_vs_warm_ratio=round(ratio, 3),
+            recompiles=rec["compiles"],
+            cold_probe_ok=rec["cold_probe_ok"],
+            warm_probes_ok=rec.get("warm_probes_ok"),
+            probes_match_reference=probes_match,
+            reqlife_nonterminal=rec.get("reqlife_nonterminal"),
+            disk=(rec.get("cache") or {}).get("disk"),
+        )
+        entry["ok"] = bool(
+            entry["killed"] and rec_rc == 0
+            and entry["lost"] == 0 and entry["duplicated"] == 0
+            and entry["digest_mismatches"] == 0
+            and rec["cold_probe_ok"]
+            and rec.get("warm_probes_ok", False) and probes_match
+            # None = ledger disabled in the child env; 0 = the
+            # recovered machine reached a terminal state everywhere
+            and rec.get("reqlife_nonterminal") in (0, None)
+            # a warm shared tier must serve the restart without a
+            # single capture on the request path AND inside the
+            # cold-start bound; the cold-tier site must instead
+            # capture (its store died)
+            and ((entry["recompiles"] == 0 and ratio <= ratio_bound)
+                 if warm_cache else entry["recompiles"] >= 1)
+            and store_ok)
+        totals["lost"] += entry["lost"]
+        totals["duplicated"] += entry["duplicated"]
+        totals["replayed"] += entry["replayed"]
+        totals["digest_mismatches"] += entry["digest_mismatches"]
+        if warm_cache:
+            ratios.append(ratio)
+            colds.append(rec["cold_first_result_s"])
+            warms.append(rec["warm_refit_s"])
+        report["sites"][site] = entry
+
+    report.update(totals)
+    report["cold_start_recovered_s"] = (round(max(colds), 4)
+                                        if colds else None)
+    report["warm_refit_s"] = round(min(warms), 4) if warms else None
+    report["cold_vs_warm_ratio"] = (round(max(ratios), 3)
+                                    if ratios else None)
+    report["wall_s"] = round(obs_clock.now() - t0, 1)
+    report["ok"] = bool(report["sites"]
+                        and all(e.get("ok")
+                                for e in report["sites"].values()))
+    return report
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="pint_serve_bench",
@@ -285,13 +1026,75 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="where the engine runs (default: the card)")
-    for flag in ("--chaos", "--arrival-sweep"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--chaos", action="store_true",
+                   help="run the chaos acceptance stream (low-rate "
+                        "fault injection vs a fault-free reference) "
+                        "instead of the plain serve bench")
+    p.add_argument("--fault-rate", type=float, default=0.05)
+    p.add_argument("--fault-point", default="toa_nan",
+                   help="request-level point for the chaos stream, or "
+                        "process_kill for the SIGKILL/restart "
+                        "crash-recovery acceptance")
+    p.add_argument("--kill-sites", default=None,
+                   help="process_kill only: comma-separated subset of "
+                        "the kill sites (default: all of them)")
+    p.add_argument("--chaos-child", default=None, metavar="CONFIG",
+                   help=argparse.SUPPRESS)  # internal harness entry
+    p.add_argument("--devices", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--arrival-sweep", action="store_true",
+                   help=argparse.SUPPRESS)
     p.add_argument("--trace-out", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+
+    if args.chaos_child:
+        with open(args.chaos_child, "rb") as fh:
+            return _run_chaos_child(json.load(fh))
     for name, why in WAITING_MODES.items():
         if getattr(args, name):
             p.error(f"--{name.replace('_', '-')}: {why}")
+
+    if args.chaos:
+        from pint_tpu_torch.resilience import DEVICE_POINTS
+
+        if args.fault_point in DEVICE_POINTS:
+            p.error(f"--fault-point {args.fault_point}: "
+                    f"{DEVICE_CHAOS_WAITS}")
+        if args.fault_point == "process_kill":
+            sites = (args.kill_sites.split(",") if args.kill_sites
+                     else None)
+            # the generic --maxiter default (3) is sized for the
+            # latency stages; the kill fixture keeps its own heavier
+            # default, so it is deliberately not passed through here
+            report = run_kill_chaos(sites=sites,
+                                    lanes=min(args.max_batch, 4),
+                                    device=args.device)
+            print(json.dumps(report, default=float))
+            if not report["ok"]:
+                print("FAIL: crash-recovery contract violated "
+                      f"(lost={report.get('lost')}, "
+                      f"duplicated={report.get('duplicated')}, "
+                      f"digest_mismatches="
+                      f"{report.get('digest_mismatches')}, "
+                      f"cold_vs_warm_ratio="
+                      f"{report.get('cold_vs_warm_ratio')})",
+                      file=sys.stderr)
+            return 0 if report["ok"] else 1
+        report = run_chaos_stream(
+            n_requests=args.requests, fault_rate=args.fault_rate,
+            fault_point=args.fault_point, max_batch=args.max_batch,
+            max_latency_s=args.max_latency,
+            bucket_floor=args.bucket_floor, maxiter=args.maxiter,
+            precision=args.precision, seed=args.seed, device=args.device)
+        print(json.dumps(report, default=float))
+        if not report["ok"]:
+            print(f"FAIL: chaos contract violated "
+                  f"(healthy_failures={report['healthy_failures']}, "
+                  f"health={report['health_state']}, "
+                  f"unexpected_recompiles="
+                  f"{report['unexpected_recompiles']})",
+                  file=sys.stderr)
+        return 0 if report["ok"] else 1
 
     report = run_serve_stream(
         n_requests=args.requests, max_batch=args.max_batch,

@@ -8,7 +8,10 @@ slots, flushed onto warm programs held in an LRU cache (captured once
 as CUDA graphs on the card, each run on the data of the flush that
 calls it), degraded gracefully under pressure (mixed->f64 fallback,
 oversize spill, queue/deadline shedding), and accounted per-request in
-telemetry snapshots. No network layer is included or required.
+telemetry snapshots, crash-safe under ``durable_dir=`` (a write-ahead
+journal, ``ServeEngine.recover``, a persisted program tier re-captured
+at bring-up, the pack store). No network layer is included or
+required.
 
     from pint_tpu_torch.serve import ServeEngine, FitRequest
 
@@ -18,19 +21,20 @@ telemetry snapshots. No network layer is included or required.
     res.value["x"], res.telemetry    # results + per-request latencies
     eng.snapshot()                   # p50/p99 + cache/shed counters
 
-Not ported yet (ROADMAP §1 item 3's durability queue): the write-ahead
-journal (``journal.py``), ``PersistentExecutableCache`` and
-``save_serve_state``/``restore_serve_state``.
+    eng = ServeEngine(durable_dir="serve-state")   # crash-safe
+    eng.recover()       # in a restarted process: replay the journal
 """
 
 from .admission import (PRIORITY_BATCH, PRIORITY_HIGH, PRIORITY_NORMAL,
                         AdmissionController, AdmissionDecision)
 from .batcher import MicroBatcher, pow2_bucket
 from .engine import ServeEngine
-from .excache import ExecutableCache
+from .excache import ExecutableCache, PersistentExecutableCache
 from .frontdoor import AsyncServeEngine, IntakeQueue
+from .journal import RequestJournal
 from .metrics import ServeTelemetry, percentile
-from .recovery import result_digest
+from .recovery import (restore_serve_state, result_digest,
+                       save_serve_state)
 from .request import (AppendToasRequest, FitRequest,
                       PhasePredictRequest, ResidualRequest,
                       ServeResult, TimingRequest)
@@ -41,7 +45,8 @@ __all__ = [
     "AdmissionController", "AdmissionDecision",
     "PRIORITY_HIGH", "PRIORITY_NORMAL", "PRIORITY_BATCH",
     "MicroBatcher", "ExecutableCache", "ServeTelemetry",
-    "result_digest",
+    "PersistentExecutableCache", "RequestJournal", "save_serve_state",
+    "restore_serve_state", "result_digest",
     "percentile", "pow2_bucket", "TimingRequest", "FitRequest",
     "ResidualRequest", "PhasePredictRequest", "AppendToasRequest",
     "ServeResult", "StreamingRefitter", "lane_key",

@@ -33,13 +33,26 @@ circuit breaker and its traffic gets structured rejections instead of
 hanging the engine; (5) everything feeds the HealthMonitor
 (healthy -> degraded -> draining) exported via snapshot().
 
+Crash safety (``durable_dir=``): every accepted request is journaled
+before it becomes visible to a flush (serve/journal.py, a CRC-framed
+write-ahead log with one fsync per flush), every terminal outcome is
+committed to the same log, and :meth:`ServeEngine.recover` of a fresh
+process returns the committed results from the log and re-runs the
+pending ones, bitwise as the dead process would have. The persisted
+executable tier (``excache_dir=``, serve/excache.py) re-captures the
+warm program tables before the first lookup, and the pack store and
+the append-delta store (``store_dir=``) let a restarted process skip
+the host chain. The named ``process_kill`` sites of
+resilience/faultinject.py (``intake_append``, ``pre_commit``,
+``mid_commit``, ``post_commit``, ``excache_store``, ``store_write``,
+``append_delta_write``, ``flusher_take``) are where the SIGKILL matrix
+of scripts/pint_serve_bench.py kills it.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: device lanes (``devices=``) and ``mesh=`` (§1 item 2,
-multi-device); the write-ahead journal, the persisted executable cache,
-the pack store and :meth:`ServeEngine.recover` (``durable_dir=``,
-``excache_dir=``, ``store_dir=``: item 3's durability queue); the SLO
-burn-rate monitor and the drift board (:meth:`attach_slo`,
-:meth:`attach_fit_quality`: item 3's observability queue).
+multi-device); the SLO burn-rate monitor and the drift board
+(:meth:`attach_slo`, :meth:`attach_fit_quality`: item 3's
+observability queue).
 """
 
 from __future__ import annotations
@@ -62,17 +75,14 @@ from ..resilience.health import HealthMonitor
 from ..resilience.retry import BackoffPolicy, CircuitBreaker, with_retries
 from . import policy
 from .batcher import MicroBatcher
-from .excache import ExecutableCache
+from .excache import ExecutableCache, PersistentExecutableCache
+from .journal import RequestJournal
 from .metrics import ServeTelemetry
-from .request import ServeResult
-from .streaming import StreamingRefitter
+from .request import ServeResult, ensure_request_counter_above
+from .streaming import StreamingRefitter, lane_key as streaming_lane_key
 
 MULTI_DEVICE_WAITS = ("waits with multi-device (ROADMAP §1 item 2: "
                       "parallel/mesh.py, fleetmesh.DeviceLane)")
-DURABILITY_WAITS = ("waits with the durability queue (ROADMAP §1 item 3: "
-                    "serve/journal.py, checkpoint.py, recovery.py's "
-                    "save/restore, PersistentExecutableCache, "
-                    "store/packstore.py)")
 OBSERVABILITY_WAITS = ("waits with the observability queue (ROADMAP §1 "
                        "item 3: obs/slo.py's BurnRateMonitor, "
                        "obs/drift.py's DriftBoard)")
@@ -90,6 +100,14 @@ class ServeEngine:
         constructed on the engine's clock.
     device: where every batch and append lane of the engine lives (the
         card unless the caller asks for the CPU).
+    durable_dir: opts in to crash safety — the write-ahead journal
+        (``journal.log``), the persisted executable tier (``excache/``),
+        the pack store (``store/``, with the append-delta store in
+        ``store/deltas``) and the save/restore_serve_state snapshot
+        (``state/``) all live under it, so :meth:`recover` of a fresh
+        process needs exactly one path. ``excache_dir`` / ``store_dir``
+        override those two locations (several processes may share warm
+        programs while keeping private journals).
     """
 
     def __init__(self, max_batch=8, max_latency_s=0.05, max_queue=256,
@@ -106,12 +124,6 @@ class ServeEngine:
         if devices is not None:
             raise NotImplementedError(f"ServeEngine(devices=) "
                                       f"{MULTI_DEVICE_WAITS}")
-        for name, val in (("durable_dir", durable_dir),
-                          ("excache_dir", excache_dir),
-                          ("store_dir", store_dir)):
-            if val is not None:
-                raise NotImplementedError(f"ServeEngine({name}=) "
-                                          f"{DURABILITY_WAITS}")
         self.device = resolve_device(device)
         self.plan = plan  # optional shapeplan.ShapePlan width ladder
         self.batcher = MicroBatcher(max_batch=max_batch,
@@ -119,11 +131,42 @@ class ServeEngine:
                                     bucket_floor=bucket_floor,
                                     plan=plan)
         self.max_queue = int(max_queue)
-        self.cache = ExecutableCache(cache_capacity)
+        self.durable_dir = (None if durable_dir is None
+                            else os.fspath(durable_dir))
+        self.journal = (None if self.durable_dir is None
+                        else RequestJournal(self.durable_dir))
+        if excache_dir is None and self.durable_dir is not None:
+            excache_dir = os.path.join(self.durable_dir, "excache")
+        persistent = (None if excache_dir is None
+                      else PersistentExecutableCache(excache_dir,
+                                                     device=self.device))
+        self.cache = ExecutableCache(cache_capacity,
+                                     persistent=persistent)
+        if persistent is not None:
+            # re-capture the persisted program tables on a background
+            # thread while the process does the rest of its bring-up:
+            # by the first lookup the capture is (mostly) paid
+            persistent.prewarm()
+        # packed-TOA store: a restarted process rebuilds its batches
+        # from mmap'd columns instead of re-running the host chain; its
+        # CRC prewarm runs on its own thread, overlapping the re-capture
+        if store_dir is None and self.durable_dir is not None:
+            store_dir = os.path.join(self.durable_dir, "store")
+        if store_dir is None:
+            self.store = self.deltas = None
+        else:
+            from ..store import DeltaStore, PackStore
+
+            self.store = PackStore(store_dir)
+            self.store.prewarm()
+            # append-delta segments live BESIDE the pack store (a
+            # subdirectory its *.ptpk scan never sees)
+            self.deltas = DeltaStore(os.path.join(store_dir, "deltas"))
         # streaming refit lanes (serve.streaming): registered per
         # pulsar via register_append_lane, consumed by the "append"
-        # request kind
-        self.streaming = StreamingRefitter(clock=clock, device=self.device)
+        # request kind; crash-persistent with a delta store
+        self.streaming = StreamingRefitter(deltas=self.deltas, clock=clock,
+                                           device=self.device)
         self.telemetry = ServeTelemetry()
         self.oversize_toas = oversize_toas
         self.clock = clock
@@ -209,9 +252,116 @@ class ServeEngine:
     # -- crash recovery ----------------------------------------------
 
     def recover(self, journal_dir=None, restore_state=True):
-        """The JAX package's one-call crash recovery from a durable
-        directory; raises: the journal it replays is not ported yet."""
-        raise NotImplementedError(f"ServeEngine.recover {DURABILITY_WAITS}")
+        """One-call crash recovery from a durable directory.
+
+        Replays the write-ahead journal of a dead process: committed
+        requests are returned as-is from their journal records (their
+        results are NEVER re-emitted through the serve path), every
+        uncommitted intake is re-submitted and re-run — bitwise as the
+        dead process would have delivered it, because lanes are
+        independent and the padded shapes are pinned — and the
+        durable-state snapshot (breaker/health/fit-quality, see
+        serve.recovery) is restored first so policy decisions resume
+        where they stopped. The persisted executable tier makes the
+        re-runs warm: their programs were re-captured during bring-up.
+
+        Idempotent: a second recover() finds everything committed and
+        replays nothing. Returns a report dict with ``committed`` (rid
+        -> journal commit record), ``replayed`` (rid -> ServeResult),
+        counts, ``torn_truncated`` bytes, and the replay wall.
+        """
+        if journal_dir is not None:
+            journal_dir = os.fspath(journal_dir)
+            if self.journal is None \
+                    or self.journal.directory != journal_dir:
+                self.durable_dir = journal_dir
+                self.journal = RequestJournal(journal_dir)
+                if self.cache.persistent is None:
+                    self.cache.persistent = PersistentExecutableCache(
+                        os.path.join(journal_dir, "excache"),
+                        device=self.device)
+                    self.cache.persistent.prewarm()
+        if self.journal is None:
+            raise ValueError("no journal to recover from: construct "
+                             "the engine with durable_dir= or pass "
+                             "journal_dir")
+        t0 = self.clock()
+        with obs_trace.span("serve.recover") as sp:
+            rep = self.journal.replay()
+            state_restored = False
+            if restore_state:
+                from .recovery import restore_serve_state
+
+                state_restored = restore_serve_state(
+                    self, self.durable_dir) is not None
+            # fresh ids in this process must not collide with replayed
+            # ones minted by the dead process
+            max_id = -1
+            for rec in rep.records:
+                rid = rec.get("rid")
+                if isinstance(rid, str) and rid.startswith("req-"):
+                    try:
+                        max_id = max(max_id, int(rid[4:]))
+                    except ValueError:
+                        pass
+            if max_id >= 0:
+                ensure_request_counter_above(max_id)
+            self.journal.record_marker(
+                "recover", n_committed=len(rep.committed),
+                n_pending=len(rep.pending),
+                torn_truncated=rep.torn_truncated)
+            if self.reqlife is not None:
+                # journal returns are terminal without touching the
+                # serve path: ledger them as replayed_committed so
+                # post-crash accounting separates them from live fits
+                t_rec = self.clock()
+                for rid, crec in rep.committed.items():
+                    tele = (crec.get("telemetry")
+                            if isinstance(crec, dict) else None) or {}
+                    self.reqlife.submitted(
+                        rid, tenant=tele.get("tenant", "anon"),
+                        kind=tele.get("kind"), t=t_rec)
+                    self.reqlife.transition(rid, "replayed_committed",
+                                            t=t_rec)
+            replayed = {}
+            for rec in rep.pending:
+                # pre-mark the id so every terminal outcome of the
+                # replay — including a synchronous rejection — writes
+                # a commit record and the request can't replay forever
+                self.journal.note_intake(rec["rid"])
+                if self.reqlife is not None:
+                    req = rec["req"]
+                    self.reqlife.submitted(
+                        rec["rid"],
+                        tenant=getattr(req, "tenant", "anon"),
+                        kind=getattr(req, "kind", None),
+                        t=self.clock())
+                    # non-terminal marker: submit() re-anchors the
+                    # machine and runs it to a live terminal state
+                    self.reqlife.transition(rec["rid"], "re_executed",
+                                            t=self.clock())
+                replayed[rec["rid"]] = self.submit(rec["req"])
+            self.drain()
+            self.journal.sync()
+            wall = self.clock() - t0
+            sp.set(n_committed=len(rep.committed),
+                   n_replayed=len(replayed),
+                   torn_truncated=rep.torn_truncated,
+                   state_restored=state_restored)
+        _flight.dump("crash_recovery", source="serve",
+                     journal_dir=self.journal.directory,
+                     n_committed=len(rep.committed),
+                     n_replayed=len(replayed),
+                     torn_truncated=rep.torn_truncated,
+                     state_restored=state_restored,
+                     replay_wall_s=round(wall, 3),
+                     trace=obs_trace.current_trace_id())
+        return {"committed": rep.committed, "replayed": replayed,
+                "n_committed": len(rep.committed),
+                "n_replayed": len(replayed),
+                "torn_truncated": rep.torn_truncated,
+                "state_restored": state_restored,
+                "replay_wall_s": wall}
 
     # -- intake ------------------------------------------------------
 
@@ -246,6 +396,13 @@ class ServeEngine:
         if screened is None:
             return res
         key, routing = screened
+        if self.journal is not None:
+            # buffered WAL append BEFORE the queue admit: once the
+            # entry is visible in a slot, a concurrent submitter's
+            # inline flush may commit it immediately, and a commit
+            # whose intake never reached the log would replay a
+            # delivered request after a crash
+            self.journal.record_intake(request)
         self._lc(request, "queued", t=now)
         admitted, full, depth = self.batcher.admit_bounded(
             key, request, res, now, max_queue=self.max_queue,
@@ -258,6 +415,7 @@ class ServeEngine:
             self._shed(request, res, "queue_full", kind=routing[0],
                        t=now, trace=trace, queue_depth=depth,
                        max_queue=self.max_queue)
+            self._commit(request, res)
             return res
         if full:
             self._flush(key)
@@ -296,6 +454,7 @@ class ServeEngine:
                                                  "anon"), trace=trace)
             self.health.note_request("error")
             self._lc(request, "error", reason=res.reason)
+            self._commit(request, res)  # no-op unless intake journaled
             return None
         nv, ne = self._nonfinite_counts(request)
         if nv or ne:
@@ -307,17 +466,26 @@ class ServeEngine:
             return None
         if routing[0] == "append":
             # streaming appends execute immediately (never batched —
-            # see AppendToasRequest)
+            # see AppendToasRequest) with the spill path's durability
+            # contract: intake journaled and synced BEFORE the work
+            # runs, so a crash mid-append replays it exactly once
+            # against the lane's delta chain
             self.telemetry.incr("appends")
             with self._work_mutex:
+                self._journal_before_run(request)
                 self._execute_append(request, res, routing, now,
                                      trace=trace)
+                if self.journal is not None:
+                    self.journal.sync()
             return None
         if policy.is_oversize(len(request.toas), self.oversize_toas):
             self.telemetry.incr("spilled_oversize")
             with self._work_mutex:
+                self._journal_before_run(request)
                 self._execute_solo(request, res, routing, now,
                                    trace=trace)
+                if self.journal is not None:
+                    self.journal.sync()
             return None
         key = self.batcher.slot_key(request, routing)
         if not self.breaker.allow(key):
@@ -326,6 +494,15 @@ class ServeEngine:
                 retry_after_s=round(self.breaker.retry_after_s(key), 3))
             return None
         return key, routing
+
+    def _journal_before_run(self, request):
+        """Make an immediately-executed request's intake durable before
+        its work runs (the async flusher has already journaled it —
+        don't append a duplicate)."""
+        if self.journal is not None:
+            if not self.journal.has_intake(request.request_id):
+                self.journal.record_intake(request)
+            self.journal.sync()
 
     @staticmethod
     def _nonfinite_counts(request):
@@ -361,7 +538,9 @@ class ServeEngine:
         """Complete ``res`` as a load shed (queue_full, admission
         backpressure/quota/throttle, intake overflow): structured
         rejection payload for the client, telemetry counter
-        ``shed_<reason>``, health note, terminal lifecycle record."""
+        ``shed_<reason>``, health note, terminal lifecycle record.
+        Does NOT journal-commit — callers that journaled the intake
+        first must follow with :meth:`_commit`."""
         res.status = "shed"
         res.reason = reason
         res.telemetry = policy.rejection(reason,
@@ -390,6 +569,7 @@ class ServeEngine:
                               tenant=getattr(req, "tenant", "anon"))
         self.health.note_request("rejected", reason)
         self._lc(req, "rejected", reason=reason)
+        self._commit(req, res)  # no-op unless the intake was journaled
         return res
 
     def poll(self, now=None):
@@ -450,6 +630,8 @@ class ServeEngine:
                                        breaker=self.breaker)
         snap["executables_compiled"] = self.executables_compiled
         snap["queue_depth"] = self.batcher.depth()
+        if self.store is not None:
+            snap["store"] = self.store.counters()
         if self.reqlife is not None:
             snap["reqlife"] = self.reqlife.snapshot()
         from ..obs import fitquality as obs_fitq
@@ -546,6 +728,11 @@ class ServeEngine:
             else:  # "phase"
                 pta.phases()
         fleet_aot_compile(jobs, max_workers=max_workers)
+        if self.cache.persistent is not None:
+            for _, exec_key, pta, kind, method, maxiter, precision \
+                    in staged:
+                self.cache.persistent.stage(exec_key, pta, self._fit_programs(
+                    pta, kind, method, maxiter, precision))
         self.cache.prefill((exec_key, pta._fns)
                            for _, exec_key, pta, *_ in staged)
         for slot_key, exec_key, *_ in staged:
@@ -677,13 +864,38 @@ class ServeEngine:
                     self.health.note_request("shed")
                     self._lc(req, "shed", t=now, reason="deadline",
                              queue_wait_s=now - t_sub)
+                    self._commit(req, res)
                 else:
                     live.append((req, res, t_sub, tr))
             fsp.set(n_live=len(live), shed=len(entries) - len(live))
+            if self.journal is not None:
+                # group commit of every intake (and shed completion)
+                # journaled since the last sync, BEFORE any execution:
+                # a kill past this point can only lose uncommitted
+                # work, which replay re-runs
+                self.journal.sync()
+                faultinject.fire_kill("intake_append", slot=str(key))
             if live:
                 self._execute(key, live, flush_start=now,
                               flush_trace=flush_trace)
                 self.health.note_flush(self.clock() - now)
+            if self.journal is not None:
+                # catch-all sync for completions recorded on failure /
+                # quarantine paths (no-op when already clean)
+                self.journal.sync()
+
+    def _commit(self, req, res):
+        """Journal a terminal completion for a journaled request — the
+        durable delivery point. Only requests this process recorded an
+        intake for are committed (submit-time rejections complete
+        synchronously and never enter the journal); syncing is batched
+        by the flush."""
+        if self.journal is None \
+                or not self.journal.has_intake(req.request_id):
+            return
+        self.journal.record_commit(req.request_id, res.status,
+                                   value=res.value, reason=res.reason,
+                                   telemetry=res.telemetry)
 
     def _fail(self, live, kind, exc):
         reason = f"{type(exc).__name__}: {exc}"
@@ -697,6 +909,7 @@ class ServeEngine:
                                   trace=tr)
             self.health.note_request("error")
             self._lc(req, "error", reason=reason)
+            self._commit(req, res)
 
     def _on_retry(self, attempt, exc, delay_s):
         self.telemetry.incr("retries")
@@ -800,6 +1013,10 @@ class ServeEngine:
                                     precision=precision)
                 compile_s = self.clock() - t0
             self.executables_compiled += 1
+            if self.cache.persistent is not None:
+                # what the persisted tier writes on the insert below
+                self.cache.persistent.stage(exec_key, pta, self._fit_programs(
+                    pta, kind, method, maxiter, precision))
             self.cache.insert(exec_key, pta._fns)
             seen = self._slot_exec_keys.setdefault(slot_key, set())
             if seen and exec_key not in seen:
@@ -883,6 +1100,11 @@ class ServeEngine:
         if degraded:
             self.telemetry.incr("degraded_mixed", n_live)
         done = self.clock()
+        if self.journal is not None:
+            # results computed but none committed yet: a kill here
+            # re-runs the whole flush on recovery (bitwise — lane
+            # independence)
+            faultinject.fire_kill("pre_commit", slot=str(slot_key))
         for i, (req, res, t_sub, tr) in enumerate(live):
             res.status = "ok"
             res.value = value_of(i)
@@ -902,7 +1124,25 @@ class ServeEngine:
                      queue_wait_s=rec["queue_wait_s"],
                      execute_s=execute_s, bucket=bucket, cold=cold,
                      flush_trace=flush_trace)
+            self._commit(req, res)
+        if self.journal is not None:
+            # group commit: one fsync makes every completion of this
+            # flush durable; past this point recovery re-emits them
+            # from the journal instead of re-running anything
+            self.journal.sync()
+            faultinject.fire_kill("post_commit", slot=str(slot_key))
         return set()
+
+    @staticmethod
+    def _fit_programs(pta, kind, method, maxiter, precision):
+        """{program key: aot_compile options} of a fit slot's program,
+        what the persisted tier re-captures (None for resid/phase
+        slots, whose programs run eagerly)."""
+        if kind != "fit":
+            return None
+        opts = {"method": method, "maxiter": maxiter,
+                "precision": precision}
+        return {pta.program_key(**opts): opts}
 
     def _execute_solo(self, request, res, routing, submitted_at,
                       trace=None):
@@ -968,14 +1208,22 @@ class ServeEngine:
         self.health.note_request("ok")
         self._lc(request, "delivered", t=done, queue_wait_s=0.0,
                  execute_s=execute_s, spilled=True)
+        self._commit(request, res)
 
     def register_append_lane(self, model, toas, precision="f64",
                              sentinel=None, prewarm=True):
         """Register one streaming append lane (serve.streaming) for
         ``model`` over its base TOA table, on the engine's device.
-        ``prewarm`` is the JAX package's delta-store staging flag; the
-        engine has no delta store yet (``store_dir=``), so there is
-        nothing to stage. Returns the lane key."""
+
+        With a delta store, the lane's persisted chain is prewarm-
+        staged in the background FIRST, so the disk verify overlaps
+        the lane's registration; the chain is then replayed into the
+        fresh state — a recovered process must call this for each lane
+        BEFORE :meth:`recover`, so replayed append intakes find their
+        lane. Returns the lane key."""
+        if self.deltas is not None and prewarm:
+            sig = StreamingRefitter._base_signature(model, toas)
+            self.deltas.prewarm([(streaming_lane_key(model), sig)])
         with self._work_mutex:
             return self.streaming.register(model, toas,
                                            precision=precision,
@@ -989,8 +1237,6 @@ class ServeEngine:
         divergence, correlated-noise lanes) complete the request with a
         full-refit value and are counted — the lane is quarantined and
         rebuilt, not the request rejected."""
-        from .streaming import lane_key as streaming_lane_key
-
         kind = routing[0]
         t0 = self.clock()
         self._lc(request, "executing", t=t0)
@@ -1030,3 +1276,4 @@ class ServeEngine:
         self._lc(request, "delivered", t=done, queue_wait_s=0.0,
                  execute_s=execute_s,
                  escalated=bool(value.get("escalated")))
+        self._commit(request, res)

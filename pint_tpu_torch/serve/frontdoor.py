@@ -12,12 +12,13 @@ decouples intake from flush so overload is a real, measurable state:
   ``take`` marks the item in flight so ``idle()`` is exact and
   ``drain`` has no windows.
 - :class:`AsyncServeEngine` — submit screens admission
-  (serve.admission: tenant quota -> SLO throttle -> backpressure) and
-  hands the request to the flusher. The flusher admits into the
-  micro-batcher and flushes batch-full slots immediately; whenever the
-  intake goes briefly quiet it flushes the partial slots too
-  (continuous batching — a request arriving between flushes joins the
-  next warm slot instead of waiting out a timer or a full batch).
+  (serve.admission: tenant quota -> SLO throttle -> backpressure),
+  journals the intake, and hands the request to the flusher. The
+  flusher admits into the micro-batcher and flushes batch-full slots
+  immediately; whenever the intake goes briefly quiet it flushes the
+  partial slots too (continuous batching — a request arriving between
+  flushes joins the next warm slot instead of waiting out a timer or a
+  full batch).
   Partial flushes need no new capture by construction: every flush
   lane-pads to ``max_batch`` (ServeEngine._padded_batch), so batch
   composition never changes the program OR any lane's bits — async
@@ -39,10 +40,23 @@ engine, cannot interleave with a flush either. The flusher makes the engine's de
 before anything else, since a slot's first capture happens inside a
 flush on that thread.
 
+Durability ordering under concurrency: the WAL intake is journaled
+BEFORE the request becomes visible to any flusher, because the moment
+it is visible it may complete and commit — a commit whose intake
+never reached the log would replay a delivered request after a
+crash. Sheds after that point journal a commit too (exactly-once
+replay); admission sheds happen before journaling and complete
+synchronously, like the sync engine's submit-time rejections — but
+they still write a commit record when the request's intake is already
+on the log (recover() pre-marks replayed intakes via
+``journal.note_intake``), so a replay shed at admission can never
+replay again.
+
 Shutdown: :meth:`AsyncServeEngine.close` stops the intake, the flusher
-drains what is left, and the watchdog exits. The JAX package's
-write-ahead journal, and the crash recovery that replays it through
-this intake, wait with the durability queue (ROADMAP §1 item 3).
+drains what is left (journal-synced), and the watchdog exits. Crash
+recovery is the inherited :meth:`ServeEngine.recover` — re-submits
+ride the same intake/flusher path and ``drain`` blocks until every
+replayed request reaches a terminal state.
 """
 
 from __future__ import annotations
@@ -157,7 +171,7 @@ class AsyncServeEngine(ServeEngine):
     """ServeEngine with the submit path split from the flush path.
 
     submit: lifecycle + fault intake hooks -> admission ladder ->
-    bounded intake queue. Returns immediately; the
+    WAL intake -> bounded intake queue. Returns immediately; the
     ServeResult handle completes when the flusher delivers (or at the
     shed/reject site).
 
@@ -171,7 +185,8 @@ class AsyncServeEngine(ServeEngine):
 
     watchdog: restarts a dead/stalled flusher under a new generation.
 
-    The inherited ``run_stream`` / ``prewarm`` work unchanged:
+    The inherited ``run_stream`` / ``prewarm`` / ``recover`` work
+    unchanged:
     ``poll`` is a no-op (the flusher owns timers) and ``drain`` blocks
     until intake + batcher are empty.
     """
@@ -232,12 +247,24 @@ class AsyncServeEngine(ServeEngine):
             request, depth=self.intake.depth(),
             capacity=self.intake.capacity, now=now)
         if not decision.admit:
+            # admission sheds complete before the WAL sees the
+            # request, so a FRESH submit has nothing to commit — but
+            # recover() pre-marks replayed intakes (note_intake)
+            # before re-submitting through this path, and a replay
+            # shed here without a commit record would replay again.
+            # _commit is a no-op unless the intake is journaled.
             self._shed(request, res, decision.reason,
                        kind=request.kind, t=now, trace=trace,
                        **decision.detail)
+            self._commit(request, res)
             return res
         forced = faultinject.fire("intake_overflow",
                                   request_id=request.request_id)
+        if self.journal is not None:
+            # WAL intake BEFORE the queue: see the module docstring —
+            # visible work may commit immediately, and a commit
+            # without its intake on disk replays a delivered request
+            self.journal.record_intake(request)
         self._lc(request, "queued", t=now)
         refused = None
         if forced is None:
@@ -249,7 +276,7 @@ class AsyncServeEngine(ServeEngine):
                 # stop() landed between the is_running() screen above
                 # and the offer: report the shutdown, not saturation —
                 # the synchronous draining rejection the docstring
-                # promises
+                # promises (committed: the intake is journaled)
                 return self._reject(request, res, "draining",
                                     request.kind,
                                     health_state=self.health.state)
@@ -261,6 +288,7 @@ class AsyncServeEngine(ServeEngine):
             detail["injected_point"] = forced["point"]
         self._shed(request, res, reason, kind=request.kind, t=now,
                    trace=trace, **detail)
+        self._commit(request, res)  # journaled shed: exactly-once
         return res
 
     def poll(self, now=None):
@@ -284,7 +312,7 @@ class AsyncServeEngine(ServeEngine):
     def close(self, drain=True):
         """Clean shutdown: optionally drain, stop the intake (new
         submits reject as draining), let the flusher finish its final
-        sweep, and stop the watchdog."""
+        sweep, stop the watchdog, and sync the journal."""
         if drain:
             self.drain()
         self.intake.stop()
@@ -294,6 +322,8 @@ class AsyncServeEngine(ServeEngine):
         self._stop_watchdog.set()
         if self._watchdog is not None and self._watchdog.is_alive():
             self._watchdog.join(timeout=10.0)
+        if self.journal is not None:
+            self.journal.sync()
 
     # -- flusher worker ----------------------------------------------
 
@@ -332,8 +362,8 @@ class AsyncServeEngine(ServeEngine):
                 except Exception as exc:
                     # a _handle escape must not strand the dequeued
                     # request: without a terminal state its handle
-                    # polls forever. Complete it as an error and keep
-                    # the flusher
+                    # polls forever and its journaled intake replays.
+                    # Complete it as an error and keep the flusher
                     # alive — one bad request is not a worker fault.
                     self._handle_crashed(item, exc)
                 finally:
@@ -343,11 +373,17 @@ class AsyncServeEngine(ServeEngine):
                 self._idle_tick()
             if not intake.is_running() and intake.idle() \
                     and not self.batcher.pending_keys():
+                if self.journal is not None:
+                    self.journal.sync()
                 return
 
     def _handle(self, item):
         """Process one dequeued request on the flusher thread."""
         request, res, t_sub, trace, fault = item
+        # the flusher-death leg of the SIGKILL matrix: die with the
+        # item dequeued but nothing flushed — its journaled intake has
+        # no commit, so recovery re-runs it exactly once
+        faultinject.fire_kill("flusher_take", rid=request.request_id)
         screened = self._screen(request, res, t_sub, trace,
                                 injected=fault)
         if screened is None:
@@ -359,8 +395,8 @@ class AsyncServeEngine(ServeEngine):
     def _handle_crashed(self, item, exc):
         """Terminal backstop for an unexpected exception escaping
         :meth:`_handle` on the flusher thread: the dequeued request
-        gets its error status, telemetry record and terminal lifecycle
-        state, so no flusher bug can leave a
+        gets its error status, telemetry record, terminal lifecycle
+        state, and journal commit, so no flusher bug can leave a
         request pending with drain() reporting quiescence."""
         request, res, _, trace, _ = item
         self.telemetry.incr("flusher_handle_errors")
@@ -382,6 +418,7 @@ class AsyncServeEngine(ServeEngine):
                                              "anon"), trace=trace)
         self.health.note_request("error")
         self._lc(request, "error", reason=reason)
+        self._commit(request, res)
 
     def _idle_tick(self):
         """Continuous batching: the intake went quiet, so flush every

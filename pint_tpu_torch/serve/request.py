@@ -28,9 +28,8 @@ def ensure_request_counter_above(n):
     Crash recovery replays requests that carry ids minted by a DEAD
     process; without this, fresh requests created in the recovered
     process would restart at req-0 and collide with replayed ids in
-    the journal. The JAX package's ServeEngine.recover calls this with
-    the highest id it saw in the log (the port's waits with the
-    journal, ROADMAP §1 item 3)."""
+    the journal. ServeEngine.recover calls this with the highest id
+    it saw in the log."""
     global _ids
     current = next(_ids)
     _ids = itertools.count(max(current, int(n) + 1))
@@ -110,10 +109,9 @@ class AppendToasRequest(TimingRequest):
     before the first append; appends on stale lanes escalate to a
     full refit via the drift sentinel / divergence policy.
 
-    Appends bypass the micro-batcher: each is executed immediately
-    (the JAX package journals it at intake first; the port's engine has
-    no journal yet), because the lane's delta chain orders appends per
-    pulsar — batching appends
+    Appends bypass the micro-batcher: each is journaled at intake
+    (WAL before visibility) and executed immediately, because the
+    lane's delta chain orders appends per pulsar — batching appends
     across pulsars would add latency without saving any device work
     (the math is per-lane, there is no shared executable to warm).
     """

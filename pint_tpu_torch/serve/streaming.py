@@ -62,7 +62,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import autodiff, resolve_device
 from ..obs import drift as obs_drift
 from ..resilience import faultinject
 from . import policy
@@ -196,7 +196,7 @@ class StreamingRefitter:
         def phase_of(xv, ps, b, pr):
             return phase_fn(pta._overlay(ps, xv), b, pr)
 
-        jac = torch.func.vmap(torch.func.jacfwd(phase_of))
+        jac = torch.func.vmap(autodiff.jacfwd(phase_of))
 
         def rows(x):
             p = pta._overlay(pta.params, x)

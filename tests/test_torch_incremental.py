@@ -307,9 +307,12 @@ def test_delta_store_prewarm_reset_and_identity(tmp_path):
     assert [s for s, _ in ds.load_chain("J3", "base")] == [tip]
     assert ds.counters()["prewarm_hits"] == 1
     assert PACK_GEOMETRY_VERSION == 3
-    assert store_identity() == {"format": 1,
-                                "torch_version": torch.__version__,
-                                "pack_geometry": 3}
+    assert store_identity() == {
+        "format": 1, "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+        "capability": (list(torch.cuda.get_device_capability())
+                       if torch.cuda.is_available() else None),
+        "pack_geometry": 3}
     with pytest.warns(UserWarning, match="re-rooted"):
         ds.reset_lane("J3")
     assert ds.scan()["segments"] == 0

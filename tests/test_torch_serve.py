@@ -345,8 +345,18 @@ def test_cache_prefill_and_eviction_frees_programs():
     assert ref() is not None and cache.evictions == 2
     cache.insert(("k", 11), {})  # evicts ("k", 9): its programs go
     assert ref() is None and cache.evictions == 3
-    with pytest.raises(NotImplementedError, match="durability"):
-        ExecutableCache(persistent=object())
+    # a persistent tier behind the LRU: a miss consults the disk
+    import tempfile
+
+    from pint_tpu_torch.serve import PersistentExecutableCache
+
+    with tempfile.TemporaryDirectory() as d:
+        disk = ExecutableCache(persistent=PersistentExecutableCache(
+            d, device="cpu"))
+        assert disk.lookup(("k", 0)) is None
+        c = disk.counters()
+        assert c["misses"] == 1 and c["disk_hits"] == 0
+        assert c["disk"]["loads"] == 1 and c["disk"]["load_misses"] == 1
 
 
 def test_fit_resid_phase_match_jax_and_offline(two, jax_runs):
@@ -650,8 +660,12 @@ def test_serve_bench_stream_on_cpu():
     assert rep["reqlife_bitwise_on_off"]
     assert rep["fleet_pipeline_bitwise"]
     assert len(rep["result_digests"]) == 12
-    with pytest.raises(SystemExit):
-        bench.main(["--chaos", "--device", "cpu"])
+    # device chaos waits with multi-device; the request chaos and the
+    # kill matrix run (tests/test_torch_crash_recovery.py)
+    for argv in (["--chaos", "--devices", "2"],
+                 ["--chaos", "--fault-point", "device_loss"]):
+        with pytest.raises(SystemExit):
+            bench.main(argv + ["--device", "cpu"])
 
 
 def test_build_serve_fleet_matches_jax():
@@ -760,22 +774,37 @@ def test_signatures_match_jax(module):
 @pytest.mark.parametrize("call,item", [
     (lambda s: s.ServeEngine(mesh=object(), device="cpu"), "item 2"),
     (lambda s: s.ServeEngine(devices=["cpu"], device="cpu"), "item 2"),
-    (lambda s: s.ServeEngine(durable_dir="/nonexistent", device="cpu"),
-     "item 3"),
-    (lambda s: s.ServeEngine(excache_dir="/nonexistent", device="cpu"),
-     "item 3"),
-    (lambda s: s.ServeEngine(store_dir="/nonexistent", device="cpu"),
-     "item 3"),
-    (lambda s: s.ServeEngine(device="cpu").recover(), "item 3"),
     (lambda s: s.ServeEngine(device="cpu").attach_slo(), "item 3"),
     (lambda s: s.ServeEngine(device="cpu").attach_fit_quality(), "item 3"),
     (lambda s: s.StreamingRefitter(mesh=object(), device="cpu"), "item 2"),
+    (lambda s: __import__("pint_tpu_torch.scripts.pint_serve_bench",
+                          fromlist=["x"]).run_device_chaos(), "item 2"),
 ])
 def test_waiting_keywords_raise_naming_their_item(call, item):
     import pint_tpu_torch.serve as s
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         call(s)
+
+
+@pytest.mark.parametrize("kw", ["durable_dir", "excache_dir", "store_dir"])
+def test_durable_keywords_construct(tmp_path, kw):
+    """The durability keywords build their layer (serve/journal.py, the
+    persisted tier, the stores) where they once waited; recover()
+    needs a journal."""
+    from pint_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(device="cpu", **{kw: tmp_path / kw})
+    assert (eng.journal is not None) == (kw == "durable_dir")
+    assert (eng.cache.persistent is not None) == (kw != "store_dir")
+    assert (eng.store is not None) == (kw != "excache_dir")
+    assert (eng.deltas is not None) == (kw != "excache_dir")
+    if kw == "durable_dir":
+        assert eng.recover()["n_replayed"] == 0
+        eng.journal.close()
+    else:
+        with pytest.raises(ValueError, match="no journal"):
+            eng.recover()
 
 
 def test_engine_needs_a_card_unless_told_cpu():
