@@ -290,6 +290,40 @@ on it, an interactive pintk session and binary conversions):
    segments at ``append_delta_write``; each site's cold / warm walls
    and their ratio against the 2.0 bound are printed
    (:func:`durable_kill`);
+12c. ``[obs]``, after ``[durable] restart`` and ``chaos``, on the
+   objects the earlier phases built (``obs/``: spans, the cost model,
+   SLO burn rates, the drift board, the exporters). ``fleet``: a cold
+   traced build (``pipeline=True``) and ``precompile`` of the main
+   fleet, then its mixed fit (``maxiter=2``) sequential and pipelined,
+   each untraced and traced. Checks: traced bitwise untraced (x, chi2,
+   cov); ``fleet.fit`` holds one ``fleet.execute`` per bucket (4), plus
+   one ``fleet.dispatch`` each when pipelined; the cold build shows
+   ``fleet.host_prep``, ``fleet.pack``, ``fleet.compile``, ``aot.trace``
+   and ``aot.backend_compile``; every ``fleet.execute`` carries an MFU
+   and 0 < roofline share <= 100% on the card's row of
+   ``costmodel.DEVICE_SPECS``; K1 and K2 launch 2 + 2 under tracing
+   (the kernel line's ``launches_new_paths``); the Chrome trace loads
+   with one event per span; a disabled span's cost times the spans of a
+   traced fit stays under 1% of the warm refit (:func:`obs_fleet`).
+   ``gw``: a traced ``gw_stage`` on the fitted fleet (``gw.stage`` holds
+   ``gw.assemble`` and ``gw.os``, ``gw.os`` holds ``gw.correlate``;
+   the statistic bitwise the untraced one) and the traced 3,000-pulsar
+   mixed sweep (an MFU, a roofline share <= 100% and a bound on the
+   card's row; K3 launched 78 times) (:func:`obs_gw`). ``serve``: the
+   ``[serve]`` fleet's 216-request stream on one engine, plain, then
+   with ``attach_slo()`` and ``attach_fit_quality()``: bitwise the
+   plain digests, no SLO alert, a drift baseline per pulsar (72); a
+   spin-only lane refitted on its TOAs with a 20 us step in their
+   second half trips ``fit_anomaly`` with a flight dump; the drift
+   state round-trips ``save_serve_state`` / ``restore_serve_state``;
+   ``pint_serve_bench --tail-out --trace-out`` on the fleet writes a
+   trace that loads, and ``python -m pint_tpu_torch.obs tail`` (in
+   process) resolves the artifact's p99 exemplar (:func:`obs_serve`).
+   ``arrival``: ``run_arrival_sweep`` on the fleet at the JAX package's
+   ladder (0.25 ... 3 x the closed-loop rate, 96 requests a rung):
+   base rate, each rung's offered and achieved rates, p99 and sheds,
+   the knee, the shed onset and the schedule digest
+   (:func:`obs_arrival`);
 13. ``[photon]``: bench.py's photon stage (4,000,000 photons, 1,000,000
    pulsed at phase 0.3 with sigma 0.04, seed 0) over one year as a
    barycentred NICER event file with a PSRPROB weight column, written
@@ -5226,6 +5260,341 @@ def durable_kill(torch, tmp, device="cuda", **kill_kw):
     return rep
 
 
+OBS_SPAN_SHARE = 0.01  # disabled spans x spans per traced fit / warm refit
+OBS_STEP_S = 2e-5  # the step injected into half of a lane's TOAs
+OBS_DRIFT_MIN_N = 3  # the board's warm-up: each pulsar is fit 3 times
+OBS_ARRIVAL_N = 96  # requests per ladder rung (the JAX package's)
+OBS_FRACS = (0.25, 0.5, 0.75, 1.0, 1.25, 1.5, 2.0, 3.0)
+
+
+def span_links(spans):
+    """[(name, parent name)] of a span list, in finish order."""
+    by_id = {s["span"]: s["name"] for s in spans}
+    return [(s["name"], by_id.get(s["parent"])) for s in spans]
+
+
+def traced(fn):
+    """(fn(), spans): fn run with tracing on, the ring reset around it."""
+    from pint_tpu_torch.obs import trace
+
+    trace.reset()
+    trace.enable()
+    try:
+        out = fn()
+    finally:
+        trace.disable()
+    spans = trace.spans()
+    trace.reset()
+    return out, spans
+
+
+def obs_fleet(torch, fleet, models, toas, x_start, tmp, device="cuda"):
+    """``[obs] fleet`` (module docstring, phase 12c). Returns K1's and
+    K2's launches in the traced sequential and pipelined fits."""
+    from pint_tpu_torch.kernels.fusedgls import fused_block_gls_cuda
+    from pint_tpu_torch.kernels.seggram import block_grams_cuda
+    from pint_tpu_torch.obs import costmodel, export, trace
+    from pint_tpu_torch.parallel import PTAFleet
+
+    opts = dict(method="gls", maxiter=2, precision="mixed")
+    n_buckets = len(fleet.group_indices)
+
+    def cold():
+        f = PTAFleet(models, toas, toa_bucket="plan", pipeline=True,
+                     device=device)
+        infos, _ = f.precompile(**opts)
+        sync()
+        return len(infos)
+
+    t0 = time.perf_counter()
+    n_cold, cold_spans = traced(cold)
+    cold_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    cold_names = {}
+    for s in cold_spans:
+        cold_names[s["name"]] = cold_names.get(s["name"], 0) + 1
+    log(f"[obs] fleet: a cold traced build and precompile of the main fleet "
+        f"(pipeline=True, {n_cold} programs captured) {cold_s:.2f} s, spans "
+        f"{json.dumps(dict(sorted(cold_names.items())))}")
+
+    set_start(fleet, x_start)
+    fleet.precompile(**opts)
+    runs = {}
+    for pipeline in (False, True):
+        sync()
+        t0 = time.perf_counter()
+        plain = fleet.fit(pipeline=pipeline, **opts)
+        sync()
+        plain_s = time.perf_counter() - t0
+        fused_block_gls_cuda.launches = 0
+        block_grams_cuda.launches = 0
+        t0 = time.perf_counter()
+        out, spans = traced(lambda: fleet.fit(pipeline=pipeline, **opts))
+        sync()
+        traced_s = time.perf_counter() - t0
+        runs[pipeline] = dict(
+            plain=plain, traced=out, spans=spans, plain_s=plain_s,
+            traced_s=traced_s, k1=fused_block_gls_cuda.launches,
+            k2=block_grams_cuda.launches)
+    card = torch.cuda.get_device_name(0)
+    execs_ok, bitwise = True, True
+    for pipeline, r in runs.items():
+        tag = "pipelined" if pipeline else "sequential"
+        bitwise = bitwise and all(
+            all(np.array_equal(a, b) for a, b in zip(pa, pb))
+            for pa, pb in zip(r["plain"], r["traced"]))
+        for s in r["spans"]:
+            if s["name"] != "fleet.execute":
+                continue
+            a = s["attrs"]
+            rp = a.get("roofline_pct")
+            execs_ok = execs_ok and (
+                a.get("mfu_pct") is not None and rp is not None
+                and 0 < rp <= 100 and a.get("bound") in ("compute", "memory")
+                and a.get("platform") == card
+                and card in costmodel.DEVICE_SPECS and "nominal" not in a)
+            log(f"[obs] fleet {tag}: execute bucket {s['attrs'].get('bucket')}"
+                f" ({a.get('n')} pulsars): wall {a.get('wall_s')} s, flops "
+                f"{a.get('flops')!r}, bytes {a.get('bytes_accessed')!r}, "
+                f"intensity {a.get('intensity_flops_per_byte')} FLOP/B, "
+                f"MFU {a.get('mfu_pct')}%, roofline {rp}%, bound "
+                f"{a.get('bound')}, platform {a.get('platform')}")
+        log(f"[obs] fleet {tag}: untraced {r['plain_s']:.4f} s, traced "
+            f"{r['traced_s']:.4f} s, {len(r['spans'])} spans, K1 / K2 "
+            f"launches under tracing {r['k1']} / {r['k2']}")
+    seq, pipe = runs[False], runs[True]
+    path = export.write_chrome_trace(os.path.join(tmp, "obs_fleet.json"),
+                                     pipe["spans"])
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e["ph"] == "X"]
+    # the disabled path: the shared no-op, per call, on this host
+    n_calls = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        with trace.span("fleet.execute", bucket=0, n=1):
+            pass
+    per_span = (time.perf_counter() - t0) / n_calls
+    n_spans = max(len(seq["spans"]), len(pipe["spans"]))
+    share = per_span * n_spans / seq["plain_s"]
+    log(f"[obs] fleet: a disabled span costs {per_span * 1e9:.1f} ns; x "
+        f"{n_spans} spans per traced fit = {100 * share:.5f}% of the warm "
+        f"refit ({seq['plain_s']:.4f} s); the Chrome trace has "
+        f"{len(events)} events for {len(pipe['spans'])} spans; {gpu_line()}")
+    want = {False: [("fleet.execute", "fleet.fit")] * n_buckets
+            + [("fleet.fit", None)],
+            True: [("fleet.dispatch", "fleet.fit")] * n_buckets
+            + [("fleet.execute", "fleet.fit")] * n_buckets
+            + [("fleet.fit", None)]}
+    check("[obs] fleet", {
+        "traced fits bitwise the untraced (x, chi2, cov)": bitwise,
+        "fleet.fit holds one fleet.execute per bucket (+ fleet.dispatch "
+        "pipelined)": all(span_links(runs[p]["spans"]) == want[p]
+                          for p in runs),
+        "4 buckets": n_buckets == 4,
+        "a cold build shows host_prep, pack, compile, backend_compile":
+            all(cold_names.get(k) for k in (
+                "fleet.host_prep", "fleet.pack", "fleet.compile",
+                "aot.trace", "aot.backend_compile")),
+        "every execute span: MFU and 0 < roofline <= 100 on the H100 row":
+            execs_ok,
+        "K1 and K2 launched 2 + 2 under tracing": all(
+            r["k1"] == 2 and r["k2"] == 2 for r in runs.values()),
+        "the Chrome trace loads with one event per span":
+            len(events) == len(pipe["spans"]),
+        "disabled spans < 1% of the warm refit": share < OBS_SPAN_SHARE,
+    })
+    return {"sequential": (seq["k1"], seq["k2"]),
+            "pipelined": (pipe["k1"], pipe["k2"])}
+
+
+def obs_gw(torch, fleet, xs, sweep_lat, device="cuda"):
+    """``[obs] gw`` (module docstring, phase 12c). Returns K3's launches
+    in the traced 3,000-pulsar sweep."""
+    from pint_tpu_torch import gw
+    from pint_tpu_torch.kernels.paircorr import pair_products_cuda
+    from pint_tpu_torch.obs import costmodel
+
+    xs = list(xs)
+    plain = fleet.gw_stage(xs=xs, precision="mixed")
+    stage, spans = traced(lambda: fleet.gw_stage(xs=xs, precision="mixed"))
+    links = span_links(spans)
+    gw.correlation_sweep(sweep_lat.z, sweep_lat.w, lambda *a: None,
+                         block=SWEEP_BLOCK, precision="mixed", device=device)
+    pair_products_cuda.launches = 0
+    st, sweep_spans = traced(lambda: gw.correlation_sweep(
+        sweep_lat.z, sweep_lat.w, lambda *a: None, block=SWEEP_BLOCK,
+        precision="mixed", device=device))
+    k3 = pair_products_cuda.launches
+    card = torch.cuda.get_device_name(0)
+    log(f"[obs] gw: traced gw_stage spans {links}; snr {stage['snr']!r} "
+        f"(untraced {plain['snr']!r})")
+    log(f"[obs] gw: the traced {SWEEP_PSR}-pulsar mixed sweep: "
+        f"{st['n_blocks']} tiles, {st['wall_s']:.4f} s, flops "
+        f"{st['flops']}, bytes {st['bytes_accessed']}, MFU "
+        f"{st['mfu_pct']}%, roofline {st['roofline_pct']}%, bound "
+        f"{st['bound']}, platform {st.get('platform')}; K3 launches {k3}")
+    check("[obs] gw", {
+        "gw.stage holds gw.assemble and gw.os, gw.os holds gw.correlate":
+            {("gw.assemble", "gw.stage"), ("gw.os", "gw.stage"),
+             ("gw.correlate", "gw.os"), ("gw.stage", None)} <= set(links),
+        "traced statistic bitwise the untraced": all(
+            stage[k] == plain[k] for k in ("amp2", "snr", "sigma_amp2",
+                                            "n_pairs")),
+        "sweep MFU, roofline and bound non-null, roofline <= 100":
+            st["mfu_pct"] is not None and st["bound"] is not None
+            and st["roofline_pct"] is not None
+            and 0 < st["roofline_pct"] <= 100,
+        "the sweep on the H100 row": st.get("platform") == card
+            and card in costmodel.DEVICE_SPECS,
+        "the sweep is one gw.correlate span": [s["name"] for s in
+                                               sweep_spans] == ["gw.correlate"],
+        "K3 launched 78 times": k3 == 78 == st["n_blocks"],
+    })
+    return k3
+
+
+def obs_serve(torch, serve, tmp, device="cuda"):
+    """``[obs] serve`` (module docstring, phase 12c)."""
+    from pint_tpu_torch.obs import FlightRecorder, fitquality
+    from pint_tpu_torch.obs.__main__ import main as obs_main
+    from pint_tpu_torch.scripts import pint_serve_bench as bench
+    from pint_tpu_torch.serve import (FitRequest, ServeEngine, result_digest,
+                                      restore_serve_state, save_serve_state)
+
+    models, toas = serve["models"], serve["toas"]
+    n_psr = len(models)
+
+    def req(i, t=None):
+        return FitRequest(models[i % n_psr], toas[i % n_psr] if t is None
+                          else t, maxiter=SERVE_MAXITER)
+
+    t_phase = time.perf_counter()
+    eng = ServeEngine(max_batch=SERVE_MAX_BATCH, bucket_floor=SERVE_FLOOR,
+                      device=device)
+    eng.prewarm_concurrent([req(i) for i in range(n_psr)])
+    t0 = time.perf_counter()
+    plain = eng.run_stream([req(i) for i in range(SERVE_REQUESTS)])
+    plain_s = time.perf_counter() - t0
+    rec = FlightRecorder(dump_dir=os.path.join(tmp, "flight"))
+    mon = eng.attach_slo(recorder=rec)
+    try:
+        board = eng.attach_fit_quality(recorder=rec,
+                                       min_n=OBS_DRIFT_MIN_N)
+        t0 = time.perf_counter()
+        watched = eng.run_stream([req(i) for i in range(SERVE_REQUESTS)])
+        watched_s = time.perf_counter() - t0
+        states = eng.slo_check()
+        baselines = {p for p, _ in board._sentinels}
+        alarms0 = board.alarms
+        # a lane refitted on TOAs with a step in their second half
+        lane = serve_index(0, 0, 0)
+        step = toas[lane].mask(np.ones(len(toas[lane]), bool))
+        step.adjust_times(np.where(np.arange(len(step)) >= len(step) // 2,
+                                   OBS_STEP_S, 0.0))
+        step.ensure_posvels()
+        bad = eng.submit(req(lane, step))
+        eng.drain()
+        anomalies = [p for p in rec.dumps if "fit_anomaly" in p]
+        state = eng.state_dict()
+        save_serve_state(eng, os.path.join(tmp, "state"))
+        fresh = ServeEngine(max_batch=SERVE_MAX_BATCH,
+                            bucket_floor=SERVE_FLOOR, device=device)
+        restore_serve_state(fresh, os.path.join(tmp, "state"))
+        restored = fresh.state_dict()
+    finally:
+        fitquality.disable()
+        fitquality.FITQ.reset()
+    d_plain = [result_digest(r.value) for r in plain]
+    d_watched = [result_digest(r.value) for r in watched]
+    log(f"[obs] serve: {SERVE_REQUESTS} requests plain {plain_s:.3f} s, "
+        f"with attach_slo + attach_fit_quality {watched_s:.3f} s; SLOs "
+        f"{[s['name'] for s in states]} alerting {mon.alerting()}; drift "
+        f"baselines for {len(baselines)} pulsars ({board.snapshot()}); "
+        f"the stepped lane ({OBS_STEP_S * 1e6:g} us on half its "
+        f"{len(step)} TOAs): status {bad.status}, alarms "
+        f"{board.alarms - alarms0}, flight dumps {len(anomalies)}")
+    # pint_serve_bench --tail-out / --trace-out on this fleet, then the
+    # obs CLI's tail on its artifact
+    tail, trace_out = (os.path.join(tmp, "tail.json"),
+                       os.path.join(tmp, "serve_trace.json"))
+    with bench_fleet(bench, models, toas), \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        rc_bench = bench.main([
+            "--requests", str(SERVE_REQUESTS), "--max-batch",
+            str(SERVE_MAX_BATCH), "--bucket-floor", str(SERVE_FLOOR),
+            "--maxiter", str(SERVE_MAXITER), "--no-offline-check",
+            "--concurrent-prewarm", "--device", device, "--tail-out", tail,
+            "--trace-out", trace_out])
+        bench_s = time.perf_counter() - t0
+    with open(trace_out) as fh:
+        n_events = len([e for e in json.load(fh)["traceEvents"]
+                        if e["ph"] == "X"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_tail = obs_main(["tail", tail])
+    resolved = json.loads(out.getvalue())
+    log(f"[obs] serve: pint_serve_bench --tail-out --trace-out rc {rc_bench}"
+        f" in {bench_s:.2f} s, {n_events} trace events; obs tail rc "
+        f"{rc_tail}: exemplar {resolved.get('exemplar')}, queue wait "
+        f"{resolved.get('queue_wait_s')} s, execute "
+        f"{resolved.get('execute_s')} s; [obs] serve took "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    check("[obs] serve", {
+        "monitored stream bitwise the plain one": d_watched == d_plain
+            and all(r.status == "ok" for r in watched),
+        "no SLO alert on the healthy stream": not any(
+            s["alerting"] for s in states) and not mon.alerting(),
+        "a drift baseline per committed pulsar": len(baselines) == n_psr,
+        "the stepped lane trips fit_anomaly with a flight dump":
+            bad.status == "ok" and board.alarms > alarms0
+            and len(anomalies) > 0,
+        "drift state round-trips save/restore_serve_state":
+            state["drift"] is not None and restored["drift"]
+            == json.loads(json.dumps(state["drift"])),
+        "pint_serve_bench --trace-out writes a trace that loads":
+            rc_bench == 0 and n_events > 0,
+        "obs tail resolves the p99 exemplar": rc_tail == 0
+            and resolved.get("resolved"),
+    })
+    del eng, fresh
+    torch.cuda.empty_cache()
+
+
+def obs_arrival(torch, serve, device="cuda"):
+    """``[obs] arrival`` (module docstring, phase 12c)."""
+    from pint_tpu_torch.scripts import pint_serve_bench as bench
+
+    with bench_fleet(bench, serve["models"], serve["toas"]):
+        t0 = time.perf_counter()
+        rep = bench.run_arrival_sweep(
+            n_per_rate=OBS_ARRIVAL_N, fracs=OBS_FRACS,
+            max_batch=SERVE_MAX_BATCH, bucket_floor=SERVE_FLOOR,
+            sizes=SERVE_SIZES, per_combo=SERVE_PER_COMBO, device=device)
+        wall = time.perf_counter() - t0
+    log(f"[obs] arrival: base_rps {rep['base_rps']} (closed loop, p99 "
+        f"{rep['base_p99_s']} s), max_queue {rep['max_queue']}, "
+        f"{rep['producers']} producers, {rep['n_per_rate']} requests a rung")
+    for row in rep["rows"]:
+        log(f"[obs] arrival: offered {row['offered_rps']} rps, achieved "
+            f"{row['achieved_rps']} rps, p50 {row['p50_s']} s, p99 "
+            f"{row['p99_s']} s, delivered {row['delivered']}, shed "
+            f"{row['shed']}, errors {row['errors']}")
+    log(f"[obs] arrival: knee_rps {rep['knee_rps']} (p99 "
+        f"{rep['p99_at_knee_s']} s), shed_onset_rps {rep['shed_onset_rps']}"
+        f", null_reasons {rep['null_reasons']}, schedule sha256 "
+        f"{rep['schedule_sha256']}; the sweep took {wall:.2f} s; "
+        f"{gpu_line()}")
+    check("[obs] arrival", {
+        "monotone offered ladder": rep["monotone_offered"],
+        "every request terminal": rep["reqlife_nonterminal"] == 0,
+        "every rung accounted, no errors": all(
+            r["delivered"] + r["shed"] == rep["n_per_rate"]
+            and r["errors"] == 0 for r in rep["rows"]),
+        "8 rungs": len(rep["rows"]) == len(OBS_FRACS),
+    })
+
+
 def run():
     import torch
 
@@ -5439,6 +5808,17 @@ def run():
             f"{time.perf_counter() - t0:.2f} s")
     entries[-1]["launches_new_paths"] = {"serve append": serve["k1p"],
                                          "durable restart": k1p_restart}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        obs_k12 = obs_fleet(torch, fleet, models, toas, x_start, tmp)
+        obs_k3 = obs_gw(torch, fleet, xm2, sweep_lat)
+        obs_serve(torch, serve, tmp)
+        obs_arrival(torch, serve)
+        log(f"[obs] took {time.perf_counter() - t0:.2f} s")
+    for k, entry in enumerate(entries[:2]):
+        for tag, k12 in obs_k12.items():
+            entry["launches_new_paths"][f"obs fleet {tag} traced"] = k12[k]
+    entries[2]["launches_new_paths"] = {"obs gw traced sweep": obs_k3}
     del serve
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:

@@ -48,9 +48,23 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def get_model(parfile, **kw):
+    """Load a par file into a TimingModel (reference:
+    pint.models.get_model; host-side, as ``models.get_model``)."""
+    from .models.builder import get_model as _gm
+
+    return _gm(parfile, **kw)
+
 
 def get_model_and_toas(parfile, timfile, **kw):
     """(reference: pint.models.get_model_and_toas)"""
     from .models.builder import get_model_and_toas as _gmt
 
     return _gmt(parfile, timfile, **kw)
+
+
+def get_TOAs(timfile, **kw):
+    """(reference: pint.toa.get_TOAs; host-side, as ``toa.get_TOAs``)"""
+    from .toa import get_TOAs as _gt
+
+    return _gt(timfile, **kw)

@@ -107,19 +107,26 @@ def check_precision(precision, allow_auto=False):
             f"precision must be one of {allowed}, got {precision!r}")
 
 
-def aot_lower(fn, *args):
+def aot_lower(fn, *args, trace_id=None):
     """Build a fit program, timing the build: ``fn(*args)`` returns it
     (for a batch, a function of the start vectors and the batch's device
     tensors, ``graphs.py``). Torch traces nothing, so
-    ``trace_s``, the JAX package's trace time, is the build's host wall.
-    Returns {"lowered", "trace_s"}; :func:`aot_backend_compile` takes
-    the "lowered" program."""
-    t0 = time.perf_counter()
-    lowered = fn(*args)
-    return {"lowered": lowered, "trace_s": time.perf_counter() - t0}
+    ``trace_s``, the JAX package's trace time, is the build's host wall,
+    inside an ``aot.trace`` span; a pool thread passes its caller's
+    ``trace_id`` so the span joins the caller's trace. Returns
+    {"lowered", "trace_s"}; :func:`aot_backend_compile` takes the
+    "lowered" program."""
+    from .obs import clock as obs_clock
+    from .obs import trace as obs_trace
+
+    with obs_trace.span("aot.trace", trace_id=trace_id):
+        t0 = obs_clock.now()
+        lowered = fn(*args)
+        trace_s = obs_clock.now() - t0
+    return {"lowered": lowered, "trace_s": trace_s}
 
 
-def aot_backend_compile(lowered, x0, *data):
+def aot_backend_compile(lowered, x0, *data, label=None):
     """Make a built program ``lowered(x0, *data)`` ready to dispatch at
     its start vectors ``x0`` and its batch's tensors ``data``: on the
     card, warm it up on a side stream and capture it into CUDA graphs
@@ -129,19 +136,49 @@ def aot_backend_compile(lowered, x0, *data):
     ``graphs.Program``). A failed capture raises. Returns the JAX
     package's dict {"compiled", "backend_compile_s", "flops",
     "bytes_accessed", "memory", "intensity_flops_per_byte",
-    "roofline_ceiling_flops", "bound"}, whose cost fields are None as
-    the reference returns them from a backend without a cost model,
-    plus "captured" and "pieces" (the program's graphs and eager ops in
-    order)."""
-    if x0.device.type == "cuda":
-        compiled = graphs.GraphProgram(lowered, x0, *data)
-        backend_s = compiled.capture_s
-    else:
-        compiled, backend_s = graphs.Program(lowered), 0.0
+    "roofline_ceiling_flops", "bound"} plus "captured" and "pieces"
+    (the program's graphs and eager ops in order).
+
+    The cost fields are the counts recorded on ``lowered`` when the
+    program was built (``obs.costmodel.executable_cost``; None where
+    none were recorded), attributed on the platform of ``x0``'s device. They
+    are attached to the ``aot.backend_compile`` span and, with a
+    ``label``, recorded in ``costmodel.LEDGER``, so execute-time spans
+    can attribute a wall time back to the program."""
+    from .obs import costmodel
+    from .obs import trace as obs_trace
+
+    with obs_trace.span("aot.backend_compile") as sp:
+        if x0.device.type == "cuda":
+            compiled = graphs.GraphProgram(lowered, x0, *data)
+            backend_s = compiled.capture_s
+        else:
+            compiled, backend_s = graphs.Program(lowered), 0.0
+        cost = costmodel.executable_cost(lowered)
+        attr = costmodel.attribute(
+            cost["flops"], cost["bytes_accessed"],
+            platform=costmodel.platform_of(x0.device))
+        if obs_trace.enabled():
+            sp.set(flops=cost["flops"],
+                   bytes_accessed=cost["bytes_accessed"],
+                   intensity_flops_per_byte=attr[
+                       "intensity_flops_per_byte"],
+                   roofline_ceiling_flops=attr["roofline_ceiling_flops"],
+                   bound=attr["bound"], captured=compiled.captured)
+            if label is not None:
+                sp.set(program=label)
+            if cost["memory"] is not None:
+                sp.set(**{"memory_" + k: v
+                          for k, v in cost["memory"].items()})
+    if label is not None:
+        costmodel.LEDGER.record(label, cost)
     return {"compiled": compiled, "backend_compile_s": backend_s,
-            "flops": None, "bytes_accessed": None, "memory": None,
-            "intensity_flops_per_byte": None,
-            "roofline_ceiling_flops": None, "bound": None,
+            "flops": cost["flops"],
+            "bytes_accessed": cost["bytes_accessed"],
+            "memory": cost["memory"],
+            "intensity_flops_per_byte": attr["intensity_flops_per_byte"],
+            "roofline_ceiling_flops": attr["roofline_ceiling_flops"],
+            "bound": attr["bound"],
             "captured": compiled.captured, "pieces": compiled.layout}
 
 
@@ -157,13 +194,17 @@ def aot_serialize(compiled):
 
 
 def aot_deserialize(doc):
-    """Raises: there is no serialized program to rehydrate
-    (:func:`aot_serialize` writes none). The JAX package's callers treat
-    a raise as a cache miss and compile again."""
-    raise RuntimeError(
-        "aot_deserialize: pint_tpu_torch programs are CUDA graphs of one "
-        "process's device allocations and have no serialized form; "
-        "capture the program again (PTABatch.aot_compile)")
+    """Raises, inside an ``aot.deserialize`` span: there is no
+    serialized program to rehydrate (:func:`aot_serialize` writes none).
+    The JAX package's callers treat a raise as a cache miss and compile
+    again."""
+    from .obs import trace as obs_trace
+
+    with obs_trace.span("aot.deserialize"):
+        raise RuntimeError(
+            "aot_deserialize: pint_tpu_torch programs are CUDA graphs of "
+            "one process's device allocations and have no serialized "
+            "form; capture the program again (PTABatch.aot_compile)")
 
 
 def gls_gram(Mn, q, precision="f64"):

@@ -25,12 +25,20 @@ isotropically, phase shifts circularly slide each pulsar's lattice row.
 Draw d uses ``np.random.default_rng([seed, d])``, the fixtures
 ``[seed, 0, 1]`` and ``[seed, 0, 2]``, exactly as the JAX package does,
 so nulls and fixtures come out bit-identical to the reference's.
+
+The statistic is one ``gw.os`` span and a scramble calibration one
+``gw.scramble`` span; the registry counts ``gw.os_runs`` and
+``gw.scramble_draws``, and with the fit-quality probes on the sweep's
+pair coherence joins their ledger, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..obs import fitquality as obs_fitq
+from ..obs import metricsreg
+from ..obs import trace as obs_trace
 from .correlate import correlation_sweep
 
 
@@ -89,12 +97,21 @@ def optimal_statistic(lat, orf="hd", precision="f64", block=256,
         acc["max_z"] = max(acc["max_z"], float(az.max(initial=0.0)))
         acc["n_incoh"] += int(np.count_nonzero(az > z_limit))
 
-    stats = correlation_sweep(lat.z, lat.w, fold, block=block,
-                              precision=precision, device=device)
-    s1, s2 = acc["s1"], acc["s2"]
-    amp2 = s1 / s2 if s2 > 0 else None
-    sigma_amp2 = float(1.0 / np.sqrt(s2)) if s2 > 0 else None
-    snr = float(s1 / np.sqrt(s2)) if s2 > 0 else None
+    with obs_trace.span("gw.os", orf=orf, n_psr=lat.n_pulsars,
+                        n_cells=lat.n_cells) as sp:
+        stats = correlation_sweep(lat.z, lat.w, fold, block=block,
+                                  precision=precision, device=device)
+        s1, s2 = acc["s1"], acc["s2"]
+        amp2 = s1 / s2 if s2 > 0 else None
+        sigma_amp2 = float(1.0 / np.sqrt(s2)) if s2 > 0 else None
+        snr = float(s1 / np.sqrt(s2)) if s2 > 0 else None
+        metricsreg.REGISTRY.counter("gw.os_runs").inc()
+        if obs_fitq.enabled():
+            obs_fitq.FITQ.note_pair_coherence(
+                acc["n_eff"], acc["n_incoh"], acc["max_z"])
+        if obs_trace.enabled():
+            sp.set(amp2=amp2, snr=snr, n_pairs=acc["n_eff"],
+                   n_incoherent=acc["n_incoh"])
     return {"orf": orf, "amp2": amp2, "sigma_amp2": sigma_amp2,
             "snr": snr, "n_pairs": acc["n_eff"],
             "n_incoherent": acc["n_incoh"],
@@ -124,54 +141,59 @@ def scramble_null(lat, n_draws=100, seed=0, mode="sky", orf="hd",
     D = int(n_draws)
     s1 = np.zeros(D)
     s2 = np.zeros(D)
-    if mode == "sky":
-        vs = np.empty((D, P, 3))
-        for d in range(D):
-            rng = np.random.default_rng([seed, d])
-            v = rng.standard_normal((P, 3))
-            vs[d] = v / np.linalg.norm(v, axis=1, keepdims=True)
+    with obs_trace.span("gw.scramble", mode=mode, n_draws=D, seed=seed,
+                        orf=orf) as sp:
+        if mode == "sky":
+            vs = np.empty((D, P, 3))
+            for d in range(D):
+                rng = np.random.default_rng([seed, d])
+                v = rng.standard_normal((P, 3))
+                vs[d] = v / np.linalg.norm(v, axis=1, keepdims=True)
 
-        def fold(a0, b0, num, den):
-            va = vs[:, a0:a0 + num.shape[0]]
-            vb = vs[:, b0:b0 + num.shape[1]]
-            c = np.einsum("dak,dbk->dab", va, vb)
-            G = fn(c)
-            s1[...] += np.einsum("dab,ab->d", G, num)
-            s2[...] += np.einsum("dab,ab->d", G * G, den)
+            def fold(a0, b0, num, den):
+                va = vs[:, a0:a0 + num.shape[0]]
+                vb = vs[:, b0:b0 + num.shape[1]]
+                c = np.einsum("dak,dbk->dab", va, vb)
+                G = fn(c)
+                s1[...] += np.einsum("dab,ab->d", G, num)
+                s2[...] += np.einsum("dab,ab->d", G * G, den)
 
-        correlation_sweep(lat.z, lat.w, fold, block=block,
-                          precision=precision, device=device)
-    else:
-        pos = np.asarray(lat.pos, np.float64)
-        z0 = np.asarray(lat.z, np.float64)
-        w0 = np.asarray(lat.w, np.float64)
-        for d in range(D):
-            rng = np.random.default_rng([seed, d])
-            shifts = (rng.integers(1, M, size=P) if M > 1
-                      else np.zeros(P, np.int64))
-            zd = np.empty_like(z0)
-            wd = np.empty_like(w0)
-            for p in range(P):
-                zd[p] = np.roll(z0[p], shifts[p])
-                wd[p] = np.roll(w0[p], shifts[p])
-
-            def fold(a0, b0, num, den, d=d):
-                ga = pos[a0:a0 + num.shape[0]]
-                gb = pos[b0:b0 + num.shape[1]]
-                G = fn(ga @ gb.T)
-                s1[d] += float(np.sum(G * num))
-                s2[d] += float(np.sum(G * G * den))
-
-            correlation_sweep(zd, wd, fold, block=block,
+            correlation_sweep(lat.z, lat.w, fold, block=block,
                               precision=precision, device=device)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        snr_null = np.where(s2 > 0, s1 / np.sqrt(np.where(s2 > 0, s2, 1.0)),
-                            0.0)
-    if snr_obs is None:
-        p_value = None
-    else:
-        exceed = int(np.count_nonzero(np.abs(snr_null) >= abs(snr_obs)))
-        p_value = (1.0 + exceed) / (D + 1.0)
+        else:
+            pos = np.asarray(lat.pos, np.float64)
+            z0 = np.asarray(lat.z, np.float64)
+            w0 = np.asarray(lat.w, np.float64)
+            for d in range(D):
+                rng = np.random.default_rng([seed, d])
+                shifts = (rng.integers(1, M, size=P) if M > 1
+                          else np.zeros(P, np.int64))
+                zd = np.empty_like(z0)
+                wd = np.empty_like(w0)
+                for p in range(P):
+                    zd[p] = np.roll(z0[p], shifts[p])
+                    wd[p] = np.roll(w0[p], shifts[p])
+
+                def fold(a0, b0, num, den, d=d):
+                    ga = pos[a0:a0 + num.shape[0]]
+                    gb = pos[b0:b0 + num.shape[1]]
+                    G = fn(ga @ gb.T)
+                    s1[d] += float(np.sum(G * num))
+                    s2[d] += float(np.sum(G * G * den))
+
+                correlation_sweep(zd, wd, fold, block=block,
+                                  precision=precision, device=device)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            snr_null = np.where(s2 > 0, s1 / np.sqrt(np.where(s2 > 0, s2, 1.0)),
+                                0.0)
+        if snr_obs is None:
+            p_value = None
+        else:
+            exceed = int(np.count_nonzero(np.abs(snr_null) >= abs(snr_obs)))
+            p_value = (1.0 + exceed) / (D + 1.0)
+        metricsreg.REGISTRY.counter("gw.scramble_draws").inc(D)
+        if obs_trace.enabled():
+            sp.set(p_value=p_value, snr_obs=snr_obs)
     return {"mode": mode, "orf": orf, "n_draws": D, "seed": int(seed),
             "snr_null": snr_null, "snr_obs": snr_obs, "p_value": p_value}
 

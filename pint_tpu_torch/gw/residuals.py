@@ -16,12 +16,14 @@ the pair sweep becomes dense matrix products:
 Cells a pulsar never observed carry W = 0 and drop out of every pair
 product naturally (gw/correlate.py multiplies by W before summing),
 so irregular cadences and disjoint observing spans need no masking
-logic downstream.
+logic downstream. :func:`assemble` is one ``gw.assemble`` span.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..obs import trace as obs_trace
 
 
 class GWInputs:
@@ -115,21 +117,23 @@ def assemble(fleet, xs, positions=None):
            if positions is not None else np.empty((n, 3)))
     if pos.shape != (n, 3):
         raise ValueError(f"positions shape {pos.shape} != ({n}, 3)")
-    for key, idxs in fleet.group_indices.items():
-        batch = fleet._resolve(key)
-        xb = np.stack([np.asarray(xs[i], np.float64) for i in idxs])
-        arrays = batch.gw_arrays(xb)
-        blabels = batch._pulsar_labels()
-        if positions is None:
-            pos[idxs] = sky_positions(batch.models)
-        mask = arrays["mask"]
-        sig_s = arrays["sigma_us"] * 1e-6
-        for j, i in enumerate(idxs):
-            m = mask[j]
-            labels[i] = blabels[j]
-            times[i] = arrays["mjd"][j][m]
-            resid[i] = arrays["resid"][j][m]
-            weights[i] = 1.0 / np.square(sig_s[j][m])
+    with obs_trace.span("gw.assemble", n_psr=n,
+                        n_buckets=len(fleet.group_indices)):
+        for key, idxs in fleet.group_indices.items():
+            batch = fleet._resolve(key)
+            xb = np.stack([np.asarray(xs[i], np.float64) for i in idxs])
+            arrays = batch.gw_arrays(xb)
+            blabels = batch._pulsar_labels()
+            if positions is None:
+                pos[idxs] = sky_positions(batch.models)
+            mask = arrays["mask"]
+            sig_s = arrays["sigma_us"] * 1e-6
+            for j, i in enumerate(idxs):
+                m = mask[j]
+                labels[i] = blabels[j]
+                times[i] = arrays["mjd"][j][m]
+                resid[i] = arrays["resid"][j][m]
+                weights[i] = 1.0 / np.square(sig_s[j][m])
     return GWInputs(labels, pos, times, resid, weights)
 
 

@@ -192,6 +192,10 @@ class EcorrNoise(NoiseComponent):
         w = torch.square(params["ECORR"])[torch.clamp(owner, min=0)]
         return U, torch.where(owner >= 0, w, 0.0)
 
+    def basis_columns(self, prep):
+        """Columns of :meth:`basis_weight`'s basis: one per epoch."""
+        return int(prep["ecorr_owner"].shape[-1])
+
     def epoch_index_weight(self, params, prep):
         """Sparse form for the analytically-marginalized GLS path:
         (eidx (n_toa,) int, w_us2 (k,)) with eidx in [0,k) or any
@@ -261,6 +265,10 @@ class PLRedNoise(NoiseComponent):
         for pname in ("RNAMP", "RNIDX", "TNREDAMP", "TNREDGAM"):
             params0[pname] = getattr(self, pname).value or 0.0
 
+    def basis_columns(self, prep):
+        """Columns of :meth:`basis_weight`'s basis: 2 per harmonic."""
+        return int(prep["rn_freqs"].shape[-1])
+
     def basis_weight(self, params, prep):
         """(F, phi): weights [us^2] of the power-law PSD per basis column
         (TN amplitude, or tempo RNAMP/RNIDX converted equivalently)."""
@@ -319,6 +327,10 @@ class _PLScaledNoise(NoiseComponent):
         prep[f"{self.PREP}_tspan_s"] = np.asarray(tspan_s, np.float64)
         for pname in (self.AMP, self.GAM):
             params0[pname] = getattr(self, pname).value or 0.0
+
+    def basis_columns(self, prep):
+        """Columns of :meth:`basis_weight`'s basis: 2 per harmonic."""
+        return int(prep[f"{self.PREP}_freqs"].shape[-1])
 
     def basis_weight(self, params, prep):
         A = 10.0 ** params[self.AMP]

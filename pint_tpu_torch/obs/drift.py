@@ -1,17 +1,35 @@
 """Drift sentinels: EWMA/CUSUM change detection (the JAX package's
 ``obs/drift.py``: EWMA, CUSUM and DriftSentinel).
 
-A series that should be *boring* — here the standardized mean whitened
-residual of each batch a streaming lane appends — is watched by an
-:class:`EWMA`, which tracks its running baseline (mean + variance), and
-a :class:`CUSUM`, which accumulates standardized deviations, so that
-both sudden steps (one big z) and slow simmer (many small same-signed
-z's) trip an alarm.
+A series that should be *boring* — the standardized mean whitened
+residual of each batch a streaming lane appends, or the fitted
+parameters, uncertainties and reduced chi2 of a pulsar the serve engine
+refits again and again — is watched by an :class:`EWMA`, which tracks
+its running baseline (mean + variance), and a :class:`CUSUM`, which
+accumulates standardized deviations, so that both sudden steps (one big
+z) and slow simmer (many small same-signed z's) trip an alarm.
+
+:class:`DriftBoard` keeps one sentinel per (pulsar, probe) series of
+successive refits. Each alarm names the pulsar, the probe, the baseline
+it drifted from, and the observed value; it increments the fit-quality
+ledger's ``drift_alarms`` counter (the ``fitq_drift`` SLO numerator)
+and dumps a ``reason="fit_anomaly"`` flight record.
+
+Checkpoint semantics: a board survives serve ``state_dict`` /
+``load_state_dict`` round-trips by serializing the EWMA baselines but
+deliberately NOT the CUSUM accumulators — a restart re-anchors detection
+at the learned baselines with zeroed accumulators, so a restore
+mid-simmer never replays half-accumulated evidence into a spurious
+alarm storm. A *real* persisting drift re-accumulates within ``~h/k``
+rounds.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+
+from . import recorder as obs_recorder
 
 
 class EWMA:
@@ -135,3 +153,134 @@ class DriftSentinel:
         self.cusum = CUSUM(k=state["k"], h=state["h"])
         self.z_trip = float(state["z_trip"])
         self.alarms = int(state.get("alarms", 0))
+
+
+class DriftBoard:
+    """Per-(pulsar, probe) drift sentinels over successive refits.
+
+    ``observe(pulsar, values)`` feeds a dict of probe -> value for
+    one refit and returns the alarms it raised; every alarm lands in
+    the fit-quality ledger (``drift_alarms``) and — when a flight
+    dump dir is configured — a ``fit_anomaly`` dump naming pulsar,
+    probe, baseline, and observed value. Thread-safe; series count is
+    capped so an unbounded pulsar stream cannot grow host memory
+    without bound."""
+
+    KIND = "DriftBoard"
+    VERSION = 1
+
+    def __init__(self, alpha=0.2, min_n=8, k=0.5, h=6.0, z_trip=8.0,
+                 max_series=8192, ledger=None, recorder=None):
+        self._kw = {"alpha": alpha, "min_n": min_n, "k": k, "h": h,
+                    "z_trip": z_trip}
+        self.max_series = int(max_series)
+        self.ledger = ledger
+        self.recorder = recorder
+        self._lock = threading.Lock()
+        self._sentinels = {}
+        self.dropped_series = 0
+        self.alarms = 0
+
+    def _ledger(self):
+        if self.ledger is not None:
+            return self.ledger
+        from . import fitquality
+
+        return fitquality.FITQ
+
+    def _recorder(self):
+        return (obs_recorder.RECORDER if self.recorder is None
+                else self.recorder)
+
+    def observe(self, pulsar, values, **context):
+        """One refit's probe values for one pulsar; returns the list
+        of alarm dicts raised (usually empty). Non-finite / missing
+        values are skipped — a diverged lane is the divergence
+        probe's business, not a drift observation."""
+        pulsar = str(pulsar)
+        alarms = []
+        with self._lock:
+            for probe in sorted(values):
+                val = values[probe]
+                if val is None:
+                    continue
+                val = float(val)
+                if not math.isfinite(val):
+                    continue
+                key = (pulsar, probe)
+                sent = self._sentinels.get(key)
+                if sent is None:
+                    if len(self._sentinels) >= self.max_series:
+                        self.dropped_series += 1
+                        continue
+                    sent = DriftSentinel(**self._kw)
+                    self._sentinels[key] = sent
+                alarm = sent.observe(val)
+                if alarm is not None:
+                    alarm.update(pulsar=pulsar, probe=probe)
+                    alarms.append(alarm)
+                    self.alarms += 1
+        for alarm in alarms:
+            self._ledger().note_drift_alarm(alarm["pulsar"],
+                                            alarm["probe"])
+            self._recorder().dump("fit_anomaly", source="drift",
+                                  **alarm, **context)
+        return alarms
+
+    def snapshot(self):
+        with self._lock:
+            return {"series": len(self._sentinels),
+                    "alarms": self.alarms,
+                    "dropped_series": self.dropped_series}
+
+    def state_dict(self):
+        """Versioned, JSON-safe state: every sentinel's EWMA baseline
+        (keys flattened to "pulsar\\x1fprobe") — CUSUM evidence is
+        intentionally not carried (see module docstring)."""
+        with self._lock:
+            return {"kind": self.KIND, "version": self.VERSION,
+                    "kw": dict(self._kw),
+                    "max_series": self.max_series,
+                    "alarms": self.alarms,
+                    "dropped_series": self.dropped_series,
+                    "sentinels": {
+                        "\x1f".join(key): s.state_dict()
+                        for key, s in self._sentinels.items()}}
+
+    def load_state_dict(self, state):
+        if (state.get("kind") != self.KIND
+                or state.get("version") != self.VERSION):
+            raise ValueError(
+                "not a %s v%d state: %r" % (
+                    self.KIND, self.VERSION,
+                    {k: state.get(k) for k in ("kind", "version")}))
+        with self._lock:
+            self._kw = dict(state.get("kw", self._kw))
+            self.max_series = int(state.get("max_series",
+                                            self.max_series))
+            self.alarms = int(state.get("alarms", 0))
+            self.dropped_series = int(state.get("dropped_series", 0))
+            self._sentinels = {}
+            for flat, sd in (state.get("sentinels") or {}).items():
+                pulsar, _, probe = flat.partition("\x1f")
+                sent = DriftSentinel(**self._kw)
+                sent.load_state_dict(sd)
+                self._sentinels[(pulsar, probe)] = sent
+
+
+def fit_drift_values(x, sigma, reduced_chi2, names=None,
+                     max_params=16):
+    """The standard probe dict a serve refit feeds the board: fitted
+    parameter values, their uncertainties, and the reduced chi2 —
+    keyed ``param.<name>`` / ``sigma.<name>`` (index-keyed when no
+    names are given), capped at ``max_params`` so a huge timing
+    model doesn't explode the series count."""
+    values = {"reduced_chi2": reduced_chi2}
+    if x is not None:
+        for j, xv in enumerate(list(x)[:max_params]):
+            tag = (names[j] if names is not None and j < len(names)
+                   else str(j))
+            values["param.%s" % tag] = xv
+            if sigma is not None and j < len(sigma):
+                values["sigma.%s" % tag] = sigma[j]
+    return values

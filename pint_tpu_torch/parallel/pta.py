@@ -44,8 +44,19 @@ probes of its bucket from the host arrays it has already pulled
 (:meth:`PTABatch._record_quality`; ``PTABatch.quality``,
 ``PTAFleet.fit_quality``). ``PTAFleet(store=)`` builds each bucket
 store-first from a ``store.PackStore``. The device mesh (``mesh=``,
-ROADMAP §1 item 2) and the observability spans (item 3) are not ported
-yet.
+ROADMAP §1 item 2) is not ported yet.
+
+Spans (``obs.trace``, off by default; the JAX package's names):
+``fleet.host_prep`` per bucket build and ``fleet.pack`` for a wait on a
+deferred one, ``fleet.fit`` around a fleet fit, ``fleet.dispatch`` per
+bucket on the pipelined path, ``fleet.execute`` per bucket finalize,
+``fleet.compile`` around the program builds (``phase="trace"``) and
+each capture (``phase="xla"``), and ``gw.stage``. Worker threads join
+their caller's trace by ``trace_id``. Every program built for the AOT
+split carries its cost (:meth:`PTABatch._program_cost`), which
+``fleet.execute`` attributes against the card's roofline
+(``obs.costmodel``). Spans read the host clock only: a traced fit is
+bitwise the untraced one, and with tracing off no attribute is built.
 """
 
 from __future__ import annotations
@@ -70,7 +81,9 @@ from ..kernels.fusedgls import fused_segment_gls
 from ..kernels.seggram import segment_gram
 from ..models.noise import EcorrNoise
 from ..models.timing_model import _overlay_params, host_to_device
+from ..obs import clock as obs_clock
 from ..obs import fitquality as obs_fitq
+from ..obs import trace as obs_trace
 from ..segment import block_segment_sum, segment_sum
 from ..toa import TOABatch
 
@@ -118,22 +131,41 @@ def _uniform_ecorr(preps):
                 del p.prep["ecorr_eidx"]
 
 
-def _toa_dim_pad(arr, n_toa, n_max):
-    """Pad only dimensions equal to this pulsar's own TOA count (1-D
-    per-TOA arrays repeat their last value, (k, n) masks and (n, k)
-    bases pad with zeros)."""
+# prep arrays with no TOA axis: per-column and per-parameter vectors
+# (a noise basis's frequencies, ECORR's epoch owners, SWX powers, IFUNC
+# nodes, FB reference values, glitch epochs, DDK's sky axes)
+_NO_TOA_KEYS = ("ecorr_owner", "swx_p", "ifunc_sortidx", "ifunc_mjd",
+                "FB_ref", "glitch_pepoch_mjd", "ddk_east", "ddk_north")
+# 2-D prep arrays laid out (k, n_toa): the per-parameter TOA masks and
+# the piecewise-spindown offsets; every other 2-D per-TOA array is an
+# (n_toa, k) basis (noise Fourier bases, ECORR's dense U, positions)
+_TOA_LAST_KEYS = ("pw_dts",)
+
+
+def _toa_axis(key):
+    """The TOA axis of a prep array, from its known layout (None: it
+    has none)."""
+    if key.endswith("_freqs") or key in _NO_TOA_KEYS:
+        return None
+    return 1 if key.endswith("_masks") or key in _TOA_LAST_KEYS else 0
+
+
+def _toa_dim_pad(arr, n_toa, n_max, toa_axis=0):
+    """Pad this pulsar's TOA dimension to ``n_max`` (1-D per-TOA arrays
+    repeat their last value; a 2-D array pads with zeros along
+    ``toa_axis``). The caller takes the axis from the array's layout —
+    :func:`_toa_axis` — never from which dimension happens to equal
+    ``n_toa``: an (n, k) basis with n == k is padded along n, and a
+    k-vector of basis frequencies with k == n not at all."""
     a = _np(arr)
-    if n_toa == n_max:
+    if n_toa == n_max or toa_axis is None:
         return a
     if a.ndim == 1 and a.shape[0] == n_toa:
         a = np.concatenate([a, np.repeat(a[-1:], n_max - n_toa, axis=0)])
-    elif a.ndim == 2:
-        if a.shape[1] == n_toa:  # (k, n_toa) masks
-            a = np.concatenate(
-                [a, np.zeros((a.shape[0], n_max - n_toa))], axis=1)
-        elif a.shape[0] == n_toa:  # (n_toa, k) bases
-            a = np.concatenate(
-                [a, np.zeros((n_max - n_toa, a.shape[1]))], axis=0)
+    elif a.ndim == 2 and a.shape[toa_axis] == n_toa:
+        pad = [(0, 0), (0, 0)]
+        pad[toa_axis] = (0, n_max - n_toa)
+        a = np.pad(a, pad)
     return a
 
 
@@ -178,7 +210,7 @@ def _pad_single(prepared, n_pad):
             arrays[k] = np.concatenate(
                 [_np(v), np.full(n_pad - n, -1, dtype=np.int64)])
         else:
-            arrays[k] = _toa_dim_pad(v, n, n_pad)
+            arrays[k] = _toa_dim_pad(v, n, n_pad, _toa_axis(k))
     return _pad_fields(prepared.batch, n, n_pad), arrays, static
 
 
@@ -524,6 +556,7 @@ class PTABatch:
         self._x0_cache = None
         self._slot_cache = None
         self._fns = {}  # program key -> graphs.Program / GraphProgram
+        self._costs = {}  # program key -> its cost record (AOT builds)
         self.diverged = np.zeros(0, dtype=np.int64)
         self.metrics = {}
         self.quality = None  # fitquality bucket summary when enabled
@@ -1419,26 +1452,71 @@ class PTABatch:
         return prog is not None and (prog.captured
                                      or self.device.type != "cuda")
 
+    def _program_cost(self, method, maxiter, ecorr_mode="auto"):
+        """The cost record of this batch's ``method`` program
+        (``obs.costmodel.normal_equations_cost``), from its shapes
+        alone: its lanes (pulsars, or the R x S segments of a packed
+        batch) over every padded TOA row, k = offset + free parameters
+        (+ the noise basis columns the GLS solve carries; marginalized
+        ECORR epochs are not columns), each input tensor read once and
+        x, chi2 and the covariance written once. The same at every
+        precision and whichever kernel does the work."""
+        from ..obs import costmodel
+
+        if maxiter is None:
+            maxiter = 2 if method == "gls" else 3
+        n_free = len(self.free_map())
+        k = 1 + n_free
+        if method == "gls":
+            skip_ecorr = self._marginalize(ecorr_mode)
+            for c in self.template.components.values():
+                if getattr(c, "basis_weight", None) is None or (
+                        skip_ecorr and isinstance(c, EcorrNoise)):
+                    continue
+                k += c.basis_columns(self.prep)
+        lanes = (int(self._pack["n_rows"]) * int(self._pack["n_slots"])
+                 if self._pack else self.n_pulsars)
+        x0 = self._x0()
+        in_bytes = x0.numel() * x0.element_size() + sum(
+            t.numel() * t.element_size()
+            for t in graphs._data_leaves(self._leaves()))
+        out_bytes = lanes * (n_free + 1 + n_free * n_free) * 8
+        return costmodel.normal_equations_cost(
+            self.batch.tdb_sec.numel(), lanes, k, maxiter, in_bytes,
+            out_bytes)
+
     def aot_lower(self, method="gls", maxiter=None, threshold=1e-12,
-                  ecorr_mode="auto", precision="f64", fused=None):
+                  ecorr_mode="auto", precision="f64", fused=None,
+                  trace_id=None):
         """Build one fit program without running it
-        (``fitter.aot_lower`` times the build). Returns {key, method,
-        lowered, trace_s}; :meth:`_aot_backend_compile` captures it."""
+        (``fitter.aot_lower`` times the build; ``trace_id`` joins a
+        pool thread's ``aot.trace`` span to its caller's trace) and
+        record its cost on it (:meth:`_program_cost`). Returns {key,
+        method, lowered, trace_s}; :meth:`_aot_backend_compile`
+        captures it."""
         low = fitter.aot_lower(self._build_method, method, maxiter,
-                               threshold, ecorr_mode, precision, fused)
+                               threshold, ecorr_mode, precision, fused,
+                               trace_id=trace_id)
         key, fit = low["lowered"]
+        fit.cost = self._program_cost(method, maxiter, ecorr_mode)
         return {"key": key, "method": method, "lowered": fit,
                 "trace_s": low["trace_s"]}
 
     def _aot_backend_compile(self, low):
         """Capture an :meth:`aot_lower` handle at this batch's start
         vectors and data (``fitter.aot_backend_compile``: CUDA graphs on
-        the card,
-        the eager program on the CPU), install it in the program table
-        and return the info dict. Runs on the caller's thread."""
+        the card, the eager program on the CPU), install it in the
+        program table, record its cost in ``_costs`` (keyed like
+        ``_fns``, for execute-time roofline attribution) and return the
+        info dict. Runs on the caller's thread."""
         info = fitter.aot_backend_compile(low["lowered"], self._x0(),
-                                          *self._leaves())
+                                          *self._leaves(),
+                                          label=str(low["key"]))
         self._fns[low["key"]] = info.pop("compiled")
+        self._costs[low["key"]] = {
+            "flops": info.get("flops"),
+            "bytes_accessed": info.get("bytes_accessed"),
+            "memory": info.get("memory")}
         return {"method": low["method"], "trace_s": low["trace_s"], **info}
 
     def aot_compile(self, method="gls", maxiter=None, threshold=1e-12,
@@ -1447,7 +1525,7 @@ class PTABatch:
         _aot_backend_compile): the next wls_fit/gls_fit with the same
         options replays it. Returns {trace_s, backend_compile_s, flops,
         bytes_accessed, memory, captured, pieces, ...}; the cost fields
-        are None (no cost model here)."""
+        are the program's recorded counts (:meth:`_program_cost`)."""
         return self._aot_backend_compile(self.aot_lower(
             method, maxiter, threshold, ecorr_mode, precision,
             fused=fused))
@@ -1620,7 +1698,11 @@ def fleet_aot_compile(jobs, max_workers=None):
     caller's thread in job order. A capture is host launch work under
     the GIL, like the JAX package's serial trace phase, and captures in
     bucket order keep the shared graph pool's replays in capture order,
-    so ``max_workers`` sizes only the build pool. Returns (infos,
+    so ``max_workers`` sizes only the build pool. Spans: one
+    ``fleet.compile`` (``phase="trace"``) around the builds, whose pool
+    threads' ``aot.trace`` spans join its trace, then one
+    ``fleet.compile`` (``phase="xla"``) per capture on the caller's
+    thread, holding its ``aot.backend_compile``. Returns (infos,
     wall_s): infos in job order, each the aot_compile info dict; wall_s
     the elapsed total, to compare with sum(trace_s +
     backend_compile_s)."""
@@ -1628,11 +1710,28 @@ def fleet_aot_compile(jobs, max_workers=None):
     if not jobs:
         return [], 0.0
     workers = max_workers or min(len(jobs), os.cpu_count() or 1)
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        lowered = list(pool.map(lambda job: job[0].aot_lower(**job[1]),
-                                jobs))
-    infos = [batch._aot_backend_compile(low)
-             for (batch, _), low in zip(jobs, lowered)]
+    with obs_trace.span("fleet.compile", phase="trace", n_jobs=len(jobs)):
+        # pool threads: their aot.trace spans join this trace explicitly
+        # (span stacks are thread-local)
+        tid = obs_trace.current_trace_id()
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            lowered = list(pool.map(
+                lambda job: job[0].aot_lower(**job[1], trace_id=tid),
+                jobs))
+    infos = []
+    for (batch, _), low in zip(jobs, lowered):
+        with obs_trace.span("fleet.compile", phase="xla",
+                            bucket=low["key"][0]) as sp:
+            info = batch._aot_backend_compile(low)
+            if obs_trace.enabled():
+                sp.set(flops=info.get("flops"),
+                       bytes_accessed=info.get("bytes_accessed"),
+                       intensity_flops_per_byte=info.get(
+                           "intensity_flops_per_byte"),
+                       roofline_ceiling_flops=info.get(
+                           "roofline_ceiling_flops"),
+                       bound=info.get("bound"))
+        infos.append(info)
     return infos, time.perf_counter() - t0
 
 
@@ -1881,13 +1980,24 @@ class PTAFleet:
             return batch
 
         if self.pipeline and len(groups) > 1:
+            tid = obs_trace.current_trace_id()
+
+            def build(key):
+                # pool thread: join the constructor's trace explicitly
+                # (span stacks are thread-local)
+                with obs_trace.span("fleet.host_prep", trace_id=tid,
+                                    bucket=key, n=len(groups[key])):
+                    return make(key)
+
             self._prep_pool = ThreadPoolExecutor(
                 max_workers=min(len(groups), os.cpu_count() or 1))
             for key in groups:
-                self._batch_futures[key] = self._prep_pool.submit(make, key)
+                self._batch_futures[key] = self._prep_pool.submit(build, key)
         else:
             for key in groups:
-                self.batches[key] = make(key)
+                with obs_trace.span("fleet.host_prep", bucket=key,
+                                    n=len(groups[key])):
+                    self.batches[key] = make(key)
         self.n = len(models)
         real = sum(len(t) for t in toas_list)
         if toa_bucket == "plan":
@@ -1899,11 +2009,14 @@ class PTAFleet:
 
     def _resolve(self, key):
         """The bucket's PTABatch, waiting for its deferred build if it
-        has not landed yet (the pop and the insert under one lock)."""
+        has not landed yet (the pop and the insert under one lock). The
+        wait is the ``fleet.pack`` span; the build itself is the
+        worker's ``fleet.host_prep``."""
         with self._lock:
             batch = self.batches.get(key)
             if batch is None:
-                batch = self._batch_futures.pop(key).result()
+                with obs_trace.span("fleet.pack", bucket=key):
+                    batch = self._batch_futures.pop(key).result()
                 self.batches[key] = batch
                 if not self._batch_futures and self._prep_pool is not None:
                     self._prep_pool.shutdown(wait=False)
@@ -1966,12 +2079,53 @@ class PTAFleet:
         fault-injection schedules and mixed->f64 refits included — are
         bitwise those of ``pipeline=False``. ``max_workers`` sizes the
         pool that builds the cold programs (see :func:`fleet_aot_compile`).
+        The whole fit is one ``fleet.fit`` span.
         """
         if pipeline is None:
             pipeline = self.pipeline
-        if not pipeline:
-            return self._fit_sequential(method, maxiter, **kw)
-        return self._fit_pipelined(method, maxiter, max_workers, **kw)
+        with obs_trace.span("fleet.fit", n_psr=self.n,
+                            n_buckets=len(self.group_indices),
+                            method=method, pipeline=bool(pipeline)):
+            if not pipeline:
+                return self._fit_sequential(method, maxiter, **kw)
+            return self._fit_pipelined(method, maxiter, max_workers, **kw)
+
+    @staticmethod
+    def _annotate_execute(sp, batch, use_gls, maxiter, bkw, wall_s,
+                          pkey=None):
+        """Roofline attribution of one bucket's execute span: look up
+        the program's cost record in ``batch._costs`` (recorded when the
+        program was built for the AOT split) and attach mfu_pct /
+        roofline ceiling / bound on the platform of the batch's device.
+        Called only when tracing is enabled; never raises — attribution
+        is telemetry, the fit result is not. A program installed lazily
+        (no AOT build) has no record and stays unattributed."""
+        try:
+            from ..obs import costmodel
+
+            if pkey is None:
+                pkey = batch.program_key(
+                    **PTAFleet._program_options(use_gls, maxiter, bkw))
+            cost = getattr(batch, "_costs", {}).get(pkey)
+            if not cost:
+                return
+            attr = costmodel.attribute(
+                cost.get("flops"), cost.get("bytes_accessed"),
+                wall_s=wall_s, platform=costmodel.platform_of(batch.device))
+            sp.set(wall_s=round(wall_s, 6),
+                   program=str(pkey),
+                   flops=attr["flops"],
+                   bytes_accessed=attr["bytes_accessed"],
+                   intensity_flops_per_byte=attr[
+                       "intensity_flops_per_byte"],
+                   roofline_ceiling_flops=attr["roofline_ceiling_flops"],
+                   roofline_pct=attr["roofline_pct"],
+                   mfu_pct=attr["mfu_pct"],
+                   bound=attr["bound"], platform=attr["platform"])
+            if attr.get("nominal"):
+                sp.set(nominal=True)
+        except Exception:
+            pass
 
     def _fit_sequential(self, method, maxiter, **kw):
         xs = [None] * self.n
@@ -1982,9 +2136,20 @@ class PTAFleet:
         self.fit_quality = {}
         for key, idxs in self.group_indices.items():
             batch = self._resolve(key)
-            fit = (batch.gls_fit if self._use_gls(batch, method)
-                   else batch.wls_fit)
-            x, chi2, cov = fit(maxiter=maxiter, **kw)
+            use_gls = self._use_gls(batch, method)
+            fit = batch.gls_fit if use_gls else batch.wls_fit
+            with obs_trace.span("fleet.execute", bucket=key,
+                                n=len(idxs)) as sp:
+                traced = obs_trace.enabled()
+                t0 = obs_clock.now() if traced else None
+                x, chi2, cov = fit(maxiter=maxiter, **kw)
+                if traced:
+                    # the fit ends with its one pull: the wall covers
+                    # the bucket's device work
+                    self._annotate_execute(sp, batch, use_gls, maxiter,
+                                           kw, obs_clock.now() - t0)
+                    if batch.quality:
+                        sp.set(**batch.quality)
             self._scatter(xs, chi2s, covs, idxs, x, chi2, cov)
             self.diverged.extend(idxs[j] for j in batch.diverged)
             self.fit_metrics[key] = batch.metrics
@@ -2056,19 +2221,33 @@ class PTAFleet:
             fault = faultinject.fire("straggler_delay", bucket=bi)
             if fault and int(fault.get("lane", bi)) == bi:
                 time.sleep(float(fault.get("delay_s", 0.0)))
-            if use_gls:
-                h = batch._dispatch_gls(
-                    maxiter, opts["threshold"], opts["ecorr_mode"],
-                    opts["precision"], fused=opts["fused"])
-            else:
-                h = batch._dispatch_wls(maxiter, opts["threshold"])
-            handles.append((key, idxs, batch, use_gls, h))
+            with obs_trace.span("fleet.dispatch", bucket=bi, n=len(idxs)):
+                if use_gls:
+                    h = batch._dispatch_gls(
+                        maxiter, opts["threshold"], opts["ecorr_mode"],
+                        opts["precision"], fused=opts["fused"])
+                else:
+                    h = batch._dispatch_wls(maxiter, opts["threshold"])
+            handles.append((key, idxs, batch, use_gls, h, opts))
         self.diverged = []
         self.fit_metrics = {}
         self.fit_quality = {}
-        for key, idxs, batch, use_gls, h in handles:
+        for key, idxs, batch, use_gls, h, opts in handles:
             fin = batch._finalize_gls if use_gls else batch._finalize_wls
-            x, chi2, cov = fin(h)
+            with obs_trace.span("fleet.execute", bucket=key,
+                                n=len(idxs)) as sp:
+                x, chi2, cov = fin(h)
+                if obs_trace.enabled():
+                    # a dispatch only queues (and waits on its eighs):
+                    # the wall runs from the bucket's dispatch to the
+                    # end of its finalize's pull, so it covers the
+                    # bucket's device work (and any wait behind earlier
+                    # buckets: the MFU is a lower bound)
+                    self._annotate_execute(sp, batch, use_gls, maxiter,
+                                           {}, obs_clock.now() - h["t0"],
+                                           pkey=batch.program_key(**opts))
+                    if batch.quality:
+                        sp.set(**batch.quality)
             self._scatter(xs, chi2s, covs, idxs, x, chi2, cov)
             self.diverged.extend(idxs[j] for j in batch.diverged)
             self.fit_metrics[key] = batch.metrics
@@ -2132,21 +2311,25 @@ class PTAFleet:
         current by ``gw.regrid_append``) skips the fit/assemble/regrid
         front half. Returns the optimal-statistic dict (amp2 / snr /
         pair sweep stats) plus lattice shape and, when scrambling, the
-        ``null`` block with its p-value."""
-        if lattice is not None:
-            lat = lattice
-        else:
-            if xs is None:
-                xs, _, _ = self.fit(method=method, maxiter=maxiter, **kw)
-            inputs = gw.assemble(self, xs, positions=positions)
-            lat = gw.regrid(inputs, lattice_days=lattice_days)
-        out = gw.optimal_statistic(lat, orf=orf, precision=precision,
-                                   block=block, device=self.device)
-        out["n_pulsars"] = lat.n_pulsars
-        out["n_cells"] = lat.n_cells
-        if n_scrambles:
-            out["null"] = gw.scramble_null(
-                lat, n_draws=n_scrambles, seed=seed, mode=scramble_mode,
-                orf=orf, precision=precision, block=block,
-                snr_obs=out["snr"], device=self.device)
+        ``null`` block with its p-value. The stage is one ``gw.stage``
+        span."""
+        with obs_trace.span("gw.stage", n_psr=self.n, orf=orf,
+                            n_scrambles=n_scrambles,
+                            incremental=lattice is not None):
+            if lattice is not None:
+                lat = lattice
+            else:
+                if xs is None:
+                    xs, _, _ = self.fit(method=method, maxiter=maxiter, **kw)
+                inputs = gw.assemble(self, xs, positions=positions)
+                lat = gw.regrid(inputs, lattice_days=lattice_days)
+            out = gw.optimal_statistic(lat, orf=orf, precision=precision,
+                                       block=block, device=self.device)
+            out["n_pulsars"] = lat.n_pulsars
+            out["n_cells"] = lat.n_cells
+            if n_scrambles:
+                out["null"] = gw.scramble_null(
+                    lat, n_draws=n_scrambles, seed=seed, mode=scramble_mode,
+                    orf=orf, precision=precision, block=block,
+                    snr_obs=out["snr"], device=self.device)
         return out

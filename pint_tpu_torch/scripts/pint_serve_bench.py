@@ -20,10 +20,14 @@ parameters matching the offline path to ~1e-12.
 low-rate intake faults against a fault-free reference);
 ``--fault-point process_kill`` the process-kill matrix
 (:func:`run_kill_chaos`: a serving subprocess SIGKILLed at every named
-durability site, restarted, and held to exactly-once bitwise replay).
-The JAX package's device chaos (``--devices``, device-level fault
-points) waits with multi-device (ROADMAP §1 item 2); its arrival sweep
-and ``--trace-out`` export wait with the observability queue (item 3).
+durability site, restarted, and held to exactly-once bitwise replay);
+``--arrival-sweep`` the open-loop saturation bench over the async front
+door (:func:`run_arrival_sweep`: seeded Poisson arrivals through a
+ladder of offered rates, the p99-vs-throughput knee and the shed
+onset). ``--trace-out PATH`` traces any of them and writes the span
+timeline as Chrome trace-event JSON. The JAX package's device chaos
+(``--devices``, device-level fault points) waits with multi-device
+(ROADMAP §1 item 2).
 """
 
 from __future__ import annotations
@@ -42,13 +46,7 @@ DEVICE_CHAOS_WAITS = ("device chaos waits with multi-device (ROADMAP §1 "
                       "item 2: parallel/fleetmesh.py, the serve device "
                       "lanes)")
 
-WAITING_MODES = {
-    "devices": DEVICE_CHAOS_WAITS,
-    "arrival_sweep": "the open-loop arrival sweep waits with the "
-                     "observability queue (ROADMAP §1 item 3)",
-    "trace_out": "the Chrome trace exporter (obs/export.py) waits with "
-                 "the observability queue (ROADMAP §1 item 3)",
-}
+WAITING_MODES = {"devices": DEVICE_CHAOS_WAITS}
 
 
 def build_serve_fleet(sizes=(48, 96, 180), per_combo=3, seed=0,
@@ -268,6 +266,243 @@ def run_serve_stream(n_requests=216, max_batch=8, max_latency_s=0.05,
         report["max_param_rel_diff_vs_offline"] = worst
         report["max_param_sigma_diff_vs_offline"] = worst_sigma
     return report
+
+
+def arrival_schedule(rate_rps, n, seed=0, rate_index=0):
+    """Deterministic open-loop Poisson arrivals: n cumulative offsets
+    (seconds from stream start) with exponential inter-arrival gaps at
+    ``rate_rps``, drawn from ``default_rng([seed, rate_index])`` so
+    every (seed, ladder-rung) pair replays the same schedule
+    bit-for-bit across processes."""
+    rng = np.random.default_rng([int(seed), int(rate_index)])
+    gaps = rng.exponential(1.0 / float(rate_rps), size=int(n))
+    return np.cumsum(gaps)
+
+
+def run_arrival_sweep(n_per_rate=96, fracs=(0.25, 0.5, 0.75, 1.0,
+                                            1.25, 1.5, 2.0, 3.0),
+                      max_batch=8, max_latency_s=0.01, max_queue=None,
+                      bucket_floor=64, cache_capacity=32, sizes=(48,),
+                      per_combo=1, maxiter=2, precision="f64",
+                      knee_factor=3.0, seed=0, mesh=None, producers=4,
+                      device="cuda"):
+    """Open-loop saturation bench over the ASYNC front door: drive
+    AsyncServeEngine with seeded Poisson arrivals from ``producers``
+    concurrent submitter threads through a monotone ladder of offered
+    rates and report the p99-vs-throughput curve with knee detection.
+
+    Calibration first runs a closed-loop burst (a bounded in-flight
+    window of ``max_batch`` outstanding requests) to measure the
+    engine's service capacity (``base_rps``); the ladder offers
+    ``fracs`` multiples of it. Each rung replays a deterministic
+    :func:`arrival_schedule` — bit-reproducible per (seed, rung), the
+    producer threads only PARTITION it (k = pid mod producers), they
+    never re-draw it — and submits on schedule regardless of how far
+    behind the engine has fallen: latency is measured from the
+    SCHEDULED arrival (via the lifecycle ledger's terminal-state
+    timestamp), so queue growth under overload is charged to the rung
+    instead of being hidden by coordinated omission.
+
+    Because intake is decoupled from flush (serve.frontdoor), the
+    bounded queue genuinely fills when offered > service rate and the
+    engine SHEDS: ``shed_onset_rps`` is the first offered rate that
+    tripped the intake bound, and the knee is the last rung still
+    "good" (p99 within ``knee_factor`` x the unloaded rung's p99 and
+    zero sheds) before the first degraded rung. max_queue defaults to
+    ``max(4 * max_batch, n_per_rate // 2)`` so overload rungs build a
+    backlog that actually exceeds the bound within one rung. The
+    engine runs a lenient HealthMonitor (draining disabled): overload
+    rungs are SUPPOSED to shed heavily, and draining would poison
+    every later rung with rejections. Returns a JSON-safe report with
+    per-rung rows, the knee keys, and a schedule digest for
+    determinism tests; null knee keys carry machine-readable
+    ``null_reasons`` only for genuine skips (no saturation observed /
+    degraded at the lowest rate). The engine and the fleet run on
+    ``device``; ``mesh`` waits with multi-device (ROADMAP §1 item 2)."""
+    import hashlib
+    import threading
+    import time as _time
+
+    from pint_tpu_torch.obs.metricsreg import percentile
+    from pint_tpu_torch.obs.reqlife import TERMINAL_STATES, LifecycleLedger
+    from pint_tpu_torch.resilience.health import HealthMonitor
+    from pint_tpu_torch.serve import AsyncServeEngine, FitRequest
+
+    t_sweep = obs_clock.now()
+    if max_queue is None:
+        max_queue = max(4 * max_batch, n_per_rate // 2)
+    producers = max(1, int(producers))
+    models, toas_list = build_serve_fleet(sizes=sizes,
+                                          per_combo=per_combo,
+                                          seed=seed, device=device)
+    n_pulsars = len(models)
+    ledger = LifecycleLedger()
+    # shed_rate thresholds above 1.0 are unreachable: overload rungs
+    # shed by design, and a draining health state would reject every
+    # later rung's traffic at the door
+    health = HealthMonitor(clock=_time.monotonic,
+                           degraded_shed_rate=1.01,
+                           draining_shed_rate=1.01)
+    eng = AsyncServeEngine(max_batch=max_batch,
+                           max_latency_s=max_latency_s,
+                           max_queue=max_queue,
+                           bucket_floor=bucket_floor,
+                           cache_capacity=cache_capacity, mesh=mesh,
+                           health=health, reqlife=ledger, device=device)
+
+    def req(i):
+        return FitRequest(models[i % n_pulsars],
+                          toas_list[i % n_pulsars],
+                          maxiter=maxiter, precision=precision)
+
+    eng.prewarm([req(i) for i in range(n_pulsars)])
+
+    # closed-loop calibration: a bounded window of max_batch
+    # outstanding requests measures the service capacity the open-loop
+    # ladder is scaled against, without ever overfilling the intake
+    window = max(1, int(max_batch))
+    cal = []
+    head = 0
+    t0 = obs_clock.now()
+    for i in range(n_per_rate):
+        cal.append(eng.submit(req(i)))
+        while head < len(cal) and cal[head].done:
+            head += 1
+        while len(cal) - head >= window:
+            _time.sleep(2e-4)
+            while head < len(cal) and cal[head].done:
+                head += 1
+    eng.drain()
+    cal_wall = max(obs_clock.now() - t0, 1e-9)
+    base_rps = n_per_rate / cal_wall
+    base_p99 = percentile([r.telemetry.get("total_s") for r in cal
+                           if r.status == "ok"
+                           and r.telemetry.get("total_s") is not None],
+                          99)
+
+    fracs = tuple(sorted(fracs))
+    rates = [f * base_rps for f in fracs]
+    sched_hash = hashlib.sha256()
+    rows = []
+    nonterminal_total = 0
+    for idx, rate in enumerate(rates):
+        sched = arrival_schedule(rate, n_per_rate, seed=seed,
+                                 rate_index=idx)
+        sched_hash.update(np.asarray(sched, np.float64).tobytes())
+        ledger.reset()
+        eng.telemetry.reset()
+        # requests minted up front on the calling thread: ids (and the
+        # schedule itself) stay deterministic, and producer threads do
+        # nothing but pace and submit
+        reqs = [req(k) for k in range(n_per_rate)]
+        handles = [None] * n_per_rate
+
+        def producer(pid, start):
+            # offered load, open loop: every producer paces its
+            # partition of the SHARED schedule against the shared
+            # start time, so the merged arrival process is the same
+            # Poisson draw regardless of the producer count
+            for k in range(pid, n_per_rate, producers):
+                target = start + sched[k]
+                while True:
+                    now = obs_clock.now()
+                    if now >= target:
+                        break
+                    _time.sleep(min(target - now, 2e-4))
+                handles[k] = eng.submit(reqs[k])
+
+        start = obs_clock.now()
+        threads = [threading.Thread(target=producer, args=(pid, start),
+                                    name=f"sweep-producer-{pid}")
+                   for pid in range(producers)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        eng.drain()
+        end = obs_clock.now()
+        lats, delivered, shed = [], 0, 0
+        for k, h in enumerate(handles):
+            rec = ledger.record(h.request.request_id)
+            term_t = None
+            for st in (rec or {}).get("states", ()):
+                if st["state"] in TERMINAL_STATES:
+                    term_t = st["t"]
+            if h.status == "ok":
+                delivered += 1
+                lats.append((term_t if term_t is not None else end)
+                            - (start + sched[k]))
+            elif h.status == "shed":
+                shed += 1
+        nonterminal_total += len(ledger.nonterminal_ids())
+        span_s = max(end - start, 1e-9)
+        rows.append({
+            "offered_rps": round(rate, 3),
+            "achieved_rps": round(delivered / span_s, 3),
+            "delivered": delivered,
+            "shed": shed,
+            "errors": n_per_rate - delivered - shed,
+            "p50_s": percentile(lats, 50),
+            "p99_s": percentile(lats, 99),
+            "max_s": max(lats) if lats else None,
+        })
+    eng.close()
+
+    # knee: last good rung before the first degraded one, measured
+    # against the unloaded open-loop latency (rung 0 carries the
+    # continuous-batching handoff that closed-loop calibration hides)
+    ref_p99 = rows[0]["p99_s"] if rows else None
+
+    def good(row):
+        return (row["delivered"] > 0 and row["shed"] == 0
+                and row["p99_s"] is not None and ref_p99 is not None
+                and row["p99_s"] <= knee_factor * ref_p99)
+
+    first_bad = next((i for i, row in enumerate(rows)
+                      if not good(row)), None)
+    if first_bad is None:
+        knee_idx, saturated = len(rows) - 1, False
+    elif first_bad == 0:
+        knee_idx, saturated = None, True
+    else:
+        knee_idx, saturated = first_bad - 1, True
+    shed_onset = next((row["offered_rps"] for row in rows
+                       if row["shed"] > 0), None)
+    null_reasons = {}
+    if knee_idx is None:
+        null_reasons["knee_rps"] = "degraded_at_lowest_rate"
+        null_reasons["p99_at_knee_s"] = "degraded_at_lowest_rate"
+    if shed_onset is None:
+        # the inline-flush excuse (queue_bounded_by_inline_flush) is
+        # retired with the async front door: a concurrent load that
+        # never sheds simply never offered enough load
+        null_reasons["shed_onset_rps"] = "no_saturation_observed"
+    offered = [row["offered_rps"] for row in rows]
+    return {
+        "n_per_rate": n_per_rate,
+        "fracs": list(fracs),
+        "producers": producers,
+        "engine": "async",
+        "base_rps": round(base_rps, 3),
+        "base_p99_s": base_p99,
+        "ref_p99_s": ref_p99,
+        "knee_factor": knee_factor,
+        "max_queue": max_queue,
+        "offered_rps": offered,
+        "monotone_offered": bool(
+            all(a < b for a, b in zip(offered, offered[1:]))),
+        "rows": rows,
+        "saturated": saturated,
+        "knee_rps": (rows[knee_idx]["offered_rps"]
+                     if knee_idx is not None else None),
+        "p99_at_knee_s": (rows[knee_idx]["p99_s"]
+                          if knee_idx is not None else None),
+        "shed_onset_rps": shed_onset,
+        "null_reasons": null_reasons,
+        "schedule_sha256": sched_hash.hexdigest(),
+        "reqlife_nonterminal": nonterminal_total,
+        "wall_s": round(obs_clock.now() - t_sweep, 3),
+    }
 
 
 def run_chaos_stream(n_requests=216, fault_rate=0.05,
@@ -1020,9 +1255,30 @@ def main(argv=None) -> int:
     p.add_argument("--hit-threshold", type=float, default=0.9,
                    help="fail (rc 1) when the post-warmup cache hit "
                         "rate drops below this")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="enable obs tracing for the run and export "
+                        "the span timeline as Chrome trace-event "
+                        "JSON (chrome://tracing / Perfetto)")
     p.add_argument("--tail-out", default=None, metavar="PATH",
                    help="write the run's tail artifact (p99 "
-                        "exemplars + lifecycle records) as JSON")
+                        "exemplars + lifecycle records) as JSON for "
+                        "`python -m pint_tpu_torch.obs tail`")
+    p.add_argument("--arrival-sweep", action="store_true",
+                   help="run the open-loop saturation bench (seeded "
+                        "Poisson arrivals through a ladder of "
+                        "offered rates, p99-vs-throughput knee) "
+                        "instead of the plain serve bench")
+    p.add_argument("--n-per-rate", type=int, default=96,
+                   help="arrival-sweep: requests per ladder rung")
+    p.add_argument("--producers", type=int, default=4,
+                   help="arrival-sweep: concurrent submitter threads "
+                        "partitioning each rung's shared schedule")
+    p.add_argument("--max-queue", type=int, default=None,
+                   help="arrival-sweep: intake bound (default: "
+                        "max(4*max_batch, n_per_rate//2))")
+    p.add_argument("--knee-factor", type=float, default=3.0,
+                   help="arrival-sweep: p99 degradation factor vs "
+                        "the unloaded rung that marks the knee")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="where the engine runs (default: the card)")
@@ -1042,9 +1298,6 @@ def main(argv=None) -> int:
                    help=argparse.SUPPRESS)  # internal harness entry
     p.add_argument("--devices", type=int, default=None,
                    help=argparse.SUPPRESS)
-    p.add_argument("--arrival-sweep", action="store_true",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--trace-out", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     if args.chaos_child:
@@ -1053,6 +1306,41 @@ def main(argv=None) -> int:
     for name, why in WAITING_MODES.items():
         if getattr(args, name):
             p.error(f"--{name.replace('_', '-')}: {why}")
+
+    if args.trace_out:
+        from pint_tpu_torch import obs
+        obs.enable()
+
+    def _finish(rc):
+        # export whatever the run traced (serve flush/pack/compile
+        # spans, retry attempts) before exiting
+        if args.trace_out:
+            from pint_tpu_torch import obs
+            from pint_tpu_torch.obs.export import write_chrome_trace
+
+            write_chrome_trace(args.trace_out)
+            obs.disable()
+            print(f"trace written to {args.trace_out}",
+                  file=sys.stderr)
+        return rc
+
+    if args.arrival_sweep:
+        report = run_arrival_sweep(
+            n_per_rate=args.n_per_rate, max_batch=args.max_batch,
+            max_queue=args.max_queue,
+            bucket_floor=args.bucket_floor, maxiter=args.maxiter,
+            precision=args.precision, knee_factor=args.knee_factor,
+            seed=args.seed, producers=args.producers, device=args.device)
+        print(json.dumps(report, default=float))
+        ok = (report["monotone_offered"]
+              and report["knee_rps"] is not None
+              and report["p99_at_knee_s"] is not None
+              and report["shed_onset_rps"] is not None)
+        if not ok:
+            print("FAIL: saturation sweep found no knee/shed onset "
+                  f"(null_reasons={report['null_reasons']})",
+                  file=sys.stderr)
+        return _finish(0 if ok else 1)
 
     if args.chaos:
         from pint_tpu_torch.resilience import DEVICE_POINTS
@@ -1079,7 +1367,7 @@ def main(argv=None) -> int:
                       f"cold_vs_warm_ratio="
                       f"{report.get('cold_vs_warm_ratio')})",
                       file=sys.stderr)
-            return 0 if report["ok"] else 1
+            return _finish(0 if report["ok"] else 1)
         report = run_chaos_stream(
             n_requests=args.requests, fault_rate=args.fault_rate,
             fault_point=args.fault_point, max_batch=args.max_batch,
@@ -1094,7 +1382,7 @@ def main(argv=None) -> int:
                   f"unexpected_recompiles="
                   f"{report['unexpected_recompiles']})",
                   file=sys.stderr)
-        return 0 if report["ok"] else 1
+        return _finish(0 if report["ok"] else 1)
 
     report = run_serve_stream(
         n_requests=args.requests, max_batch=args.max_batch,
@@ -1121,7 +1409,7 @@ def main(argv=None) -> int:
               f"{report['recompiles_after_warmup']}, "
               f"hit_rate={hit_rate:.3f} "
               f"(threshold {args.hit_threshold})", file=sys.stderr)
-    return 0 if ok else 1
+    return _finish(0 if ok else 1)
 
 
 if __name__ == "__main__":

@@ -33,10 +33,9 @@ Priorities (``TimingRequest.priority``): 0 high, 1 normal, 2 batch.
 Priority never enters the slot key — all classes share warm
 executables; it only orders who is shed first.
 
-Thread-safe: submitter threads decide() concurrently while
-observe_slo() may be fed from another thread (the JAX package's
-flusher does it periodically; the port's front door has no SLO monitor
-yet, ROADMAP §1 item 3); every mutation holds ``_lock``. The controller holds no clock calls
+Thread-safe: submitter threads decide() concurrently while the
+flusher's periodic ``slo_check`` calls observe_slo(); every mutation
+holds ``_lock``. The controller holds no clock calls
 of its own beyond the injectable ``clock`` — deterministic under the
 test clocks, and the bucket math is a pure function of the timestamps
 passed in.
@@ -52,8 +51,7 @@ PRIORITY_HIGH = 0
 PRIORITY_NORMAL = 1
 PRIORITY_BATCH = 2
 
-# SLO names the JAX package's burn-rate monitor mints per tenant
-# (its obs.slo.tenant_slos, ROADMAP §1 item 3's observability queue:
+# SLO names the burn-rate monitor mints per tenant (obs.slo.tenant_slos:
 # "tenant_<tenant>_availability" / "tenant_<tenant>_latency_p99");
 # observe_slo maps an alerting name back to its tenant by suffix, so
 # tenant ids containing underscores resolve correctly.

@@ -48,11 +48,16 @@ resilience/faultinject.py (``intake_append``, ``pre_commit``,
 ``append_delta_write``, ``flusher_take``) are where the SIGKILL matrix
 of scripts/pint_serve_bench.py kills it.
 
+Monitoring is opt-in and host-side: :meth:`attach_slo` feeds the
+engine's snapshots to a dual-window burn-rate monitor (obs.slo), and
+:meth:`attach_fit_quality` turns the fit-quality probes on and feeds
+every committed fit lane to a drift board (obs.drift), whose baselines
+ride :meth:`state_dict`. Neither touches a lane's numbers: a monitored
+stream is bitwise the unmonitored one.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: device lanes (``devices=``) and ``mesh=`` (§1 item 2,
-multi-device); the SLO burn-rate monitor and the drift board
-(:meth:`attach_slo`, :meth:`attach_fit_quality`: item 3's
-observability queue).
+multi-device).
 """
 
 from __future__ import annotations
@@ -83,9 +88,6 @@ from .streaming import StreamingRefitter, lane_key as streaming_lane_key
 
 MULTI_DEVICE_WAITS = ("waits with multi-device (ROADMAP §1 item 2: "
                       "parallel/mesh.py, fleetmesh.DeviceLane)")
-OBSERVABILITY_WAITS = ("waits with the observability queue (ROADMAP §1 "
-                       "item 3: obs/slo.py's BurnRateMonitor, "
-                       "obs/drift.py's DriftBoard)")
 
 
 class ServeEngine:
@@ -185,6 +187,8 @@ class ServeEngine:
         # supposed to be pinned), counted and breaker-relevant
         self._slot_exec_keys = {}
         self._slot_recompiles = {}
+        self._slo_monitor = None  # attach_slo() opt-in
+        self._fitq_board = None  # attach_fit_quality() opt-in
         # request-lifecycle ledger (obs.reqlife): every submit mints a
         # trace id and records the full state machine. reqlife=None
         # follows PINT_TPU_REQLIFE (on unless "0"), False detaches,
@@ -200,30 +204,71 @@ class ServeEngine:
         else:
             self.reqlife = reqlife
 
-    # -- SLO burn-rate and fit-quality monitoring --------------------
+    # -- SLO burn-rate monitoring ------------------------------------
 
     def attach_slo(self, specs=None, registry=None, recorder=None,
                    **slo_kw):
-        """The JAX package's dual-window SLO burn-rate monitoring;
-        raises: ``obs.slo.BurnRateMonitor`` is not ported yet."""
-        raise NotImplementedError(f"ServeEngine.attach_slo "
-                                  f"{OBSERVABILITY_WAITS}")
+        """Opt in to dual-window SLO burn-rate monitoring (obs.slo):
+        every :meth:`export_metrics` (and explicit :meth:`slo_check`)
+        feeds the engine snapshot to a BurnRateMonitor on this
+        engine's clock; alert transitions flow through the flight
+        recorder and the ``slo.*`` gauges ride the same Prometheus
+        exposition as the serve counters. Returns the monitor."""
+        from ..obs import slo as obs_slo
+
+        self._slo_monitor = obs_slo.BurnRateMonitor(
+            specs=(specs if specs is not None
+                   else obs_slo.serve_slos(**slo_kw)),
+            clock=self.clock, registry=registry, recorder=recorder)
+        return self._slo_monitor
 
     def slo_check(self, t=None):
         """Ingest the current snapshot into the attached burn-rate
-        monitor; None, as no monitor can be attached yet
-        (:meth:`attach_slo`)."""
-        return None
+        monitor (no-op without attach_slo). Returns the per-SLO state
+        list, or None when monitoring is not attached. The snapshot is
+        taken before the monitor's lock: no engine or graph lock is
+        ever held under it."""
+        if self._slo_monitor is None:
+            return None
+        return self._slo_monitor.ingest(self.snapshot(), t=t)
+
+    # -- fit-quality / drift monitoring ------------------------------
 
     def attach_fit_quality(self, board=None, slo=False, registry=None,
                            recorder=None, ledger=None, **board_kw):
-        """The JAX package's drift board over committed fit lanes;
-        raises: ``obs.drift.DriftBoard`` is not ported yet. The
-        fit-quality probes themselves run on every flushed fit once
-        ``obs.fitquality.enable()`` is on, and :meth:`snapshot` carries
-        their ledger."""
-        raise NotImplementedError(f"ServeEngine.attach_fit_quality "
-                                  f"{OBSERVABILITY_WAITS}")
+        """Opt in to numerical-health monitoring: enables the
+        fit-quality probes (obs.fitquality — every flushed fit then
+        records chi2 z-scores, conditioning, and fallback flags in
+        the process ledger) and feeds each committed fit lane's
+        parameters/uncertainties/reduced-chi2 to a
+        :class:`obs.drift.DriftBoard` across successive refits, so a
+        drifting pulsar raises a ``fit_anomaly`` flight dump naming
+        the probe and its baseline. With ``slo=True`` the fit_quality
+        SLO pack joins the attached BurnRateMonitor (attaching one
+        with the serve defaults first when none exists). The board's
+        baselines ride :meth:`state_dict` checkpoints. Returns the
+        board."""
+        from ..obs import drift as obs_drift
+        from ..obs import fitquality as obs_fitq
+
+        obs_fitq.enable()
+        self._fitq_board = (board if board is not None
+                            else obs_drift.DriftBoard(
+                                ledger=ledger, recorder=recorder,
+                                **board_kw))
+        if slo:
+            if self._slo_monitor is None:
+                self.attach_slo(registry=registry, recorder=recorder)
+            self._slo_monitor.add_specs(obs_fitq.fit_quality_slos())
+        return self._fitq_board
+
+    @staticmethod
+    def _fit_label(req):
+        """Drift-series identity for one request's pulsar: the PSR
+        name when the model carries one (successive refits of the same
+        pulsar must land on the same sentinel), else the request id."""
+        psr = getattr(req.model, "PSR", None)
+        return getattr(psr, "value", None) or f"req:{req.request_id}"
 
     # -- checkpointable engine state ---------------------------------
 
@@ -231,13 +276,14 @@ class ServeEngine:
     STATE_VERSION = 1
 
     def state_dict(self):
-        """Versioned JSON-safe restartable state. In the JAX package
-        that is the drift board's baselines; the port has no drift
-        board yet (:meth:`attach_fit_quality`), so ``drift`` is None.
-        Telemetry, caches, and programs are rebuildable and
-        deliberately not carried."""
+        """Versioned JSON-safe restartable state: the drift board's
+        per-(pulsar, probe) EWMA baselines (None without a board) —
+        telemetry, caches, and programs are rebuildable and
+        deliberately not carried. See obs.drift for the re-anchor
+        contract (no alarm storm after a restore)."""
         return {"kind": self.STATE_KIND, "version": self.STATE_VERSION,
-                "drift": None}
+                "drift": (None if self._fitq_board is None
+                          else self._fitq_board.state_dict())}
 
     def load_state_dict(self, state):
         if (state.get("kind") != self.STATE_KIND
@@ -246,8 +292,11 @@ class ServeEngine:
                 "not a %s v%d state: %r" % (
                     self.STATE_KIND, self.STATE_VERSION,
                     {k: state.get(k) for k in ("kind", "version")}))
-        if state.get("drift") is not None:
-            self.attach_fit_quality()
+        drift_state = state.get("drift")
+        if drift_state is not None:
+            if self._fitq_board is None:
+                self.attach_fit_quality()
+            self._fitq_board.load_state_dict(drift_state)
 
     # -- crash recovery ----------------------------------------------
 
@@ -623,8 +672,9 @@ class ServeEngine:
     def snapshot(self):
         """JSON-safe service snapshot: telemetry aggregate + cache
         counters + health/breaker state + compile/queue state, the
-        lifecycle census, and the fit-quality ledger when the probes
-        are on."""
+        lifecycle census, and the fit-quality ledger (with the drift
+        board's census under ``fit_quality.drift``) when the probes or a
+        board are on."""
         snap = self.telemetry.snapshot(cache=self.cache,
                                        health=self.health,
                                        breaker=self.breaker)
@@ -636,9 +686,11 @@ class ServeEngine:
             snap["reqlife"] = self.reqlife.snapshot()
         from ..obs import fitquality as obs_fitq
 
-        if obs_fitq.enabled():
+        if self._fitq_board is not None or obs_fitq.enabled():
             fq = obs_fitq.FITQ.snapshot()
             fq.pop("pulsars", None)  # gauge surface stays O(1)
+            if self._fitq_board is not None:
+                fq["drift"] = self._fitq_board.snapshot()
             snap["fit_quality"] = fq
         return snap
 
@@ -658,8 +710,16 @@ class ServeEngine:
                        prefix=prefix + "reqlife.")
         from ..obs import fitquality as obs_fitq
 
-        if obs_fitq.enabled():
+        if self._fitq_board is not None or obs_fitq.enabled():
             obs_fitq.export_metrics(registry=reg)
+            if self._fitq_board is not None:
+                reg.absorb(self._fitq_board.snapshot(),
+                           prefix="fitq.drift.")
+        if self._slo_monitor is not None:
+            # scrape-time SLO evaluation: the monitor exports its
+            # slo.* gauges into its own registry (the process REGISTRY
+            # unless attach_slo was given one)
+            self._slo_monitor.ingest(self.snapshot())
         return reg
 
     # -- execution ---------------------------------------------------
@@ -1099,6 +1159,27 @@ class ServeEngine:
             return poisoned
         if degraded:
             self.telemetry.incr("degraded_mixed", n_live)
+        if kind == "fit" and self._fitq_board is not None:
+            # drift sentinels over the lanes being COMMITTED (poisoned
+            # attempts return above — a diverged lane is the
+            # divergence probe's business, not a drift observation);
+            # pure host post-processing of the arrays already pulled
+            from ..obs import drift as obs_drift
+            from ..obs import fitquality as obs_fitq
+
+            t0 = self.clock()
+            with np.errstate(invalid="ignore"):
+                sig = np.sqrt(np.maximum(
+                    np.diagonal(cov, axis1=-2, axis2=-1), 0.0))
+            tid = obs_trace.current_trace_id()
+            for i, (req, _, _, _) in enumerate(live):
+                dof = max(1.0, len(req.toas) - x.shape[1] - 1)
+                self._fitq_board.observe(
+                    self._fit_label(req),
+                    obs_drift.fit_drift_values(
+                        x[i], sig[i], float(chi2[i]) / dof, names),
+                    slot=str(slot_key), trace=tid)
+            obs_fitq.FITQ.note_probe_wall(self.clock() - t0)
         done = self.clock()
         if self.journal is not None:
             # results computed but none committed yet: a kill here

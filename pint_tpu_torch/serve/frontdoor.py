@@ -178,10 +178,10 @@ class AsyncServeEngine(ServeEngine):
     flusher worker: dequeue -> screening (routing / nonfinite /
     oversize / breaker, shared with the sync engine) -> micro-batch
     admit -> flush on batch-full, partial slots flushed on idle ticks
-    (continuous batching). The JAX package's periodic SLO check feeding
-    admission throttling waits with ``obs.slo.BurnRateMonitor``
-    (``ServeEngine.attach_slo``); ``slo_check_interval_s`` is kept for
-    it.
+    (continuous batching). Also runs the periodic SLO check (every
+    ``slo_check_interval_s`` once :meth:`attach_slo` has a monitor)
+    that feeds admission throttling; it holds no lock while it reads
+    the engine's snapshot, and the monitor's lock is innermost.
 
     watchdog: restarts a dead/stalled flusher under a new generation.
 
@@ -202,6 +202,7 @@ class AsyncServeEngine(ServeEngine):
         self.stall_timeout_s = float(stall_timeout_s)
         self.watchdog_poll_s = float(watchdog_poll_s)
         self.slo_check_interval_s = float(slo_check_interval_s)
+        self._last_slo_check = self.clock()
         # the card's index as the constructing thread sees it (a plain
         # "cuda" device names the current card), for the flusher thread
         self._card = None
@@ -423,7 +424,14 @@ class AsyncServeEngine(ServeEngine):
     def _idle_tick(self):
         """Continuous batching: the intake went quiet, so flush every
         partial slot now — lane padding to max_batch keeps these
-        flushes on the same warm programs as full ones."""
+        flushes on the same warm programs as full ones. Also the
+        home of the periodic SLO check feeding admission."""
+        now = self.clock()
+        if self._slo_monitor is not None \
+                and now - self._last_slo_check \
+                >= self.slo_check_interval_s:
+            self._last_slo_check = now
+            self.slo_check(t=now)
         for key in self.batcher.pending_keys():
             self._flush(key)
 
@@ -448,7 +456,15 @@ class AsyncServeEngine(ServeEngine):
                              intake_depth=self.intake.depth())
                 self._start_flusher(gen)
 
-    # -- snapshot ----------------------------------------------------
+    # -- SLO / snapshot ----------------------------------------------
+
+    def slo_check(self, t=None):
+        """Burn-rate check that also feeds admission: tenants whose
+        SLOs are alerting get throttled at the front door."""
+        states = super().slo_check(t=t)
+        if states is not None:
+            self.admission.observe_slo(states, now=t)
+        return states
 
     def snapshot(self):
         snap = super().snapshot()

@@ -2,12 +2,10 @@
 (the JAX package's ``serve/recovery.py``).
 
 The engine already exposes versioned ``state_dict`` surfaces piecemeal
-— CircuitBreaker and HealthMonitor (resilience), the engine's own
-state (``ServeEngine.state_dict``: the drift board's baselines in the
-JAX package; ``None`` here, where the drift board waits with the
-observability queue, as the JAX package writes it when no board is
-attached), and the process fit-quality ledger
-(obs.fitquality.FITQ). This module unifies them
+— CircuitBreaker and HealthMonitor (resilience), the DriftBoard
+baselines riding ``ServeEngine.state_dict`` (``None`` when no board is
+attached), and the process fit-quality ledger (obs.fitquality.FITQ).
+This module unifies them
 under a single snapshot riding the journal directory
 (``<durable_dir>/state``), through FitCheckpointer — so the snapshot
 inherits the CRC32 integrity record, the atomic ``.prev`` rotation,

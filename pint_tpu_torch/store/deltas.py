@@ -50,6 +50,7 @@ import zlib
 import numpy as np
 
 from ..durable import atomic_write_bytes
+from ..obs import trace as obs_trace
 from ..resilience import faultinject
 from .packstore import store_identity
 
@@ -180,14 +181,16 @@ class DeltaStore:
         chain = chain_signature(parent, arrays, rid)
         blob = self._encode(lane, seq, parent, chain, arrays, rid)
         path = self._path(lane, seq, chain)
-        with self._lock:
-            # die before the atomic publish: recovery sees the
-            # previous chain tip, never a torn delta
-            faultinject.fire_kill("append_delta_write",
-                                  lane=str(lane), seq=seq)
-            atomic_write_bytes(path, blob)
-            self.puts += 1
-            self.bytes_written += len(blob)
+        with obs_trace.span("store.delta_append", lane=str(lane), seq=seq,
+                            bytes=len(blob)):
+            with self._lock:
+                # die before the atomic publish: recovery sees the
+                # previous chain tip, never a torn delta
+                faultinject.fire_kill("append_delta_write",
+                                      lane=str(lane), seq=seq)
+                atomic_write_bytes(path, blob)
+                self.puts += 1
+                self.bytes_written += len(blob)
         return chain, False
 
     def _encode(self, lane, seq, parent, chain, arrays, rid=""):
@@ -383,14 +386,15 @@ class DeltaStore:
                 return t
 
         def work():
-            for lane, base in lanes:
-                key = (self._lane_digest(lane), base)
-                with self._lock:
-                    if key in self._prewarmed:
-                        continue
-                chain = self._load_chain_verified(lane, base)
-                with self._lock:
-                    self._prewarmed[key] = chain
+            with obs_trace.span("store.delta_prewarm", lanes=len(lanes)):
+                for lane, base in lanes:
+                    key = (self._lane_digest(lane), base)
+                    with self._lock:
+                        if key in self._prewarmed:
+                            continue
+                    chain = self._load_chain_verified(lane, base)
+                    with self._lock:
+                        self._prewarmed[key] = chain
 
         if not background:
             work()

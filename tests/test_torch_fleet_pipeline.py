@@ -188,7 +188,8 @@ def test_precompile_installs_the_lazy_paths_programs(pulsars):
     assert len(infos) == len(fleet.group_indices) and wall_s > 0
     for info in infos:
         assert info["trace_s"] >= 0 and info["backend_compile_s"] == 0.0
-        assert info["captured"] is False and info["flops"] is None
+        # the program's recorded count (obs.costmodel), none captured
+        assert info["captured"] is False and info["flops"] > 0
     for key in fleet.group_indices:
         batch = fleet.batches[key]
         method = "gls" if fleet._use_gls(batch, "auto") else "wls"

@@ -772,19 +772,38 @@ def test_signatures_match_jax(module):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.ServeEngine(mesh=object(), device="cpu"), "item 2"),
-    (lambda s: s.ServeEngine(devices=["cpu"], device="cpu"), "item 2"),
-    (lambda s: s.ServeEngine(device="cpu").attach_slo(), "item 3"),
-    (lambda s: s.ServeEngine(device="cpu").attach_fit_quality(), "item 3"),
-    (lambda s: s.StreamingRefitter(mesh=object(), device="cpu"), "item 2"),
-    (lambda s: __import__("pint_tpu_torch.scripts.pint_serve_bench",
-                          fromlist=["x"]).run_device_chaos(), "item 2"),
+    pytest.param(lambda s: s.ServeEngine(mesh=object(), device="cpu"),
+                 "item 2", id="call0-item 2"),
+    pytest.param(lambda s: s.ServeEngine(devices=["cpu"], device="cpu"),
+                 "item 2", id="call1-item 2"),
+    pytest.param(lambda s: s.StreamingRefitter(mesh=object(), device="cpu"),
+                 "item 2", id="call4-item 2"),
+    pytest.param(lambda s: __import__(
+        "pint_tpu_torch.scripts.pint_serve_bench",
+        fromlist=["x"]).run_device_chaos(), "item 2", id="call5-item 2"),
 ])
 def test_waiting_keywords_raise_naming_their_item(call, item):
     import pint_tpu_torch.serve as s
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
         call(s)
+
+
+@pytest.mark.parametrize("attach,kind", [
+    ("attach_slo", "BurnRateMonitor"),
+    ("attach_fit_quality", "DriftBoard")])
+def test_observability_keywords_attach(attach, kind):
+    """attach_slo / attach_fit_quality build their monitor (obs.slo,
+    obs.drift) where they once waited with the observability queue."""
+    from pint_tpu_torch.obs import fitquality
+    from pint_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(device="cpu")
+    try:
+        assert type(getattr(eng, attach)()).__name__ == kind
+    finally:
+        fitquality.disable()
+        fitquality.FITQ.reset()
 
 
 @pytest.mark.parametrize("kw", ["durable_dir", "excache_dir", "store_dir"])
