@@ -13,7 +13,9 @@ precision="mixed")`` — then the GW detection stage on the fitted fleet,
 the streaming append lanes, the serving engine (fit, residual, phase and
 append requests, sync and async) and its durability (the pack store, a
 checkpointed fit, journal recovery, the chaos stream and the SIGKILL
-matrix), the photon path with its satellite, polyco
+matrix), the multi-device surface on logical lanes of the card (the
+fleet mesh, TOA sharding, two-rank fleets, device chaos), the photon
+path with its satellite, polyco
 and CALC variants, fftfit, the photon MCMC and a chi2 grid, and checks
 each, in these phases (with, after the main path, the fit-quality probes
 on it, an interactive pintk session and binary conversions):
@@ -279,17 +281,19 @@ on it, an interactive pintk session and binary conversions):
    requests, ``toa_nan`` at rate 0.05, ``bucket_floor=64``) on this
    fleet: every uninjected request ok with the fault-free run's digest,
    every injected one a structured rejection, health healthy, no
-   unexpected recompile (:func:`durable_chaos`). ``kill``:
-   ``run_kill_chaos()`` at its defaults (bench.py's: 8,192 TOAs, 4
-   lanes, 40-iteration red-noise GLS) over all 8 ``KILL_SITES``, each
-   leg a subprocess on the card: every site killed, 0 lost, 0
-   duplicated, 0 digest mismatches, every probe ok, warm and bitwise
-   the reference's, no capture at the warm sites and a new one at
-   ``excache_store``, torn bytes at ``mid_commit``, 0 corrupt and >= 1
-   valid store entry at ``store_write``, 0 corrupt-or-stale delta
-   segments at ``append_delta_write``; each site's cold / warm walls
-   and their ratio against the 2.0 bound are printed
-   (:func:`durable_kill`);
+   unexpected recompile (:func:`durable_chaos`). ``kill`` (after
+   ``[mesh]``): ``run_kill_chaos()`` at its defaults (bench.py's: 8,192
+   TOAs, 4 lanes, 40-iteration red-noise GLS) over 4 of the 8
+   ``KILL_SITES`` (``KILL_SMOKE_SITES``: ``mid_commit`` and
+   ``excache_store``, which carry checks of their own,
+   ``append_delta_write`` and ``pre_commit``; the CPU tests kill at the
+   rest), each leg a subprocess on the card: every site killed, 0
+   lost, 0 duplicated, 0 digest mismatches, every probe ok, warm and
+   bitwise the reference's, no capture at the warm sites and a new one
+   at ``excache_store``, torn bytes at ``mid_commit``, 0
+   corrupt-or-stale delta segments at ``append_delta_write``; each
+   site's cold / warm walls and their ratio against the 2.0 bound are
+   printed (:func:`durable_kill`);
 12c. ``[obs]``, after ``[durable] restart`` and ``chaos``, on the
    objects the earlier phases built (``obs/``: spans, the cost model,
    SLO burn rates, the drift board, the exporters). ``fleet``: a cold
@@ -324,6 +328,35 @@ on it, an interactive pintk session and binary conversions):
    base rate, each rung's offered and achieved rates, p99 and sheds,
    the knee, the shed onset and the schedule digest
    (:func:`obs_arrival`);
+12d. ``[mesh]`` (``parallel/mesh.py``, ``fleetmesh.py``, ``toa_shard.py``,
+   ``distributed.py``), after ``[obs]``. Lanes and shards are logical:
+   every entry names the one card, so this proves correctness and
+   failure handling, not scaling. ``fleet``: the main path's 68
+   pulsars through ``FleetMesh`` over 4 lanes (``toa_bucket="plan"``,
+   mixed, maxiter 2): bitwise ``PTAFleet.fit`` with the same options,
+   K1/K2 2 + 2 on the packed bucket's lane (cold and warm);
+   ``device_loss`` on that lane (traced): the bucket is stolen, rebuilt
+   on a survivor (its wall), K1/K2 2 + 2 again, bitwise the healthy
+   fit, and ``mesh.fit`` / ``mesh.bucket`` / ``mesh.steal`` spans;
+   ``collective_timeout`` past a 4 s watchdog twice on lane 0 trips its
+   breaker and the fit completes bitwise; the whole fleet lost after
+   one checkpointed bucket resumes bitwise (:func:`mesh_fleet`).
+   ``toa``: ``sharded_gls_fit`` on the largest pulsar (30,000 TOAs,
+   its ECORR epochs and red noise) over 4 shards, f64 and mixed, each
+   within 1e-6 sigma of the same fit on one shard and of the card's
+   ``GLSFitter``'s last Gauss-Newton iterate (the iterate GLSFitter
+   returns is its least-chi2 one, logged: ROADMAP §3); walls and peak
+   memory (:func:`mesh_toa`). ``dist``: two gloo ranks as subprocesses
+   on the card fit their halves of an 8-pulsar fleet (``par_text``,
+   2,000 TOAs each) through ``assemble_global_batch``, and one NCCL
+   rank of world size 1 the whole: ranks bitwise alike, within 1e-6
+   sigma of a single-process fit, the f64 fits at 1e-12
+   (:func:`mesh_dist`). ``serve``: ``run_device_chaos`` on two lanes of
+   the card (32 requests, 12 pulsars): every request ok and bitwise the
+   fault-free stream, one lane lost and re-routed; one
+   ``StreamingRefitter(mesh=make_mesh(1))`` append launches K1′ once
+   (:func:`mesh_serve`). The kernel line's ``launches_new_paths`` gain
+   the lane's and the steal's K1/K2 and the mesh append's K1′;
 13. ``[photon]``: bench.py's photon stage (4,000,000 photons, 1,000,000
    pulsed at phase 0.3 with sigma 0.04, seed 0) over one year as a
    barycentred NICER event file with a PSRPROB weight column, written
@@ -411,6 +444,7 @@ import copy
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -5202,15 +5236,21 @@ def durable_chaos(torch, serve, device="cuda"):
     })
 
 
-def durable_kill(torch, tmp, device="cuda", **kill_kw):
+# [durable] kill's sites: the two with checks of their own, and one
+# each of the append and the commit legs (the CPU tests cover the rest)
+KILL_SMOKE_SITES = ("mid_commit", "excache_store", "append_delta_write",
+                    "pre_commit")
+
+
+def durable_kill(torch, tmp, device="cuda"):
     """``[durable] kill`` (module docstring, phase 12b): the SIGKILL
-    matrix at its defaults over every kill site."""
-    from pint_tpu_torch.resilience.faultinject import KILL_SITES
+    matrix at its defaults over ``KILL_SMOKE_SITES``."""
     from pint_tpu_torch.scripts import pint_serve_bench as bench
 
     t0 = time.perf_counter()
-    rep = bench.run_kill_chaos(workdir=os.path.join(tmp, "kill"),
-                               device=device, **kill_kw)
+    rep = bench.run_kill_chaos(sites=list(KILL_SMOKE_SITES),
+                               workdir=os.path.join(tmp, "kill"),
+                               device=device)
     wall = time.perf_counter() - t0
     sites = rep.get("sites", {})
     for site, e in sites.items():
@@ -5229,12 +5269,12 @@ def durable_kill(torch, tmp, device="cuda", **kill_kw):
         f"ratio {rep.get('cold_vs_warm_ratio')} (bound 2.0), lost "
         f"{rep.get('lost')}, duplicated {rep.get('duplicated')}, digest "
         f"mismatches {rep.get('digest_mismatches')}; {gpu_line()}")
-    if not rep.get("reference_ok") or set(sites) != set(KILL_SITES) or any(
-            "lost" not in e for e in sites.values()):
+    if not rep.get("reference_ok") or set(sites) != set(KILL_SMOKE_SITES) \
+            or any("lost" not in e for e in sites.values()):
         raise AssertionError(f"[durable] kill: a leg failed: "
                              f"{json.dumps(rep, default=str)[-4000:]}")
     warm = [s for s in sites if s != "excache_store"]
-    sw, ad = sites["store_write"], sites["append_delta_write"]
+    ad = sites["append_delta_write"]
     check("[durable] kill", {
         "every site killed": all(e["killed"] for e in sites.values()),
         "every restart exited 0": all(e["recover_rc"] == 0
@@ -5250,9 +5290,6 @@ def durable_kill(torch, tmp, device="cuda", **kill_kw):
             >= 1,
         "mid_commit left torn bytes": sites["mid_commit"]["torn_truncated"]
             > 0,
-        "store_write: 0 corrupt, >= 1 valid": sw["store_ok"]
-            and sw["store_counters"]["corrupt"] == 0
-            and sw["store_scan"]["valid"] >= 1,
         "append_delta_write: 0 corrupt-or-stale segments": ad["delta_ok"]
             and ad["delta_scan"]["corrupt_or_stale"] == 0,
         "pending work replayed": rep["replayed"] > 0,
@@ -5595,6 +5632,457 @@ def obs_arrival(torch, serve, device="cuda"):
     })
 
 
+MESH_LANES = 4  # FleetMesh lanes, all on the one card
+MESH_WATCHDOG_S = 4.0  # [mesh] fleet's collective_timeout leg
+MESH_SHARDS = 4  # [mesh] toa's TOA shards
+MESH_DIST_COUNTS = [2000] * 8  # [mesh] dist's fleet (main par template)
+MESH_DIST_TIMEOUT_S = 600.0  # per rank subprocess
+MESH_SERVE = dict(n_requests=32, sizes=(48, 96), per_combo=2)
+
+
+def mesh_fleet(torch, models, toas, tmp, device="cuda"):
+    """``[mesh] fleet`` (module docstring, phase 12d): the main path
+    through ``FleetMesh`` over 4 logical lanes; returns the K1/K2
+    launches of the healthy and the stolen-bucket fits."""
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.checkpoint import FitCheckpointer
+    from pint_tpu_torch.kernels.fusedgls import fused_block_gls_cuda
+    from pint_tpu_torch.kernels.seggram import block_grams_cuda
+    from pint_tpu_torch.obs import trace as obs_trace
+    from pint_tpu_torch.parallel import DeviceLost, FleetMesh, PTAFleet
+    from pint_tpu_torch.resilience import FaultPoint, inject
+    from pint_tpu_torch.scripts.pint_serve_bench import device_lanes
+
+    lanes = device_lanes(MESH_LANES, device)
+    kw = dict(method="gls", maxiter=2, precision="mixed")
+
+    def fleetmesh(**extra):
+        extra.setdefault("collective_timeout_s", None)
+        return FleetMesh(models, toas, devices=lanes, toa_bucket="plan",
+                         **extra)
+
+    def k12():
+        return [fused_block_gls_cuda.launches, block_grams_cuda.launches]
+
+    def reset():
+        fused_block_gls_cuda.launches = 0
+        block_grams_cuda.launches = 0
+
+    def timed(fm, **extra):
+        sync()
+        t0 = time.perf_counter()
+        out = fm.fit(**kw, **extra)
+        sync()
+        return out, time.perf_counter() - t0
+
+    same = bitwise_fit
+    ref_fleet = PTAFleet(models, toas, toa_bucket="plan", device=device)
+    ref = ref_fleet.fit(**kw)
+    del ref_fleet
+
+    fm = fleetmesh()
+    n_buckets = len(fm.bucket_order)
+    packed = [oi for oi, key in enumerate(fm.bucket_order)
+              if "plan" in fm.build_kwargs.get(key, {})]
+    packed_lane = fm.assignment[fm.bucket_order[packed[0]]]
+    reset()
+    healthy, cold_s = timed(fm)
+    k_healthy = k12()
+    reset()
+    warm, warm_s = timed(fm)
+    k_warm = k12()
+    del fm
+    torch.cuda.empty_cache()
+
+    # device_loss on the packed bucket's lane, traced
+    fm_c = fleetmesh()
+    builds = {}
+    build = fm_c._batch_for
+
+    def timed_build(oi, key, lane):
+        t0 = time.perf_counter()
+        b = build(oi, key, lane)
+        builds.setdefault((oi, lane.index), time.perf_counter() - t0)
+        return b
+
+    fm_c._batch_for = timed_build
+    obs.enable()
+    try:
+        obs_trace.reset()
+        reset()
+        with inject(FaultPoint("device_loss", rate=1.0,
+                               payload={"lane": packed_lane})):
+            chaos, chaos_s = timed(fm_c)
+        k_chaos = k12()
+        names = [s["name"] for s in obs_trace.spans()]
+    finally:
+        obs.disable()
+    snap_c = fm_c.snapshot()
+    to_lane = fm_c.assignment[fm_c.bucket_order[packed[0]]]
+    rebuild_s = builds.get((packed[0], to_lane))
+    del fm_c
+    torch.cuda.empty_cache()
+
+    # a hung pull on lane 0 past a 4 s watchdog, twice: breaker trips
+    fm_t = fleetmesh(collective_timeout_s=MESH_WATCHDOG_S,
+                     breaker_threshold=2)
+    with inject(FaultPoint("collective_timeout", rate=1.0, count=2,
+                           payload={"lane": 0,
+                                    "hang_s": 2 * MESH_WATCHDOG_S})):
+        hung, hung_s = timed(fm_t)
+    snap_t = fm_t.snapshot()
+    del fm_t
+    torch.cuda.empty_cache()
+
+    # the whole fleet lost after one checkpointed bucket, resumed
+    ck = os.path.join(tmp, "mesh_ckpt")
+    fm1 = fleetmesh()
+    lost = False
+    with inject(FaultPoint("device_loss", rate=1.0, after=1)):
+        try:
+            fm1.fit(**kw, checkpoint_dir=ck)
+        except DeviceLost:
+            lost = True
+    done = FitCheckpointer(ck).restore("fleetmesh")
+    del fm1
+    fm2 = fleetmesh()
+    resumed, resume_s = timed(fm2, checkpoint_dir=ck)
+    snap_r = fm2.snapshot()
+    del fm2
+    torch.cuda.empty_cache()
+
+    log(f"[mesh] fleet: {MESH_LANES} lanes on {lanes[0]}, "
+        f"{len(packed)} packed bucket(s) (lane {packed_lane}); healthy "
+        f"cold (bucket builds included) {cold_s:.3f} s, warm "
+        f"{warm_s:.3f} s; K1/K2 {k_healthy} cold, {k_warm} warm")
+    log(f"[mesh] fleet device_loss on lane {packed_lane}: {chaos_s:.3f} s "
+        f"(stolen bucket rebuilt on lane {to_lane} in "
+        f"{rebuild_s if rebuild_s is None else f'{rebuild_s:.3f}'} s); "
+        f"K1/K2 {k_chaos}; reassignments {snap_c['reassignments']}; spans "
+        f"mesh.fit {names.count('mesh.fit')}, mesh.bucket "
+        f"{names.count('mesh.bucket')}, mesh.steal "
+        f"{names.count('mesh.steal')}")
+    log(f"[mesh] fleet collective_timeout ({MESH_WATCHDOG_S} s watchdog): "
+        f"{hung_s:.3f} s, lost lanes {snap_t['lost_lanes']}, stolen "
+        f"{snap_t['stolen_buckets']}; whole-fleet loss: checkpointed "
+        f"{None if done is None else len(done['done'])} bucket(s), resumed "
+        f"in {resume_s:.3f} s")
+    check("[mesh] fleet", {
+        "healthy bitwise PTAFleet.fit": same(healthy, ref),
+        "warm bitwise the cold": same(warm, healthy),
+        "K1/K2 2 + 2 on the packed bucket's lane": k_healthy == [2, 2]
+            and k_warm == [2, 2],
+        "device_loss: stolen, rebuilt, bitwise": same(chaos, healthy)
+            and snap_c["lost_lanes"] == [packed_lane]
+            and to_lane != packed_lane and rebuild_s is not None,
+        "K1/K2 2 + 2 again on the survivor": k_chaos == [2, 2],
+        "mesh.fit > mesh.bucket + mesh.steal spans": names.count(
+            "mesh.fit") == 1 and names.count("mesh.bucket") > n_buckets
+            and "mesh.steal" in names,
+        "collective_timeout trips the breaker, fit completes":
+            snap_t["lost_lanes"] == [0] and snap_t["stolen_buckets"] >= 1
+            and same(hung, healthy),
+        "whole-fleet loss resumes bitwise": lost and done is not None
+            and len(done["done"]) == 1 and same(resumed, healthy)
+            and snap_r["lost_lanes"] == [],
+    })
+    return {"healthy": k_healthy, "steal": k_chaos}, {
+        "cold_s": cold_s, "warm_s": warm_s, "chaos_s": chaos_s,
+        "rebuild_s": rebuild_s, "timeout_s": hung_s, "resume_s": resume_s}
+
+
+def fitter_iterates(fitter_module, fit):
+    """Run ``fit()`` (a GLSFitter.fit_toas of ``fitter_module``, this
+    package's or the JAX package's) and return the marginalized chi2 of
+    every iterate it evaluated (x0, x1, ...) and its solves' full steps
+    on the host, read by wrapping the module's ``marginalized_chi2`` and
+    ``gls_solve`` for the call."""
+    chi2s, steps = [], []
+    mc, gs = fitter_module.marginalized_chi2, fitter_module.gls_solve
+
+    def chi2_of(*a, **kw):
+        chi2s.append(float(mc(*a, **kw)))
+        return chi2s[-1]
+
+    def solve(*a, **kw):
+        out = gs(*a, **kw)
+        steps.append(np.array(out[0].tolist()))
+        return out
+
+    fitter_module.marginalized_chi2, fitter_module.gls_solve = chi2_of, solve
+    try:
+        fit()
+    finally:
+        fitter_module.marginalized_chi2, fitter_module.gls_solve = mc, gs
+    return chi2s, steps
+
+
+def mesh_toa(torch, toas, device="cuda"):
+    """``[mesh] toa``: sharded_gls_fit on the main path's largest pulsar
+    over 4 TOA shards of the card, f64 and mixed, each within 1e-6 sigma
+    of the same function on one shard and of the card's GLSFitter's last
+    Gauss-Newton iterate. GLSFitter returns the iterate of least chi2;
+    on these zero-residual TOAs the iterates' chi2 agree to four digits
+    and the choice moves x by a few 1e-6 sigma, in the JAX package alike
+    (ROADMAP §3), so the returned iterate is logged, not held."""
+    from pint_tpu_torch import fitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel import make_mesh
+    from pint_tpu_torch.parallel.toa_shard import sharded_gls_fit
+    from pint_tpu_torch.scripts.pint_serve_bench import device_lanes
+
+    i_big = int(np.argmax([len(t) for t in toas]))
+    t = toas[i_big]
+    prepared = get_model(par_text(i_big)).prepare(t, device=device)
+    names = [n for n, _, _ in prepared.free_param_map()]
+    x0 = prepared.vector_from_params().cpu().numpy()
+    del prepared
+    sync()
+    t0 = time.perf_counter()
+    f = fitter.GLSFitter(t, get_model(par_text(i_big)), device=device)
+    chi2s, steps = fitter_iterates(fitter, lambda: f.fit_toas(maxiter=2))
+    sync()
+    ref_s = time.perf_counter() - t0
+    x_ret = np.array([float(getattr(f.model, n).value) for n in names])
+    unc = np.array([float(getattr(f.model, n).uncertainty) for n in names])
+    del f
+    # x_k = x_{k-1} - step[offset column + 1 : + parameters] (no PHOFF)
+    iterates = [x0]
+    for dx in steps:
+        iterates.append(iterates[-1] - dx[1:1 + len(names)])
+    x_ref = iterates[-1]
+    off_ret = [float(np.max(np.abs(xk - x_ret) / unc)) for xk in iterates]
+    returned = int(np.argmin(off_ret))
+    torch.cuda.empty_cache()
+    mesh = make_mesh(devices=device_lanes(MESH_SHARDS, device))
+    sync()
+    t0 = time.perf_counter()
+    x1, _, _ = sharded_gls_fit(get_model(par_text(i_big)), t,
+                               make_mesh(devices=device_lanes(1, device)),
+                               maxiter=2)
+    sync()
+    one_s = time.perf_counter() - t0
+    rows, gaps, gaps1, gaps_ret = {}, {}, {}, {}
+    for precision in ("f64", "mixed"):
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        with warnings.catch_warnings(record=True) as wl:
+            warnings.simplefilter("always")
+            sync()
+            t0 = time.perf_counter()
+            x, chi2, cov = sharded_gls_fit(
+                get_model(par_text(i_big)), t, mesh, maxiter=2,
+                precision=precision, compile_timings=timings,
+                watchdog_s=600.0)
+            sync()
+            wall = time.perf_counter() - t0
+        refit = any("refitting in f64" in str(w.message) for w in wl)
+        gaps[precision] = float(np.max(np.abs(x - x_ref) / unc))
+        gaps1[precision] = float(np.max(np.abs(x - x1) / unc))
+        gaps_ret[precision] = float(np.max(np.abs(x - x_ret) / unc))
+        rows[precision] = (wall, torch.cuda.max_memory_allocated(), chi2,
+                           refit, sorted(timings))
+        torch.cuda.empty_cache()
+    for precision, (wall, peak, chi2, refit, progs) in rows.items():
+        log(f"[mesh] toa {precision}: BEN{i_big} {len(t)} TOAs over "
+            f"{MESH_SHARDS} shards, sharded_gls_fit maxiter=2 {wall:.3f} s, "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB, chi2 {chi2:.9e}, "
+            f"programs {progs}, f64 refit {refit}; max |x - x_1 shard|/"
+            f"sigma {gaps1[precision]:.3e}, max |x - x_2 GLSFitter|/sigma "
+            f"{gaps[precision]:.3e}, max |x - x_returned|/sigma "
+            f"{gaps_ret[precision]:.3e}")
+    log(f"[mesh] toa: GLSFitter f64 maxiter=2 on the card {ref_s:.3f} s, "
+        f"chi2 of x0, x1, x2 {chi2s}, returned x{returned}; "
+        f"sharded_gls_fit f64 on 1 shard {one_s:.3f} s")
+    check("[mesh] toa", {
+        "f64 vs 1 shard <= 1e-6 sigma": gaps1["f64"] <= TOL_MIXED,
+        "mixed vs 1 shard <= 1e-6 sigma": gaps1["mixed"] <= TOL_MIXED,
+        "f64 vs GLSFitter's x_2 <= 1e-6 sigma": gaps["f64"] <= TOL_MIXED,
+        "mixed vs GLSFitter's x_2 <= 1e-6 sigma": gaps["mixed"] <= TOL_MIXED,
+        "GLSFitter returned one of its iterates":
+            off_ret[returned] <= 1e-12,
+        "no f64 refit": not rows["mixed"][3],
+        "finite chi2": all(np.isfinite(r[2]) for r in rows.values()),
+    })
+    return {p: r[0] for p, r in rows.items()}
+
+
+MESH_RANK = r'''
+import os, pickle, sys, warnings
+warnings.simplefilter("ignore")
+sys.path.insert(0, sys.argv[5])
+rank, world, store, fleet, repo, backend, device = (int(sys.argv[1]),
+    int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5], sys.argv[6],
+    sys.argv[7])
+import numpy as np
+import torch
+import torch.distributed as dist
+from pint_tpu_torch.models import get_model
+from pint_tpu_torch.parallel import PTABatch
+from pint_tpu_torch.parallel.distributed import (
+    assemble_global_batch, global_pulsar_mesh, initialize_distributed,
+    process_pulsar_slice)
+assert initialize_distributed(coordinator_address="file://" + store,
+                              num_processes=world, process_id=rank,
+                              backend=backend, timeout_s=300) == (rank, world)
+if backend == "nccl":
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    assert float(one) == world
+with open(fleet, "rb") as fh:
+    pars, toas, n_pad = pickle.load(fh)
+sl = process_pulsar_slice(len(pars))
+b = PTABatch([get_model(p) for p in pars[sl]], toas[sl], pad_toas=n_pad,
+             device=device)
+b = assemble_global_batch(b, mesh=global_pulsar_mesh(device))
+out = {}
+for prec in ("f64", "mixed"):
+    x, chi2, cov = b.gls_fit(maxiter=2, precision=prec)
+    out.update({"x_" + prec: x, "chi2_" + prec: chi2, "cov_" + prec: cov})
+np.savez(fleet + f".{backend}{rank}.npz", **out)
+dist.destroy_process_group()
+print("RANK-OK", backend, rank, flush=True)
+'''
+
+
+def mesh_dist(torch, tmp, device="cuda",
+              groups=(("gloo", 2), ("nccl", 1))):
+    """``[mesh] dist``: two ranks as subprocesses on the card joined by
+    gloo, each fitting its half of an 8-pulsar fleet of the main par
+    template, against a single-process fit; and one NCCL rank of world
+    size 1."""
+    from pint_tpu_torch.parallel import PTABatch
+
+    models, toas = build_pta(MESH_DIST_COUNTS, device, seed=17)
+    pars = [par_text(i) for i in range(len(models))]
+    n_pad = max(len(t) for t in toas)
+    fleet = os.path.join(tmp, "mesh_fleet.pkl")
+    with open(fleet, "wb") as fh:
+        pickle.dump((pars, toas, n_pad), fh)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    runs = [(backend, world, r) for backend, world in groups
+            for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_RANK, str(rank), str(world),
+         os.path.join(tmp, f"store_{backend}"), fleet, repo, backend,
+         device],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for backend, world, rank in runs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_DIST_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - t0
+    for (backend, _, rank), (out, err) in zip(runs, outs):
+        if f"RANK-OK {backend} {rank}" not in out:
+            raise AssertionError(f"[mesh] dist {backend} rank {rank} "
+                                 f"failed: {out[-1000:]} {err[-3000:]}")
+    got = {(b, r): dict(np.load(f"{fleet}.{b}{r}.npz")) for b, _, r in runs}
+    ref = PTABatch(models, toas, pad_toas=n_pad, device=device)
+    gaps = {}
+    for prec in ("f64", "mixed"):
+        x, chi2, cov = ref.gls_fit(maxiter=2, precision=prec)
+        sig = np.sqrt(np.diagonal(cov, axis1=1, axis2=2))
+        for (b, r), g in got.items():
+            gaps[(prec, b, r)] = (
+                float(np.max(np.abs(g["x_" + prec] - x) / sig)),
+                float(np.max(np.abs(g["x_" + prec] - x)
+                             / np.maximum(np.abs(x), 1e-300))),
+                float(np.max(np.abs(g["chi2_" + prec] - chi2)
+                             / np.abs(chi2))))
+    log(f"[mesh] dist: {len(models)} pulsars, {sum(MESH_DIST_COUNTS)} TOAs; "
+        f"2 gloo ranks + 1 NCCL rank (world size 1) on the card, "
+        f"subprocesses {ranks_s:.2f} s; gaps to the single-process fit "
+        "(sigma, relative x, relative chi2): "
+        + "; ".join(f"{p} {b}{r} {g[0]:.3e} {g[1]:.3e} {g[2]:.3e}"
+                    for (p, b, r), g in gaps.items()))
+    check("[mesh] dist", {
+        "ranks agree bitwise": all(
+            np.array_equal(got[("gloo", 0)][k], got[("gloo", 1)][k])
+            for k in got[("gloo", 0)]),
+        "<= 1e-6 sigma of the single-process fit": all(
+            g[0] <= TOL_MIXED for g in gaps.values()),
+        "f64 at the 1e-12 tier": all(
+            g[1] <= 1e-12 and g[2] <= 1e-12
+            for (p, _, _), g in gaps.items() if p == "f64"),
+    })
+    return ranks_s
+
+
+def mesh_serve(torch, device="cuda"):
+    """``[mesh] serve``: run_device_chaos on two logical lanes of the
+    card, and one StreamingRefitter(mesh=make_mesh(1)) append; returns
+    K1′'s launches in that append."""
+    from pint_tpu_torch.kernels.incremental import delta_gram_cuda
+    from pint_tpu_torch.parallel import make_mesh
+    from pint_tpu_torch.scripts import pint_serve_bench as bench
+    from pint_tpu_torch.serve import StreamingRefitter
+
+    t0 = time.perf_counter()
+    rep = bench.run_device_chaos(n_devices=2, device=device, **MESH_SERVE)
+    chaos_s = time.perf_counter() - t0
+    models, toas = build_pta([4000], device, seed=31, par_fn=lane_par_text)
+    chunk = stream_traffic(models, device, extra_lane=-1, seed=32)[0][0]
+    ref = StreamingRefitter(
+        mesh=make_mesh(devices=bench.device_lanes(1, device)))
+    ref.register(models[0], toas[0], precision="mixed")
+    delta_gram_cuda.launches = 0
+    sync()
+    t1 = time.perf_counter()
+    out = ref.append(models[0], chunk, rid="mesh0")
+    sync()
+    append_s = time.perf_counter() - t1
+    k1p = delta_gram_cuda.launches
+    log(f"[mesh] serve: run_device_chaos on {rep['devices']}: "
+        f"{rep['n_requests']} requests, failures {rep['serve_failures']}, "
+        f"bitwise the fault-free stream {rep['serve_bitwise_vs_clean']}, "
+        f"lost lanes {rep['serve_lost_lanes']}, device_lost "
+        f"{rep['serve_device_lost']}; fleet leg stolen "
+        f"{rep['fleet_stolen_buckets']}, max rel diff "
+        f"{rep['fleet_max_rel_diff_vs_healthy']:.3e}; {chaos_s:.2f} s")
+    log(f"[mesh] serve: StreamingRefitter(mesh=make_mesh(1)) on "
+        f"{ref.device}: one {len(chunk)}-TOA mixed append {append_s * 1e3:.2f}"
+        f" ms, solver {out['solver']}, K1′ launches {k1p}")
+    check("[mesh] serve", {
+        "device chaos ok": rep["ok"],
+        "every request ok, bitwise the fault-free stream":
+            rep["serve_failures"] == 0 and rep["serve_bitwise_vs_clean"],
+        "lost lane quarantined, its slots re-routed":
+            len(rep["serve_lost_lanes"]) == 1
+            and rep["serve_device_lost"] == 1,
+        "K1′ once in the mesh refitter's append": k1p == 1,
+    })
+    return k1p, chaos_s
+
+
+def mesh_phase(torch, models, toas, device="cuda"):
+    """``[mesh]`` (module docstring, phase 12d): fleet, toa, dist, serve."""
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        k12, walls["fleet"] = mesh_fleet(torch, models, toas, tmp, device)
+        walls["fleet_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        walls["toa"] = mesh_toa(torch, toas, device)
+        walls["toa_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        walls["dist_ranks_s"] = mesh_dist(torch, tmp, device)
+        walls["dist_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k1p, walls["serve_chaos_s"] = mesh_serve(torch, device)
+    walls["serve_phase_s"] = time.perf_counter() - t0
+    log(f"[mesh] walls: {json.dumps(walls, default=float)}; {gpu_line()}")
+    return k12, k1p
+
+
 def run():
     import torch
 
@@ -5821,6 +6309,17 @@ def run():
     entries[2]["launches_new_paths"] = {"obs gw traced sweep": obs_k3}
     del serve
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_k12, mesh_k1p = mesh_phase(torch, models, toas)
+    torch.cuda.empty_cache()
+    log(f"[mesh] took {time.perf_counter() - t0:.2f} s")
+    for k, entry in enumerate(entries[:2]):
+        entry["launches_new_paths"]["mesh fleet lane"] = mesh_k12[
+            "healthy"][k]
+        entry["launches_new_paths"]["mesh fleet after a steal"] = mesh_k12[
+            "steal"][k]
+    entries[3]["launches_new_paths"][
+        "mesh StreamingRefitter(mesh=)"] = mesh_k1p
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         durable_kill(torch, tmp)

@@ -43,8 +43,11 @@ With ``obs.fitquality.enable()`` each finalize records the fit-quality
 probes of its bucket from the host arrays it has already pulled
 (:meth:`PTABatch._record_quality`; ``PTABatch.quality``,
 ``PTAFleet.fit_quality``). ``PTAFleet(store=)`` builds each bucket
-store-first from a ``store.PackStore``. The device mesh (``mesh=``,
-ROADMAP §1 item 2) is not ported yet.
+store-first from a ``store.PackStore``.
+
+``PTABatch(mesh=)`` over a 1-D "pulsar" mesh (``parallel/mesh.py``)
+with more than one non-empty shard builds a ``sharded.ShardedBatch``,
+which splits the pulsars into one child batch per mesh device.
 
 Spans (``obs.trace``, off by default; the JAX package's names):
 ``fleet.host_prep`` per bucket build and ``fleet.pack`` for a wait on a
@@ -516,19 +519,61 @@ def _slot_machinery(pack, shape, params, prep):
                            resid=resid)
 
 
+def _batch_class(cls, mesh, n_psr):
+    """``sharded.ShardedBatch`` when ``mesh`` splits ``n_psr`` pulsars
+    into more than one non-empty shard, else ``cls``."""
+    if cls is not PTABatch or mesh is None:
+        return cls
+    from .mesh import pulsar_slices
+
+    if len(pulsar_slices(n_psr, mesh.axis_size("pulsar"))) <= 1:
+        return cls
+    from .sharded import ShardedBatch
+
+    return ShardedBatch
+
+
+def _mesh_device(mesh, device):
+    """The device a batch lives on: the first of ``mesh`` (a 1-D
+    "pulsar" mesh; a "toa" axis waits, ROADMAP §1 item 2) when given,
+    else ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    if mesh.axis_size("toa") > 1:
+        raise NotImplementedError(
+            "PTABatch on a mesh with a 'toa' axis waits with the 2-D "
+            "(pulsar, toa) batch (ROADMAP §1 item 2); "
+            "toa_shard.sharded_gls_fit shards one pulsar's TOAs")
+    return resolve_device(mesh.devices.reshape(-1)[0])
+
+
 class PTABatch:
     """Batched multi-pulsar GLS fitting; all models share component
     structure (see stack_prepared / stack_packed)."""
 
+    # False when the ranks of a distributed batch disagree on the
+    # analytic ECORR path (distributed.assemble_global_batch)
+    _ecorr_marg_ok = None
+
+    def __new__(cls, models=(), toas_list=None, pad_toas=None, plan=None,
+                device="cuda", mesh=None):
+        return object.__new__(_batch_class(cls, mesh, len(models)))
+
     def __init__(self, models, toas_list, pad_toas=None, plan=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """``plan`` (a shapeplan PlanBucket whose segment indices cover
         models/toas_list exactly once) switches to the segment-packed
         layout. Host packing runs in numpy; the stacked tree then moves
-        to ``device`` in one pass."""
+        to ``device`` in one pass. ``mesh`` (a 1-D "pulsar"
+        ``mesh.Mesh``) shards the pulsars over its devices instead
+        (``sharded.ShardedBatch``); packed plan batches take no mesh, as
+        in the JAX package."""
+        if plan is not None and mesh is not None:
+            raise ValueError("packed plan batches do not support a "
+                             "device mesh")
         if plan is not None and pad_toas is not None:
             raise ValueError("pad_toas and plan are mutually exclusive")
-        self.device = resolve_device(device)
+        self.device = _mesh_device(mesh, device)
         self.models = models
         self.template = models[0]
         self.preps = [m.prepare(t, device="cpu")
@@ -541,10 +586,11 @@ class PTABatch:
             (params, prep, fields, self.static,
              self.n_toas) = stack_prepared(self.preps, pad_toas=pad_toas)
         self._free_map = list(self.preps[0].free_param_map())
+        self.mesh = mesh
         self._to_device(params, prep, fields)
 
-    def _to_device(self, params, prep, fields):
-        dev = self.device
+    def _to_device(self, params, prep, fields, device=None):
+        dev = self.device if device is None else device
         self.params = {k: torch.as_tensor(np.array(v, np.float64),
                                           dtype=DTYPE, device=dev)
                        for k, v in params.items()}
@@ -587,20 +633,24 @@ class PTABatch:
         return state
 
     @classmethod
-    def from_packed(cls, template_model, state, device="cuda"):
+    def from_packed(cls, template_model, state, device="cuda", mesh=None):
         """Rebuild a PTABatch from a ``pack_state()`` dict — this
         package's or the JAX package's — skipping host TOA prep.
         ``template_model`` provides the component structure. The host
         arrays it keeps are copies, so the state may be read-only views
         (a ``store.PackStore`` hit maps its file); the device tensors are
-        copies anyway (``_to_device``)."""
+        copies anyway (``_to_device``). ``mesh`` shards the pulsars as
+        in the constructor; a packed state takes none."""
         def own(tree):
             return {k: np.array(v) if isinstance(v, np.ndarray) else v
                     for k, v in tree.items()}
 
-        self = cls.__new__(cls)
-        self.device = resolve_device(device)
+        if "pack" in state and mesh is not None:
+            raise ValueError("packed plan batches do not support a "
+                             "device mesh")
         n_psr = int(len(state["n_toas"]))
+        self = object.__new__(_batch_class(cls, mesh, n_psr))
+        self.device = _mesh_device(mesh, device)
         self.models = [template_model] * n_psr
         self.template = template_model
         self.preps = None
@@ -608,6 +658,7 @@ class PTABatch:
         self._free_map = [tuple(x) for x in state["free_map"]]
         self.static = own(state["static"])
         self.n_toas = np.array(state["n_toas"])
+        self.mesh = mesh
         self._to_device(state["params"], state["prep"], state["batch"])
         return self
 
@@ -648,8 +699,11 @@ class PTABatch:
 
     def _pulsar_labels(self):
         """Per-pulsar display labels in original batch order: the PSR
-        name when the model has one, the batch index otherwise."""
-        return [getattr(m, "PSR", None) and m.PSR.value or f"#{i}"
+        name when the model has one, the (global) batch index
+        otherwise. A distributed batch holds only its rank's models,
+        from ``_pulsar_offset`` on."""
+        off = getattr(self, "_pulsar_offset", 0)
+        return [getattr(m, "PSR", None) and m.PSR.value or f"#{off + i}"
                 for i, m in enumerate(self.models)]
 
     def _record_quality(self, method, handle, x, chi2, covn,
@@ -660,13 +714,20 @@ class PTABatch:
         params minus the offset column; noise amplitudes are
         marginalized, not subtracted."""
         n_free = int(np.asarray(x).shape[1])
-        dof = np.asarray(self.n_toas, np.float64).reshape(-1) - (n_free + 1)
+        # a distributed batch probes only the rows its rank owns
+        off = getattr(self, "_pulsar_offset", 0)
+        labels = self._pulsar_labels()
+        sl = slice(off, off + len(labels))
+        dof = np.asarray(self.n_toas, np.float64).reshape(-1)[sl] - (n_free + 1)
         self.quality = obs_fitq.record_fit_batch(
-            self._pulsar_labels(), chi2, dof, covn=covn, relres=relres,
+            labels, np.asarray(chi2)[sl], dof, covn=np.asarray(covn)[sl],
+            relres=None if relres is None else np.asarray(relres)[sl],
             method=method, precision=handle.get("precision", "f64"),
             maxiter=handle["maxiter"],
             fell_back=self.__dict__.pop("_fitq_fell_back", False),
-            diverged=self.diverged, source="pta." + method)
+            diverged=[i - off for i in self.diverged
+                      if 0 <= i - off < len(labels)],
+            source="pta." + method)
 
     def _overlay(self, params, x):
         return _overlay_params(x, params, tuple(self.free_map()))
@@ -779,7 +840,7 @@ class PTABatch:
             raise ValueError(
                 f"ecorr_mode must be 'auto' or 'dense', got {ecorr_mode!r}")
         if ("EcorrNoise" not in self.template.components
-                or ecorr_mode == "dense"):
+                or ecorr_mode == "dense" or self._ecorr_marg_ok is False):
             return False
         return bool("ecorr_eidx" in self.prep
                     and self.prep["ecorr_owner"].shape[-1] > 0)
@@ -858,11 +919,28 @@ class PTABatch:
         return self._dispatch("wls", key, fit, maxiter=maxiter,
                               threshold=threshold)
 
+    def _pull_rows(self, handle):
+        """The finalize's one pull of a dispatched fit: host arrays (x,
+        chi2, the program's extra outputs, x0) in per-pulsar order,
+        concatenated over the ranks of a distributed batch
+        (``distributed.assemble_global_batch``)."""
+        x, chi2, rest = handle["out"]
+        out = _pull(x, chi2, *rest, handle["x0"])
+        if self._pack:
+            # gather packed (rows, slots, ...) results back to per-pulsar
+            # order before fault injection and divergence isolation
+            ro, so = self._pack["row_of"], self._pack["slot_of"]
+            out = [a[ro, so] for a in out]
+        if getattr(self, "_world", None) is not None:
+            from .distributed import gather_rows
+
+            out = gather_rows(out)
+        return out
+
     def _finalize_wls(self, handle):
         """Blocking half of the WLS fit: one pull, divergence isolation,
         metrics."""
-        x, chi2, (covn, norm) = handle["out"]
-        x, chi2, covn, norm, x0 = _pull(x, chi2, covn, norm, handle["x0"])
+        x, chi2, covn, norm, x0 = self._pull_rows(handle)
         cov = covn / (norm[:, :, None] * norm[:, None, :])
         chi2 = self._maybe_inject_divergence(chi2, "wls")
         x, chi2 = self._isolate_diverged(x0, x, chi2)
@@ -1318,15 +1396,7 @@ class PTABatch:
     def _finalize_gls(self, handle):
         """Blocking half of the GLS fit: one pull, the mixed->f64 guard,
         divergence isolation, metrics."""
-        x, chi2, (covn, norm, relres) = handle["out"]
-        x, chi2, covn, norm, relres, x0 = _pull(x, chi2, covn, norm, relres,
-                                                handle["x0"])
-        if self._pack:
-            # gather packed (rows, slots, ...) results back to per-pulsar
-            # order before fault injection and divergence isolation
-            ro, so = self._pack["row_of"], self._pack["slot_of"]
-            x, chi2, covn, norm = x[ro, so], chi2[ro, so], covn[ro, so], norm[ro, so]
-            relres, x0 = relres[ro, so], x0[ro, so]
+        x, chi2, covn, norm, relres, x0 = self._pull_rows(handle)
         if handle["precision"] == "mixed" and relres_failed(relres):
             # the f32 preconditioner failed to contract for >= 1 pulsar:
             # redo the batch in f64 — correctness first
@@ -1551,10 +1621,14 @@ class PTABatch:
         bad = ~np.isfinite(chi2) | ~np.isfinite(x).all(axis=1)
         self.diverged = np.flatnonzero(bad)
         if bad.any():
+            # out-of-rank pulsars of a distributed batch by global index
+            off = getattr(self, "_pulsar_offset", 0)
             names = self._pulsar_labels()
+            labels = [names[i - off] if 0 <= i - off < len(names)
+                      else f"#{i}" for i in self.diverged]
             warnings.warn(
                 f"PTA batch: {bad.sum()}/{len(bad)} pulsars diverged "
-                f"({[names[i] for i in self.diverged]}); their parameter "
+                f"({labels}); their parameter "
                 "vectors were restored to the pre-fit values")
             x[bad] = np.asarray(x0, np.float64)[bad]
         return x, chi2
@@ -1908,7 +1982,7 @@ class PTAFleet:
     def __init__(self, models, toas_list, toa_bucket=None,
                  bucket_floor=256, pipeline=False, plan_compile_budget=None,
                  plan_max_pack=None, plan_quantum=None,
-                 plan_min_width=None, store=None, device="cuda"):
+                 plan_min_width=None, store=None, device="cuda", mesh=None):
         """toa_bucket=None groups by model structure only (each batch
         pads to its own max TOA count); "pow2" also buckets pulsars by
         the next power of two >= their TOA count (from
@@ -1917,7 +1991,10 @@ class PTAFleet:
         thresholds of the minimum-padded-area program
         (:meth:`optimal_split_bounds`); "plan" uses the shape planner
         (shapeplan.plan_shapes), which packs small pulsars several to a
-        row. Every bucket's batch lives on ``device``.
+        row. Every bucket's batch lives on ``device``, or is sharded
+        over ``mesh`` (a 1-D "pulsar" ``mesh.Mesh``; its first device is
+        the fleet's), as in the JAX package: a packed plan bucket takes
+        no mesh and raises.
 
         ``pipeline=True`` defers the bucket builds (host prep, then the
         move to the device) to a worker pool, so they overlap each other
@@ -1935,7 +2012,8 @@ class PTAFleet:
         pipelined build take the same detour, and a store-built fleet
         fits bitwise as the live-built one (the store round-trips
         ``pack_state`` exactly)."""
-        self.device = resolve_device(device)
+        self.device = _mesh_device(mesh, device)
+        self.mesh = mesh
         groups, build_kwargs, self.plans = self.plan_groups(
             models, toas_list, toa_bucket=toa_bucket,
             bucket_floor=bucket_floor,
@@ -1968,12 +2046,16 @@ class PTAFleet:
             idxs = groups[key]
             if store is not None:
                 state = store.load(self._store_sig, key)
-                if state is not None:
+                # a packed state takes no mesh: that bucket builds live
+                # (and raises there, as in the JAX package)
+                if state is not None and not ("pack" in state
+                                              and mesh is not None):
                     return PTABatch.from_packed(models[idxs[0]], state,
-                                                device=self.device)
+                                                device=self.device,
+                                                mesh=mesh)
             batch = PTABatch([models[i] for i in idxs],
                              [toas_list[i] for i in idxs],
-                             device=self.device,
+                             device=self.device, mesh=mesh,
                              **build_kwargs.get(key, {}))
             if store is not None:
                 store.put(self._store_sig, key, batch.pack_state())
@@ -2031,6 +2113,7 @@ class PTAFleet:
         fleet = cls.__new__(cls)
         fleet.device = batches[0].device if batches else resolve_device(
             "cpu")
+        fleet.mesh = None
         fleet.plans = {}
         fleet.pipeline = False
         fleet._lock = threading.RLock()

@@ -28,10 +28,22 @@ for it parses here. The port's sites:
   quarantines the result and escalates to a full refit; in a batch fit
   (``parallel.pta.PTABatch``'s finalize) the payload's ``lanes`` get a
   NaN chi2 and are isolated as diverged.
-- ``straggler_delay`` — one bucket's dispatch runs late without
-  failing (the pipelined fleet executor's per-bucket dispatch loop,
+- ``device_loss`` — a device in the fleet mesh dies mid-fit
+  (``parallel.fleetmesh.FleetMesh`` bucket dispatch raises
+  ``DeviceLost``; ``serve.engine`` per-device lane flushes). Payload
+  ``lane`` pins which DeviceLane index dies; omitted means whichever
+  lane fires first.
+- ``collective_timeout`` — a cross-device reduction or result pull
+  hangs past the watchdog (``parallel.fleetmesh``'s watched result
+  pulls raise ``CollectiveTimeout``). Payload ``hang_s`` sets the
+  simulated hang; >= the watchdog bound means timeout, less is a
+  late-but-ok pull.
+- ``straggler_delay`` — one device runs slow without failing
+  (``parallel.fleetmesh`` bucket dispatch and the pipelined fleet
+  executor's per-bucket dispatch loop,
   ``parallel.pta.PTAFleet._fit_pipelined``). Payload ``delay_s`` sets
-  the injected stall, ``lane`` pins the slow bucket index.
+  the injected stall, ``lane`` pins the slow lane (the bucket index in
+  the pipelined executor).
 - ``flusher_stall`` — the async front door's flusher wedges at its
   loop top, before any dequeue (``serve.frontdoor``; payload
   ``hang_s``): the watchdog must supersede and restart it.
@@ -62,8 +74,6 @@ for it parses here. The port's sites:
   on disk after the store (``serve.excache`` persistent tier). The
   loader must warn and capture anew, never crash.
 
-``device_loss`` and ``collective_timeout`` have no site in the port
-yet: their modules wait with multi-device (ROADMAP §1 item 2).
 Disarmed sites cost one falsy-dict check.
 """
 

@@ -24,10 +24,13 @@ durability site, restarted, and held to exactly-once bitwise replay);
 ``--arrival-sweep`` the open-loop saturation bench over the async front
 door (:func:`run_arrival_sweep`: seeded Poisson arrivals through a
 ladder of offered rates, the p99-vs-throughput knee and the shed
-onset). ``--trace-out PATH`` traces any of them and writes the span
-timeline as Chrome trace-event JSON. The JAX package's device chaos
-(``--devices``, device-level fault points) waits with multi-device
-(ROADMAP §1 item 2).
+onset); ``--chaos --fault-point device_loss`` (or
+``collective_timeout``, ``straggler_delay``) the device chaos
+(:func:`run_device_chaos`: a device lost, hung or slow under a
+``devices=`` engine and a ``FleetMesh`` fit, each held to its
+fault-free run; ``--devices N`` lanes, repeating the available devices:
+logical lanes on one card). ``--trace-out PATH`` traces any of them and
+writes the span timeline as Chrome trace-event JSON.
 """
 
 from __future__ import annotations
@@ -41,13 +44,6 @@ import sys
 import numpy as np
 
 from pint_tpu_torch.obs import clock as obs_clock
-
-DEVICE_CHAOS_WAITS = ("device chaos waits with multi-device (ROADMAP §1 "
-                      "item 2: parallel/fleetmesh.py, the serve device "
-                      "lanes)")
-
-WAITING_MODES = {"devices": DEVICE_CHAOS_WAITS}
-
 
 def build_serve_fleet(sizes=(48, 96, 180), per_combo=3, seed=0,
                       device="cuda"):
@@ -318,7 +314,7 @@ def run_arrival_sweep(n_per_rate=96, fracs=(0.25, 0.5, 0.75, 1.0,
     determinism tests; null knee keys carry machine-readable
     ``null_reasons`` only for genuine skips (no saturation observed /
     degraded at the lowest rate). The engine and the fleet run on
-    ``device``; ``mesh`` waits with multi-device (ROADMAP §1 item 2)."""
+    ``device``, or over ``mesh`` (``ServeEngine(mesh=)``)."""
     import hashlib
     import threading
     import time as _time
@@ -625,10 +621,151 @@ def run_chaos_stream(n_requests=216, fault_rate=0.05,
     return report
 
 
-def run_device_chaos(*args, **kwargs):
-    """The JAX package's device-level chaos acceptance; raises: its
-    device lanes wait with multi-device (ROADMAP §1 item 2)."""
-    raise NotImplementedError(f"run_device_chaos: {DEVICE_CHAOS_WAITS}")
+def device_lanes(n_devices=None, device="cuda"):
+    """The lanes of a multi-device run: ``n_devices`` entries cycling
+    over every device of ``device``'s type (all CUDA devices, or the
+    CPU), so several lanes may name one device — logical lanes, each
+    its own failure domain. At least two by default: a lost lane needs a
+    survivor."""
+    import torch
+
+    from pint_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
+    avail = ([torch.device("cuda", i)
+              for i in range(torch.cuda.device_count())]
+             if dev.type == "cuda" else [dev])
+    n = n_devices if n_devices is not None else max(2, len(avail))
+    return [avail[i % len(avail)] for i in range(n)]
+
+
+def run_device_chaos(n_requests=96, fault_point="device_loss",
+                     n_devices=None, max_batch=8, max_latency_s=0.05,
+                     bucket_floor=64, cache_capacity=32,
+                     sizes=(48, 96, 180), per_combo=3, maxiter=3,
+                     precision="f64", seed=0, rel_tol=1e-9,
+                     fleet_rel_tol=1e-15, device="cuda"):
+    """Device-level chaos acceptance: both multi-device surfaces run with
+    an injected device-level fault and are differenced against
+    fault-free runs on the same lanes.
+
+    Serve leg (always device_loss): the request stream on an N-lane
+    ServeEngine loses one routed device mid-stream; the contract is that
+    the lane is quarantined, its slots shed onto the next alive lane,
+    every request still completes "ok", and results match the
+    fault-free stream bitwise (same programs, another lane).
+
+    Fleet leg (``fault_point``: device_loss / collective_timeout /
+    straggler_delay): a FleetMesh fit takes the fault and must complete
+    on the survivors with parameters within ``fleet_rel_tol`` of the
+    healthy fit, stealing the dead lane's buckets deterministically.
+
+    The lanes are :func:`device_lanes` of ``n_devices`` and ``device``.
+    Returns a JSON-safe report; report["ok"] summarizes both legs. Keys
+    are the JAX package's."""
+    from pint_tpu_torch.parallel import FleetMesh
+    from pint_tpu_torch.resilience import DEVICE_POINTS, FaultPoint, inject
+    from pint_tpu_torch.serve import FitRequest, ServeEngine
+
+    if fault_point not in DEVICE_POINTS:
+        raise ValueError(f"fault_point must be one of {DEVICE_POINTS}, "
+                         f"got {fault_point!r}")
+    devices = device_lanes(n_devices, device)
+    n_lanes = len(devices)
+    models, toas_list = build_serve_fleet(
+        sizes=sizes, per_combo=per_combo, seed=seed, device=device)
+    n_pulsars = len(models)
+
+    def req(i):
+        return FitRequest(models[i % n_pulsars],
+                          toas_list[i % n_pulsars],
+                          maxiter=maxiter, precision=precision)
+
+    def engine():
+        return ServeEngine(max_batch=max_batch,
+                           max_latency_s=max_latency_s,
+                           bucket_floor=bucket_floor,
+                           cache_capacity=cache_capacity,
+                           devices=devices, device=devices[0])
+
+    # -- serve leg: one device dies mid-stream ----------------------
+    eng0 = engine()
+    clean = eng0.run_stream([req(i) for i in range(n_requests)])
+    eng1 = engine()
+    # after=2: the loss lands mid-stream (a couple of flushes in),
+    # small enough to fire even when slots batch efficiently
+    with inject(FaultPoint("device_loss", rate=1.0, count=1,
+                           after=2, seed=seed)):
+        chaos = eng1.run_stream([req(i) for i in range(n_requests)])
+    snap = eng1.snapshot()
+    serve_failures = sum(1 for r in chaos if r.status != "ok")
+    worst_serve = 0.0
+    serve_bitwise = True
+    for rc, rf in zip(clean, chaos):
+        if rc.status != "ok" or rf.status != "ok":
+            continue
+        xc, xf = np.asarray(rc.value["x"]), np.asarray(rf.value["x"])
+        serve_bitwise = serve_bitwise and bool(np.array_equal(xc, xf))
+        rel = np.max(np.abs(xf - xc) / np.maximum(np.abs(xc), 1e-30))
+        worst_serve = float(np.maximum(worst_serve, rel))
+    dev = snap.get("devices", {})
+
+    # -- fleet leg: FleetMesh fit through the injected fault --------
+    fleet_kw = dict(devices=devices, toa_bucket="pow2",
+                    bucket_floor=bucket_floor)
+    if fault_point == "collective_timeout":
+        # injected hangs advance a no-op sleep; the real watchdog
+        # bound stays generous so genuine captures never trip it
+        fleet_kw.update(collective_timeout_s=120.0,
+                        sleep=lambda s: None)
+    else:
+        fleet_kw.update(collective_timeout_s=None)
+    payloads = {"device_loss": {},
+                "collective_timeout": {"hang_s": 240.0},
+                "straggler_delay": {"delay_s": 0.0}}
+    fm_h = FleetMesh(models, toas_list, **fleet_kw)
+    hx, hc, _ = fm_h.fit(maxiter=maxiter)
+    fm_c = FleetMesh(models, toas_list, **fleet_kw)
+    with inject(FaultPoint(fault_point, rate=1.0, count=1, seed=seed,
+                           payload=payloads[fault_point])):
+        cx, cc, _ = fm_c.fit(maxiter=maxiter)
+    worst_fleet = 0.0
+    for i in range(n_pulsars):
+        rel = np.max(np.abs(np.asarray(cx[i]) - np.asarray(hx[i]))
+                     / np.maximum(np.abs(np.asarray(hx[i])), 1e-30))
+        worst_fleet = float(np.maximum(worst_fleet, rel))
+    fsnap = fm_c.snapshot()
+
+    report = {
+        "fault_point": fault_point,
+        "n_lanes": n_lanes,
+        "devices": [str(d) for d in devices],
+        "n_requests": n_requests,
+        "serve_failures": serve_failures,
+        "serve_max_rel_diff_vs_clean": worst_serve,
+        "serve_bitwise_vs_clean": serve_bitwise,
+        "serve_lost_lanes": dev.get("lost_lanes", []),
+        "serve_device_lost": snap["counters"].get("device_lost", 0),
+        "fleet_max_rel_diff_vs_healthy": worst_fleet,
+        "fleet_lost_lanes": fsnap["lost_lanes"],
+        "fleet_stolen_buckets": fsnap["stolen_buckets"],
+        "fleet_reassignments": fsnap["reassignments"],
+        "all_done": all(r.done for r in chaos),
+    }
+    # device_loss must actually kill a lane on each leg; the other
+    # fault points are absorbed (strike/delay) without lane loss
+    expect_loss = fault_point == "device_loss"
+    report["ok"] = bool(
+        report["all_done"]
+        and serve_failures == 0
+        and worst_serve <= rel_tol
+        and len(report["serve_lost_lanes"]) == 1
+        and report["serve_device_lost"] == 1
+        and worst_fleet <= fleet_rel_tol
+        and (len(report["fleet_lost_lanes"]) == (1 if expect_loss
+                                                 else 0))
+        and (report["fleet_stolen_buckets"] >= 1) == expect_loss)
+    return report
 
 
 def _run_chaos_child(config):
@@ -1297,16 +1434,14 @@ def main(argv=None) -> int:
     p.add_argument("--chaos-child", default=None, metavar="CONFIG",
                    help=argparse.SUPPRESS)  # internal harness entry
     p.add_argument("--devices", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="device chaos: lane count, cycling over the "
+                        "devices of --device (default: every device, at "
+                        "least 2)")
     args = p.parse_args(argv)
 
     if args.chaos_child:
         with open(args.chaos_child, "rb") as fh:
             return _run_chaos_child(json.load(fh))
-    for name, why in WAITING_MODES.items():
-        if getattr(args, name):
-            p.error(f"--{name.replace('_', '-')}: {why}")
-
     if args.trace_out:
         from pint_tpu_torch import obs
         obs.enable()
@@ -1345,9 +1480,6 @@ def main(argv=None) -> int:
     if args.chaos:
         from pint_tpu_torch.resilience import DEVICE_POINTS
 
-        if args.fault_point in DEVICE_POINTS:
-            p.error(f"--fault-point {args.fault_point}: "
-                    f"{DEVICE_CHAOS_WAITS}")
         if args.fault_point == "process_kill":
             sites = (args.kill_sites.split(",") if args.kill_sites
                      else None)
@@ -1366,6 +1498,22 @@ def main(argv=None) -> int:
                       f"{report.get('digest_mismatches')}, "
                       f"cold_vs_warm_ratio="
                       f"{report.get('cold_vs_warm_ratio')})",
+                      file=sys.stderr)
+            return _finish(0 if report["ok"] else 1)
+        if args.fault_point in DEVICE_POINTS:
+            report = run_device_chaos(
+                n_requests=args.requests,
+                fault_point=args.fault_point,
+                n_devices=args.devices, max_batch=args.max_batch,
+                max_latency_s=args.max_latency,
+                bucket_floor=args.bucket_floor, maxiter=args.maxiter,
+                precision=args.precision, device=args.device)
+            print(json.dumps(report, default=float))
+            if not report["ok"]:
+                print("FAIL: device-chaos contract violated "
+                      f"(serve_failures={report['serve_failures']}, "
+                      f"fleet_rel="
+                      f"{report['fleet_max_rel_diff_vs_healthy']})",
                       file=sys.stderr)
             return _finish(0 if report["ok"] else 1)
         report = run_chaos_stream(

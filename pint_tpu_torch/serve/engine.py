@@ -55,9 +55,16 @@ every committed fit lane to a drift board (obs.drift), whose baselines
 ride :meth:`state_dict`. Neither touches a lane's numbers: a monitored
 stream is bitwise the unmonitored one.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: device lanes (``devices=``) and ``mesh=`` (§1 item 2,
-multi-device).
+Multi-device: ``devices=`` makes each entry a
+``parallel.fleetmesh.DeviceLane`` failure domain with its own health and
+breaker. A slot routes to a lane by a crc32 of its key (stable across
+processes), its batch is built on that lane's device, programs and the
+zero-recapture contract are tracked per (slot, lane), and a lane lost to
+``device_loss`` is quarantined and sheds its slots onto the next alive
+lane, with a ``device_lost`` flight dump. ``mesh=`` (a 1-D "pulsar"
+``parallel.mesh.Mesh``) shards every flush's lanes over the mesh's
+devices (``PTABatch(mesh=)``) and puts the append lanes on its first
+device. Entries may repeat a device: logical lanes on one card.
 """
 
 from __future__ import annotations
@@ -67,10 +74,10 @@ import os
 import threading
 import time
 import warnings
+import zlib
 
 import numpy as np
 
-from .. import resolve_device
 from ..obs import reqlife as obs_reqlife
 from ..obs import trace as obs_trace
 from ..obs.recorder import RECORDER as _flight
@@ -86,10 +93,6 @@ from .metrics import ServeTelemetry
 from .request import ServeResult, ensure_request_counter_above
 from .streaming import StreamingRefitter, lane_key as streaming_lane_key
 
-MULTI_DEVICE_WAITS = ("waits with multi-device (ROADMAP §1 item 2: "
-                      "parallel/mesh.py, fleetmesh.DeviceLane)")
-
-
 class ServeEngine:
     """In-process online timing service over PTABatch programs.
 
@@ -102,6 +105,10 @@ class ServeEngine:
         constructed on the engine's clock.
     device: where every batch and append lane of the engine lives (the
         card unless the caller asks for the CPU).
+    devices: optional device list; each becomes a DeviceLane (module
+        docstring). devices=None keeps the single-device engine.
+    mesh: optional 1-D "pulsar" mesh the flushes' lanes shard over;
+        its first device replaces ``device``.
     durable_dir: opts in to crash safety — the write-ahead journal
         (``journal.log``), the persisted executable tier (``excache/``),
         the pack store (``store/``, with the append-delta store in
@@ -120,13 +127,10 @@ class ServeEngine:
                  bisect_depth=4, plan=None, devices=None,
                  durable_dir=None, excache_dir=None, store_dir=None,
                  reqlife=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(f"ServeEngine(mesh=) "
-                                      f"{MULTI_DEVICE_WAITS}")
-        if devices is not None:
-            raise NotImplementedError(f"ServeEngine(devices=) "
-                                      f"{MULTI_DEVICE_WAITS}")
-        self.device = resolve_device(device)
+        from ..parallel.pta import _mesh_device
+
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, device)
         self.plan = plan  # optional shapeplan.ShapePlan width ladder
         self.batcher = MicroBatcher(max_batch=max_batch,
                                     max_latency_s=max_latency_s,
@@ -168,7 +172,7 @@ class ServeEngine:
         # pulsar via register_append_lane, consumed by the "append"
         # request kind; crash-persistent with a delta store
         self.streaming = StreamingRefitter(deltas=self.deltas, clock=clock,
-                                           device=self.device)
+                                           device=self.device, mesh=mesh)
         self.telemetry = ServeTelemetry()
         self.oversize_toas = oversize_toas
         self.clock = clock
@@ -178,13 +182,23 @@ class ServeEngine:
         self.health = health or HealthMonitor(clock=clock)
         self.bisect_depth = int(bisect_depth)
         self.executables_compiled = 0
+        self.device_lanes = None
+        if devices is not None:
+            from ..parallel.fleetmesh import DeviceLane
+
+            self.device_lanes = [DeviceLane(i, d, clock=clock)
+                                 for i, d in enumerate(devices)]
         # serializes the engine's own work (flushes, captures,
         # registrations); graphs.py's process lock orders its replays
         # against every other program's (another engine's, a fleet's)
         self._work_mutex = threading.RLock()
         # slot_key -> set of exec_keys seen: a second DISTINCT
         # executable for a slot is an unexpected recompile (shapes are
-        # supposed to be pinned), counted and breaker-relevant
+        # supposed to be pinned), counted and breaker-relevant. With
+        # device lanes the tracking key is (slot_key, lane_index): a
+        # slot legitimately captures once per lane it lands on (a steal
+        # after a device loss included), and only a second program on
+        # the SAME lane breaks the contract.
         self._slot_exec_keys = {}
         self._slot_recompiles = {}
         self._slo_monitor = None  # attach_slo() opt-in
@@ -674,10 +688,12 @@ class ServeEngine:
         counters + health/breaker state + compile/queue state, the
         lifecycle census, and the fit-quality ledger (with the drift
         board's census under ``fit_quality.drift``) when the probes or a
-        board are on."""
+        board are on; with device lanes, a ``devices`` block with each
+        lane's own health/breaker census."""
         snap = self.telemetry.snapshot(cache=self.cache,
                                        health=self.health,
-                                       breaker=self.breaker)
+                                       breaker=self.breaker,
+                                       devices=self._lane_snapshots())
         snap["executables_compiled"] = self.executables_compiled
         snap["queue_depth"] = self.batcher.depth()
         if self.store is not None:
@@ -702,7 +718,8 @@ class ServeEngine:
         time; the flush path never pushes."""
         reg = self.telemetry.export_to_registry(
             registry=registry, prefix=prefix, cache=self.cache,
-            health=self.health, breaker=self.breaker)
+            health=self.health, breaker=self.breaker,
+            devices=self._lane_snapshots())
         reg.absorb({"executables_compiled": self.executables_compiled,
                     "queue_depth": self.batcher.depth()}, prefix=prefix)
         if self.reqlife is not None:
@@ -724,31 +741,65 @@ class ServeEngine:
 
     # -- execution ---------------------------------------------------
 
-    def _exec_key(self, slot_key, lanes, pta):
+    def _lane_snapshots(self):
+        return (None if self.device_lanes is None
+                else [ln.snapshot() for ln in self.device_lanes])
+
+    def _exec_key(self, slot_key, lanes, pta, dev_lane=None):
         """Full executable signature. When a shape plan is active its
         stable signature joins the key, so programs built under one
         plan's ladder never collide with another plan's (or the pow2
-        ladder's) entries in a shared cache."""
+        ladder's) entries in a shared cache. A routed device lane joins
+        it too: a program is captured on its lane's device, and a slot
+        stolen onto another lane captures anew, as a second card
+        would need."""
         base = (slot_key, lanes, pta.shape_signature())
+        if dev_lane is not None:
+            base = base + (("lane", dev_lane.index),)
         if self.plan is not None:
             return base + (self.plan.signature(),)
         return base
 
-    def _padded_batch(self, bucket, models, toas_list):
-        """Lane-padded PTABatch on the engine's device for one slot
-        flush: the pulsar/lane axis replicates the last (model, toas)
-        up to max_batch — real data, so a padded lane's start vector
-        and tensors are never uninitialised memory — and the TOA axis
-        pads to the slot's bucket, so every flush of a slot presents
-        the executable cache with identical shapes."""
+    def _route_lane(self, slot_key):
+        """Deterministic slot -> device-lane routing: crc32 of the slot
+        key picks the home lane (stable across processes and restarts),
+        and dead/open/draining lanes are walked past in index order, so
+        a quarantined device sheds its slots onto the next alive lane.
+        None without device lanes or when no lane survives."""
+        if not self.device_lanes:
+            return None
+        n = len(self.device_lanes)
+        home = zlib.crc32(repr(slot_key).encode()) % n
+        for step in range(n):
+            lane = self.device_lanes[(home + step) % n]
+            if lane.alive():
+                return lane
+        return None
+
+    def _seen_key(self, slot_key, lane):
+        """Zero-recapture tracking key: per (slot, lane) with device
+        lanes, else the slot key itself."""
+        return slot_key if lane is None else (slot_key, lane.index)
+
+    def _padded_batch(self, bucket, models, toas_list, lane=None):
+        """Lane-padded PTABatch for one slot flush, on the routed device
+        lane's device (else the engine's, or sharded over its mesh): the
+        pulsar/lane axis replicates the last (model, toas) up to
+        max_batch — real data, so a padded lane's start vector and
+        tensors are never uninitialised memory — and the TOA axis pads
+        to the slot's bucket, so every flush of a slot presents the
+        executable cache with identical shapes."""
         from ..parallel.pta import PTABatch
 
         lanes = self.batcher.max_batch
         n = len(models)
         models = models + [models[-1]] * (lanes - n)
         toas_list = toas_list + [toas_list[-1]] * (lanes - n)
+        if lane is not None and self.mesh is None:
+            return PTABatch(models, toas_list, pad_toas=bucket,
+                            device=lane.device)
         return PTABatch(models, toas_list, pad_toas=bucket,
-                        device=self.device)
+                        device=self.device, mesh=self.mesh)
 
     def _stage(self, slots):
         """Lane-padded batches and exec keys of the slots whose program
@@ -759,14 +810,15 @@ class ServeEngine:
         for slot_key, bucket, reqs in slots:
             _, _, kind, method, maxiter, precision = slot_key
             reqs = reqs[:self.batcher.max_batch]
+            lane = self._route_lane(slot_key)
             pta = self._padded_batch(bucket, [r.model for r in reqs],
-                                     [r.toas for r in reqs])
+                                     [r.toas for r in reqs], lane=lane)
             exec_key = self._exec_key(slot_key, self.batcher.max_batch,
-                                      pta)
+                                      pta, lane)
             if self.cache.lookup(exec_key) is not None:
                 continue
-            staged.append((slot_key, exec_key, pta, kind, method,
-                           maxiter, precision))
+            staged.append((self._seen_key(slot_key, lane), exec_key, pta,
+                           kind, method, maxiter, precision))
         return staged
 
     def _install(self, staged, max_workers):
@@ -1041,17 +1093,43 @@ class ServeEngine:
         _, bucket, kind, method, maxiter, precision = slot_key
         n_live = len(live)
         lanes = self.batcher.max_batch
+        dev_lane = self._route_lane(slot_key)
+        if self.device_lanes is not None:
+            fault = faultinject.fire("device_loss", slot=str(slot_key))
+            if (fault and dev_lane is not None
+                    and int(fault.get("lane", dev_lane.index))
+                    == dev_lane.index):
+                # the routed device died: quarantine its lane and let
+                # the crc32 walk shed this slot onto the next alive
+                # lane — the flush proceeds there, no request fails
+                dev_lane.quarantine()
+                self.telemetry.incr("device_lost")
+                lost_index = dev_lane.index
+                dev_lane = self._route_lane(slot_key)
+                _flight.dump(
+                    "device_lost", source="serve", lane=lost_index,
+                    fault_point="device_loss", slot=str(slot_key),
+                    rerouted_lane=(None if dev_lane is None
+                                   else dev_lane.index),
+                    trace=obs_trace.current_trace_id())
+            if dev_lane is None:
+                from ..parallel.fleetmesh import DeviceLost
+
+                raise DeviceLost(
+                    f"no alive device lane for slot {slot_key!r} "
+                    f"({len(self.device_lanes)} lanes quarantined)")
+        seen_key = self._seen_key(slot_key, dev_lane)
         t0 = self.clock()
         with obs_trace.span("serve.pack", bucket=bucket, n=n_live):
             pta = self._padded_batch(
                 bucket, [req.model for req, _, _, _ in live],
-                [req.toas for req, _, _, _ in live])
+                [req.toas for req, _, _, _ in live], lane=dev_lane)
         pack_s = self.clock() - t0
         if self.reqlife is not None:
             t_packed = self.clock()
             for req, _, _, _ in live:
                 self._lc(req, "packed", t=t_packed)
-        exec_key = self._exec_key(slot_key, lanes, pta)
+        exec_key = self._exec_key(slot_key, lanes, pta, dev_lane)
         fns = self.cache.lookup(exec_key)
         cold = fns is None
         compile_s = 0.0
@@ -1078,13 +1156,13 @@ class ServeEngine:
                 self.cache.persistent.stage(exec_key, pta, self._fit_programs(
                     pta, kind, method, maxiter, precision))
             self.cache.insert(exec_key, pta._fns)
-            seen = self._slot_exec_keys.setdefault(slot_key, set())
+            seen = self._slot_exec_keys.setdefault(seen_key, set())
             if seen and exec_key not in seen:
                 # shapes are pinned, so a second distinct executable
                 # for a slot means the zero-recompile contract broke
                 self.telemetry.incr("unexpected_recompiles")
-                n = self._slot_recompiles.get(slot_key, 0) + 1
-                self._slot_recompiles[slot_key] = n
+                n = self._slot_recompiles.get(seen_key, 0) + 1
+                self._slot_recompiles[seen_key] = n
                 if n >= self.breaker.threshold:
                     tripped = self.breaker.trip(slot_key)
                     self.health.note_breakers(self.breaker.open_count(),
@@ -1093,7 +1171,7 @@ class ServeEngine:
         else:
             # the cached table's programs run on this batch's data
             pta._fns = fns
-            self._slot_exec_keys.setdefault(slot_key, set()).add(exec_key)
+            self._slot_exec_keys.setdefault(seen_key, set()).add(exec_key)
 
         fault = faultinject.fire("dispatch_slow", slot=str(slot_key))
         if fault:
@@ -1241,7 +1319,7 @@ class ServeEngine:
             # deliberately unpadded: the spill path trades a per-shape
             # build for not inflating the shared bucket boundary
             pta = PTABatch([request.model], [request.toas],
-                           device=self.device)
+                           device=self.device, mesh=self.mesh)
             pack_s = self.clock() - t0
             self._lc(request, "packed")
             degraded = False

@@ -44,8 +44,12 @@ their chain instead — their accumulators are refreshed in place,
 because the replayed rows exist only as accumulators and a merge would
 silently drop them.
 
-Differences from the JAX package: ``mesh=`` raises (the port has no
-mesh yet, ROADMAP §1 item 2) and there is no per-lane compiled
+``mesh=`` (a ``parallel.mesh.Mesh``) puts every lane's batches on the
+mesh's first device, as the JAX package's single-pulsar batches on a
+mesh are: a lane's rows and its appends' Grams (K1′ on the card) run
+there.
+
+Difference from the JAX package: there is no per-lane compiled
 evaluator — torch runs eagerly, so a lane's rows are evaluated by a
 function built on the batch at hand; registration builds the lane's
 base batch once and reuses it for its linearization sweeps (the batch
@@ -62,7 +66,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import autodiff, resolve_device
+from .. import autodiff
 from ..obs import drift as obs_drift
 from ..resilience import faultinject
 from . import policy
@@ -153,21 +157,20 @@ class StreamingRefitter:
     store (store/deltas.py) persists each append before its result is
     visible; ``clock`` follows the owning engine's (monotonic) clock.
     Row evaluation and the appended rows' Grams run on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU), or on ``mesh``'s first
+    device."""
 
     def __init__(self, deltas=None, clock=None, mesh=None, device="cuda"):
         import time
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingRefitter(mesh=) waits with multi-device "
-                "(ROADMAP §1 item 2)")
+        from ..parallel.pta import _mesh_device
+
         self._lock = threading.RLock()
         self.lanes = {}
         self.deltas = deltas
         self.clock = clock or time.monotonic
-        self.mesh = None
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, device)
         self.appends = 0
         self.escalated = 0
         self.replayed = 0
@@ -178,7 +181,8 @@ class StreamingRefitter:
         """One pulsar's TOAs as a PTABatch padded to ``pad`` rows."""
         from ..parallel.pta import PTABatch
 
-        return PTABatch([model], [toas], pad_toas=pad, device=self.device)
+        return PTABatch([model], [toas], pad_toas=pad, device=self.device,
+                        mesh=self.mesh)
 
     @staticmethod
     def _make_rows_fn(pta):

@@ -294,6 +294,7 @@ def _spans(pkg):
         from pint_tpu_torch.obs import trace
     trace.reset()
     assert trace.span("x") is trace.NOOP_SPAN and not trace.enabled()
+    capacity = trace.TRACER._spans.maxlen
     trace.enable(capacity=4)
     try:
         with trace.span("outer", a=1) as sp:
@@ -311,6 +312,10 @@ def _spans(pkg):
         trace.disable()
     got = trace.spans()
     trace.reset()
+    # give the ring its capacity back: later tests in this process read
+    # more than 4 spans
+    trace.enable(capacity=capacity)
+    trace.disable()
     return tid is not None, [(s["name"], s["status"], s["attrs"],
                               s["parent"] is None) for s in got]
 
