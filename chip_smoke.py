@@ -357,6 +357,18 @@ on it, an interactive pintk session and binary conversions):
    ``StreamingRefitter(mesh=make_mesh(1))`` append launches K1′ once
    (:func:`mesh_serve`). The kernel line's ``launches_new_paths`` gain
    the lane's and the steal's K1/K2 and the mesh append's K1′;
+12e. ``[mesh] 2d`` (``parallel/sharded.py::ToaRowBatch``), right after
+   ``[mesh]``: the main path's 68 pulsars and par template (64 columns)
+   in pow2 buckets on a 2 x 2 ("pulsar", "toa") mesh of four logical
+   entries of the card, GLS maxiter 2 in f64 and mixed from the
+   3-sigma-off start, twice each: within 1e-6 sigma of the same fleet
+   without a mesh and chi2 within 1e-9 of each pulsar's dof (the
+   TOAs are zero-residual, so a fitted chi2 sits at the rounding floor
+   and its relative gap, logged, means nothing), mixed within 1e-6
+   sigma of f64, the
+   second fit bitwise the first; walls and peak memory
+   (:func:`mesh_2d`). Pow2 buckets are unpacked: no kernel launches
+   here, and the kernel line does not change;
 13. ``[photon]``: bench.py's photon stage (4,000,000 photons, 1,000,000
    pulsed at phase 0.3 with sigma 0.04, seed 0) over one year as a
    barycentred NICER event file with a PSRPROB weight column, written
@@ -6083,6 +6095,146 @@ def mesh_phase(torch, models, toas, device="cuda"):
     return k12, k1p
 
 
+MESH2D_SHAPE = (2, 2)  # [mesh] 2d: (pulsar, toa) shards, logical lanes
+TOL_CHI2_2D = 1e-9  # 2-D vs plain chi2, relative (mixed: refined solve)
+# f64's unrefined eigh solve leaves its chi2 (rᵀC⁻¹r - bᵀA⁻¹b, at the
+# rounding floor on zero-residual TOAs) up to ~eps x cond(A) off the
+# refined one: on the card the plain fleet's f64 chi2 lies 1.52e-7
+# from its own mixed (refined) chi2, the 2-D fleet's 0.0, so the two
+# f64 chi2 differ by 1.52e-7 (the largest reading, 6.6x under this)
+TOL_CHI2_2D_F64 = 1e-6
+TOL_COV_2D = {"f64": 1e-9, "mixed": 1e-5}  # of sqrt(C_ii C_jj); f32 Gram
+TOL_RESID_2D = 1e-12  # residuals at the start, of max|r|; white chi2 rel
+
+
+def mesh_2d(torch, models, toas, x_start, device="cuda"):
+    """``[mesh] 2d``: the main path's pulsars and par template at full
+    width (EFAC/EQUAD/ECORR, 30 red-noise harmonics, 64 columns) in
+    pow2 buckets on a 2 x 2 ("pulsar", "toa") mesh of four logical
+    entries of the card (``parallel/sharded.py::ToaRowBatch``: each
+    bucket's pulsar halves split their TOA axis in two), GLS maxiter=2
+    in f64 and mixed from the 3-sigma-off start, twice each, against
+    the same fleet without a mesh: parameters, chi2 and covariance, and
+    the residuals at the start (``gw_arrays``: every TOA block and the
+    weighted mean over blocks, away from the fitted rounding floor).
+    The lanes share one card, so the rows' programs capture: the 2-D
+    fleet fits once more pipelined (captured replays), bitwise its
+    sequential fit. Pow2 buckets are unpacked, so no kernel lies on
+    this path; no scaling figure is printed. Returns the walls."""
+    from pint_tpu_torch.parallel import PTAFleet, make_mesh2d
+    from pint_tpu_torch.parallel.sharded import ToaRowBatch
+
+    card = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    mesh = make_mesh2d(*MESH2D_SHAPE,
+                       devices=[card] * (MESH2D_SHAPE[0] * MESH2D_SHAPE[1]))
+    fits, walls, peaks, refits, starts, piped = {}, {}, {}, [], {}, {}
+    for tag, kw in (("plain", dict(device=device)), ("2d", dict(mesh=mesh))):
+        t0 = time.perf_counter()
+        fleet = PTAFleet(models, toas, toa_bucket="pow2", **kw)
+        sync()
+        walls[f"{tag} pack_s"] = time.perf_counter() - t0
+        set_start(fleet, x_start)
+        starts[tag] = {key: fleet.batches[key].gw_arrays(x_start[idxs])
+                       for key, idxs in fleet.group_indices.items()}
+        for prec in ("f64", "mixed"):
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for i in range(2):
+                x, c, cov, wall, refit = timed_fit(fleet, torch,
+                                                   precision=prec)
+                runs.append((x, c, cov))
+                refits.append(refit)
+                walls[f"{tag} {prec} {'cold' if i == 0 else 'warm'} s"] = wall
+            fits[(tag, prec)] = runs
+            peaks[f"{tag} {prec}"] = torch.cuda.max_memory_allocated() / 2**30
+        if tag == "2d":
+            torch.cuda.reset_peak_memory_stats()
+            for prec in ("f64", "mixed"):
+                for i in range(2):
+                    x, c, cov, wall, refit = timed_fit(
+                        fleet, torch, precision=prec, pipeline=True)
+                    refits.append(refit)
+                    walls[f"2d {prec} pipelined {'cold' if i == 0 else 'warm'}"
+                          f" s"] = wall
+                piped[prec] = (x, c, cov)
+            peaks["2d pipelined"] = torch.cuda.max_memory_allocated() / 2**30
+            rows = [s for b in fleet.batches.values()
+                    for s in getattr(b, "_shards", [])]
+            blocks = sorted({tuple(int(t.tdb_sec.shape[1])
+                                   for t in s._leaves()[2]) for s in rows})
+            captured = [p.captured for b in fleet.batches.values()
+                        if hasattr(b, "_shards") for progs in b._fns.values()
+                        if isinstance(progs, list) for p in progs]
+        n_buckets = len(fleet.batches)
+        del fleet
+        torch.cuda.empty_cache()
+    sig = np.sqrt(np.array([np.diag(c) for c in fits[("plain", "f64")][1][2]]))
+    gaps = {"chi2 range": [float(np.min(fits[("plain", "f64")][1][1])),
+                           float(np.max(fits[("plain", "f64")][1][1]))]}
+    for prec in ("f64", "mixed"):
+        x, c, cov = fits[("2d", prec)][1]
+        x0, c0, cov0 = fits[("plain", prec)][1]
+        gaps[f"{prec} vs plain sigma"] = float(np.max(np.abs(x - x0) / sig))
+        gaps[f"{prec} vs plain chi2 rel"] = float(np.max(np.abs(c - c0)
+                                                         / np.abs(c0)))
+        gaps[f"{prec} vs plain cov"] = max(float(np.max(np.abs(a - b) / np.sqrt(
+            np.outer(np.diag(b), np.diag(b))))) for a, b in zip(cov, cov0))
+    for tag in ("plain", "2d"):  # the f64 solve's own chi2 floor
+        c64, cm = fits[(tag, "f64")][1][1], fits[(tag, "mixed")][1][1]
+        gaps[f"{tag} f64 vs mixed chi2 rel"] = float(np.max(
+            np.abs(c64 - cm) / np.abs(cm)))
+    r_gap = w_gap = 0.0
+    for key, a0 in starts["plain"].items():
+        a = starts["2d"][key]
+        m = a0["mask"]
+        scale = np.max(np.abs(np.where(m, a0["resid"], 0.0)), axis=1)
+        r_gap = max(r_gap, float(np.max(np.max(np.abs(np.where(
+            m, a["resid"] - a0["resid"], 0.0)), axis=1) / scale)))
+        w0, w = (np.sum(np.where(m, (b["resid"] / b["sigma_us"]) ** 2, 0.0),
+                        axis=1) for b in (a0, a))
+        w_gap = max(w_gap, float(np.max(np.abs(w - w0) / w0)))
+    gaps["start resid of max|r|"] = r_gap
+    gaps["start white chi2 rel"] = w_gap
+    x_m = fits[("2d", "mixed")][1][0]
+    x_f = fits[("2d", "f64")][1][0]
+    gaps["mixed vs f64 sigma"] = float(np.max(np.abs(x_m - x_f) / sig))
+    log(f"[mesh] 2d: {len(models)} pulsars in {n_buckets} pow2 buckets on a "
+        f"{MESH2D_SHAPE[0]} x {MESH2D_SHAPE[1]} mesh of {card} (logical "
+        f"lanes, no scaling figure); {len(rows)} TOA-split rows, TOA "
+        f"blocks per row {blocks}; {sum(captured)} of {len(captured)} row "
+        f"programs captured")
+    log(f"[mesh] 2d walls: {json.dumps(walls, default=float)}; peak "
+        f"memory GiB {json.dumps(peaks)}")
+    log(f"[mesh] 2d gaps: {json.dumps(gaps)}; {gpu_line()}")
+    check("[mesh] 2d", {
+        "every multi-pulsar bucket TOA-split": rows and all(
+            isinstance(s, ToaRowBatch) for s in rows),
+        "TOA blocks within one row of each other": all(
+            max(b) - min(b) <= 1 for b in blocks),
+        "row programs captured on the one card": (
+            captured and all(captured)) or device != "cuda",
+        "pipelined (replayed) fits bitwise the sequential ones": all(
+            bitwise_fit(fits[("2d", p)][0], piped[p])
+            for p in ("f64", "mixed")),
+        "start residuals and white chi2 as the plain fleet's":
+            r_gap <= TOL_RESID_2D and w_gap <= TOL_RESID_2D,
+        "f64 vs plain <= 1e-6 sigma, cov, chi2 at f64's floor": gaps[
+            "f64 vs plain sigma"] <= 1e-6
+            and gaps["f64 vs plain cov"] <= TOL_COV_2D["f64"]
+            and gaps["f64 vs plain chi2 rel"] <= TOL_CHI2_2D_F64,
+        "mixed vs plain <= 1e-6 sigma, cov, chi2 1e-9": gaps[
+            "mixed vs plain sigma"] <= 1e-6
+            and gaps["mixed vs plain cov"] <= TOL_COV_2D["mixed"]
+            and gaps["mixed vs plain chi2 rel"] <= TOL_CHI2_2D,
+        "mixed vs f64 <= 1e-6 sigma": gaps["mixed vs f64 sigma"] <= 1e-6,
+        "second fit bitwise": all(bitwise_fit(*fits[("2d", p)])
+                                  for p in ("f64", "mixed")),
+        "no f64 refit": not any(refits),
+    })
+    return walls
+
+
 def run():
     import torch
 
@@ -6320,6 +6472,9 @@ def run():
             "steal"][k]
     entries[3]["launches_new_paths"][
         "mesh StreamingRefitter(mesh=)"] = mesh_k1p
+    t0 = time.perf_counter()
+    mesh_2d(torch, models, toas, x_start)
+    log(f"[mesh] 2d took {time.perf_counter() - t0:.2f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         durable_kill(torch, tmp)

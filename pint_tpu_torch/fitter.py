@@ -33,13 +33,13 @@ read host copies and leave the fit bitwise unchanged.
 from __future__ import annotations
 
 import copy
-import time
 import warnings
 
 import numpy as np
 import torch
 
 from . import autodiff, graphs
+from .obs import clock as obs_clock
 from .residuals import (Residuals, WidebandDMResiduals,
                         WidebandTOAResiduals, wideband_dm_model)
 from .segment import block_segment_sum, segment_max
@@ -116,7 +116,6 @@ def aot_lower(fn, *args, trace_id=None):
     ``trace_id`` so the span joins the caller's trace. Returns
     {"lowered", "trace_s"}; :func:`aot_backend_compile` takes the
     "lowered" program."""
-    from .obs import clock as obs_clock
     from .obs import trace as obs_trace
 
     with obs_trace.span("aot.trace", trace_id=trace_id):
@@ -133,7 +132,8 @@ def aot_backend_compile(lowered, x0, *data, label=None):
     (``graphs.GraphProgram``; the eighs and SVDs run eagerly between
     the graphs), ``backend_compile_s`` the capture's wall; on
     the CPU nothing is captured (``backend_compile_s`` 0.0, the eager
-    ``graphs.Program``). A failed capture raises. Returns the JAX
+    ``graphs.Program``), nor where ``data`` spans devices
+    (``graphs.capturable``). A failed capture raises. Returns the JAX
     package's dict {"compiled", "backend_compile_s", "flops",
     "bytes_accessed", "memory", "intensity_flops_per_byte",
     "roofline_ceiling_flops", "bound"} plus "captured" and "pieces"
@@ -149,7 +149,7 @@ def aot_backend_compile(lowered, x0, *data, label=None):
     from .obs import trace as obs_trace
 
     with obs_trace.span("aot.backend_compile") as sp:
-        if x0.device.type == "cuda":
+        if graphs.capturable(x0, data):
             compiled = graphs.GraphProgram(lowered, x0, *data)
             backend_s = compiled.capture_s
         else:
@@ -522,7 +522,15 @@ def wls_step(Mw, rw, threshold=1e-12):
     on the host with cov_from_normalized. On CUDA tensors the SVD runs
     the cuSOLVER routine ``SVD_DRIVER``."""
     norm = column_norms(Mw)
-    Mn = Mw / norm[..., None, :]
+    return wls_svd_solve(Mw / norm[..., None, :], rw, norm, threshold)
+
+
+def wls_svd_solve(Mn, rw, norm, threshold=1e-12):
+    """The SVD half of :func:`wls_step`: (dx, covn, norm) from the
+    column-normalized whitened design ``Mn`` and residuals ``rw``. Any
+    ``Mn`` with the design's singular values and right vectors will do,
+    with ``rw`` projected alike: the R factor of Mn = QR and Qᵀrw give
+    the same step (``parallel/sharded.py`` stacks per-shard R factors)."""
     kw = {"driver": SVD_DRIVER} if Mn.is_cuda else {}
     U, s, Vh = graphs.eager(torch.linalg.svd, Mn, full_matrices=False, **kw)
     smax = torch.amax(s, dim=-1, keepdim=True)
@@ -554,7 +562,7 @@ def _wall(device):
     """Host clock, read after the device's queued work has finished."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-    return time.perf_counter()
+    return obs_clock.now()
 
 
 def fit_metrics(t_start, prep_s, iter_s, toas, model, device):
@@ -1013,9 +1021,9 @@ class WLSFitter(Fitter):
         if corr:
             raise CorrelatedErrors(corr)
         _reject_free_dmjump(self.model)
-        t_start = time.perf_counter()
+        t_start = obs_clock.now()
         prepared = self._prepare()
-        prep_s = time.perf_counter() - t_start
+        prep_s = obs_clock.now() - t_start
         eval_fn, step_fn, noff = _wls_fused_fns(
             prepared, threshold=threshold, track_mode=self._track_mode())
         iter_s = []
@@ -1029,12 +1037,12 @@ class WLSFitter(Fitter):
         best = (chi2, x, None)
         first_cov = None
         for _ in range(maxiter):
-            t_it = time.perf_counter()
+            t_it = obs_clock.now()
             x, rw, sigma_s, chi2, covn, norm = step_fn(x, rw, sigma_s)
             chi2 = float(chi2)  # the iteration's one host sync
             if first_cov is None:
                 first_cov = (covn, norm)
-            iter_s.append(time.perf_counter() - t_it)
+            iter_s.append(obs_clock.now() - t_it)
             if chi2 < best[0]:
                 best = (chi2, x, (covn, norm))
         if chi2 - best[0] > 1e-6 * max(1.0, best[0]):
@@ -1065,9 +1073,9 @@ class DownhillWLSFitter(WLSFitter):
         if corr:
             raise CorrelatedErrors(corr)
         _reject_free_dmjump(self.model)
-        t_start = time.perf_counter()
+        t_start = obs_clock.now()
         prepared = self._prepare()
-        prep_s = time.perf_counter() - t_start
+        prep_s = obs_clock.now() - t_start
         resid_fn = prepared.residual_vector_fn(track_mode=self._track_mode())
         dm_fn, labels = prepared.designmatrix_fn()
         noff = _n_offset(labels)
@@ -1085,7 +1093,7 @@ class DownhillWLSFitter(WLSFitter):
         best_chi2 = chi2_of(x)
         covn = norm = None
         for _ in range(maxiter):
-            t_it = time.perf_counter()
+            t_it = obs_clock.now()
             sigma_s = sigma_of(x)
             Mw = (dm_fn(x) / f0) / sigma_s[:, None]
             rw = resid_fn(x) / sigma_s
@@ -1101,7 +1109,7 @@ class DownhillWLSFitter(WLSFitter):
                     x = x - lam * dx
                     break
                 lam *= 0.5
-            iter_s.append(time.perf_counter() - t_it)
+            iter_s.append(obs_clock.now() - t_it)
             if lam < min_lambda or not improved:
                 break
         else:
@@ -1155,9 +1163,9 @@ class GLSFitter(Fitter):
         _maybe_inject_solver_diverge("gls")
         _reject_free_dmjump(self.model)
         check_precision(precision)
-        t_start = time.perf_counter()
+        t_start = obs_clock.now()
         prepared = self._prepare()
-        prep_s = time.perf_counter() - t_start
+        prep_s = obs_clock.now() - t_start
         resid_fn = prepared.residual_vector_fn(track_mode=self._track_mode())
         dm_fn, labels = prepared.designmatrix_fn()
         noff = _n_offset(labels)
@@ -1180,7 +1188,7 @@ class GLSFitter(Fitter):
         nparam = None
         last_chi2 = None
         for _ in range(maxiter):
-            t_it = time.perf_counter()
+            t_it = obs_clock.now()
             M = dm_fn(x) / f0
             Mfull, sqrt_phi_inv, nparam = stack_noise_bases(M, bases)
             dx, cov, _ = gls_solve(Mfull, r, sigma_s, sqrt_phi_inv,
@@ -1193,7 +1201,7 @@ class GLSFitter(Fitter):
             x = x - dx[noff:nparam]
             r, sigma_s, bases = state_at(x)
             chi2 = marginalized_chi2(r, sigma_s, bases, threshold)
-            iter_s.append(time.perf_counter() - t_it)
+            iter_s.append(obs_clock.now() - t_it)
             if chi2 < best[0]:
                 best = (chi2, x, cov, noise_ampls)
             if (tol and last_chi2 is not None
@@ -1371,7 +1379,7 @@ class WidebandTOAFitter(GLSFitter):
         chi2 = None
         best = None  # (marginalized chi2, prepared, x0) of the best state
         for _ in range(maxiter):
-            t_it = time.perf_counter()
+            t_it = obs_clock.now()
             prepared, combined, r, sigma, noff, x0, bases = \
                 self._wideband_system()
             chi2_act = marginalized_chi2(r, sigma, bases, threshold)
@@ -1387,7 +1395,7 @@ class WidebandTOAFitter(GLSFitter):
             cov_all = cov_from_normalized(*cov)
             self._set_uncertainties(prepared, cov_all[noff:nparam,
                                                       noff:nparam])
-            iter_s.append(time.perf_counter() - t_it)
+            iter_s.append(obs_clock.now() - t_it)
         # best-iterate safeguard (see GLSFitter.fit_toas): the final
         # state's marginalized chi2, at the in-loop threshold, against
         # the best one; revert if an iteration diverged
@@ -1441,7 +1449,7 @@ class WidebandDownhillFitter(WidebandTOAFitter):
         iter_s = []
         best_chi2 = None
         for _ in range(maxiter):
-            t_it = time.perf_counter()
+            t_it = obs_clock.now()
             prepared, combined, r, sigma, noff, x0, bases = \
                 self._wideband_system()
             # one objective per outer iteration; line-search probes
@@ -1471,7 +1479,7 @@ class WidebandDownhillFitter(WidebandTOAFitter):
             cov_all = cov_from_normalized(*cov)
             self._set_uncertainties(prepared, cov_all[noff:nparam,
                                                       noff:nparam])
-            iter_s.append(time.perf_counter() - t_it)
+            iter_s.append(obs_clock.now() - t_it)
             if lam < min_lambda or not improved:
                 break
         else:
@@ -1512,7 +1520,7 @@ class WidebandLMFitter(WidebandTOAFitter):
         lm = lm_lambda0
         best_chi2 = self._wideband_chi2(threshold)
         for _ in range(maxiter):
-            t_it = time.perf_counter()
+            t_it = obs_clock.now()
             prepared, combined, r, sigma, noff, x0, bases = \
                 self._wideband_system()
             Mfull, sqrt_phi_inv, nparam = stack_noise_bases(
@@ -1558,7 +1566,7 @@ class WidebandLMFitter(WidebandTOAFitter):
             dx = (dxn / norm)[noff:nparam]
             self._sync_model_from_vector(prepared, x0 - dx)
             chi2 = self._wideband_chi2(threshold)
-            iter_s.append(time.perf_counter() - t_it)
+            iter_s.append(obs_clock.now() - t_it)
             if chi2 <= best_chi2 + 1e-12:
                 accepted = chi2 < best_chi2 - tol * max(1.0, best_chi2)
                 best_chi2 = min(best_chi2, chi2)
@@ -1614,9 +1622,9 @@ class PowellFitter(Fitter):
         from scipy.optimize import minimize
 
         _reject_free_dmjump(self.model)
-        t_start = time.perf_counter()
+        t_start = obs_clock.now()
         prepared = self._prepare()
-        prep_s = time.perf_counter() - t_start
+        prep_s = obs_clock.now() - t_start
         resid_fn = prepared.residual_vector_fn(track_mode=self._track_mode())
         dm_fn, labels = prepared.designmatrix_fn()
         noff = _n_offset(labels)

@@ -75,12 +75,12 @@ def _after_last(stream):
         stream.wait_event(done)
 
 
-def _mark_done(stream):
-    """Record the end of this capture's or call's work on ``stream``
-    (hold ``_LOCK``)."""
+def _done_event(stream):
+    """An event recorded after the work queued on ``stream``: a capture
+    or call stores it in ``_DONE`` under ``_LOCK``."""
     done = torch.cuda.Event()
     done.record(stream)
-    _DONE[stream.device] = done
+    return done
 
 
 def pool(device):
@@ -139,6 +139,15 @@ def _data_leaves(tree):
     if isinstance(tree, (tuple, list)):
         return [t for v in tree for t in _data_leaves(v)]
     return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def capturable(x0, data):
+    """True when a program of ``x0`` and the data tree ``data`` can be
+    captured: ``x0`` on a CUDA device and every tensor of ``data`` on
+    it (a CUDA graph records one device's stream)."""
+    dev = x0.device
+    return dev.type == "cuda" and all(t.device == dev
+                                      for t in _data_leaves(data))
 
 
 class Program:
@@ -230,7 +239,9 @@ class GraphProgram:
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA tensor, got {dev}")
         with _LOCK:
-            self._capture(fn, x0, data)
+            main = self._capture(fn, x0, data)
+            _DONE[dev] = _done_event(main)
+            _LIVE.add(self)
 
     def _capture(self, fn, x0, data):
         dev = x0.device
@@ -267,12 +278,10 @@ class GraphProgram:
                 except Exception:  # noqa: BLE001
                     pass
         main.wait_stream(side)
-        _mark_done(main)
         torch.cuda.synchronize(dev)
         self.pieces = rec.pieces
         self.wrappers = rec.wrappers
         self.pool = rec.pool
-        _LIVE.add(self)
         self.launches = {}
         for p in self.pieces:
             if p[0] == "graph":
@@ -281,6 +290,7 @@ class GraphProgram:
                         self.launches[w.__name__] = (
                             self.launches.get(w.__name__, 0) + n)
         self.capture_s = time.perf_counter() - t0
+        return main
 
     @property
     def layout(self):
@@ -318,5 +328,5 @@ class GraphProgram:
             for p in self.pieces:
                 _run(p, self.wrappers)
             out = _tree_map(torch.clone, self.out)
-            _mark_done(stream)
+            _DONE[stream.device] = _done_event(stream)
         return out

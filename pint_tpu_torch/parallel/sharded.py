@@ -1,18 +1,49 @@
-"""A PTABatch whose pulsars are split over a 1-D "pulsar" mesh: what
+"""A PTABatch whose pulsars are split over a "pulsar" mesh, and on a
+2-D ("pulsar", "toa") mesh whose TOAs are split too: what
 ``PTABatch(mesh=)`` and ``PTABatch.from_packed(mesh=)`` build when the
-mesh holds more than one non-empty shard of the batch (the JAX
-package's ``PTABatch(mesh=)``, one sharded program there).
+mesh holds more than one non-empty pulsar shard of the batch, or a
+"toa" axis of more than one device (the JAX package's
+``PTABatch(mesh=)``, one GSPMD program there).
 
 The pulsars are split into contiguous shards (``mesh.pulsar_slices``),
-one unsharded child ``PTABatch`` per mesh device. A fit runs the same
-program on each shard and its finalize concatenates the pulled rows in
-pulsar order, so the mixed->f64 guard, fault injection, divergence
-isolation and the probes (PTABatch's finalize, inherited) see the whole
-batch. Per-pulsar fits do not couple, so no reduction crosses shards.
-The batch keeps its stacked host data on the CPU (``pack_state``,
+one child batch per mesh row. A fit runs the same program on each
+shard and its finalize concatenates the pulled rows in pulsar order,
+so the mixed->f64 guard, fault injection, divergence isolation and the
+probes (PTABatch's finalize, inherited) see the whole batch. Per-pulsar
+fits do not couple, so no reduction crosses pulsar shards. The batch
+keeps its stacked host data on the CPU (``pack_state``,
 ``shape_signature``); its program table holds one program per shard
 under each key, so a serve slot's cached table reuses every shard's
 program.
+
+On a row of one device the child is an ordinary ``PTABatch``. On a
+row of several (the 2-D mesh) it is a :class:`ToaRowBatch`: its
+pulsars' padded TOA axis is cut into contiguous blocks, one per device
+of the row (the JAX package's rule, ``mesh.py``'s ``shard_batch``: the
+per-TOA leaves by their known layout, ``pta._toa_axis``; parameters and
+per-column leaves whole on every block; a TOA count that does not
+divide gives the first blocks one row more, where the JAX package would
+replicate). ``PTABatch``'s unpacked WLS and GLS programs are written
+over such block lists (one block for an ordinary batch): per-TOA work
+(phase, the ``jacfwd`` design, sigma, the noise bases, the ECORR epoch
+index) runs on each block's device, and every cross-TOA reduction is a
+per-block partial summed in block order on the first block's device
+(``mesh.ordered_sum``/``ordered_max`` through ``toa_shard.py``'s
+``weighted_mean`` and ``_global_colnorms``): the weighted phase mean,
+the column norms, MᵀN⁻¹M, MᵀN⁻¹r and rᵀN⁻¹r, the ECORR epoch sums and
+the red-noise FᵀN⁻¹F. The solve runs there. The batched design is the
+phase jacobian over F0 with an offset column, pointwise per TOA, so
+the mean's chain rule of ``toa_shard._Shards`` is not needed. WLS over
+several blocks keeps its SVD numerics through a QR per block: the SVD
+of the R factors stacked in block order has the tall design's singular
+values and right vectors, and the stacked Qᵀr the projected residuals
+(``fitter.wls_svd_solve``). A row whose blocks share one card (the
+logical lanes of a mesh of one device) captures its programs as an
+ordinary batch does; a row over several cards runs them eagerly, since
+a CUDA graph records one device's stream (``graphs.capturable``).
+
+No kernel lies on this path: K1/K2 run only in packed plan buckets,
+which take no mesh (``ValueError``, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -23,8 +54,9 @@ import numpy as np
 import torch
 
 from ..toa import TOABatch
-from .mesh import pulsar_slices
-from .pta import PTABatch
+from .mesh import Mesh, pulsar_slices
+from .pta import PTABatch, _tensor_tree
+from .toa_shard import _split
 
 
 class ShardedBatch(PTABatch):
@@ -36,11 +68,12 @@ class ShardedBatch(PTABatch):
         """Keep the stacked host tree on the CPU and build one child
         batch per shard on its mesh device."""
         super()._to_device(params, prep, fields, device=torch.device("cpu"))
-        self._shard_slices = pulsar_slices(len(np.ravel(self.n_toas)),
-                                           self.mesh.axis_size("pulsar"))
+        n_p = self.mesh.axis_size("pulsar")
+        self._shard_slices = pulsar_slices(len(np.ravel(self.n_toas)), n_p)
         self._shards = []
-        for sl, dev in zip(self._shard_slices, self.mesh.devices.reshape(-1)):
-            shard = PTABatch.from_packed(self.template, {
+        for sl, row in zip(self._shard_slices,
+                           self.mesh.devices.reshape(n_p, -1)):
+            shard = _row_batch(self.template, row, {
                 "params": {k: np.asarray(v)[sl] for k, v in params.items()},
                 "prep": {k: v[sl] if isinstance(v, np.ndarray) else v
                          for k, v in prep.items()},
@@ -48,7 +81,7 @@ class ShardedBatch(PTABatch):
                           for f in TOABatch._fields},
                 "static": self.static,
                 "n_toas": np.asarray(self.n_toas)[sl],
-                "free_map": self._free_map}, device=dev)
+                "free_map": self._free_map})
             shard.models = self.models[sl]
             self._shards.append(shard)
 
@@ -122,9 +155,13 @@ class ShardedBatch(PTABatch):
 
     def _program_ready(self, key):
         progs = self._fns.get(key)
-        return isinstance(progs, list) and all(
-            p is not None and (p.captured or s.device.type != "cuda")
-            for p, s in zip(progs, self._shards))
+        if not isinstance(progs, list):
+            return False
+        ready = []
+        for p, shard in zip(progs, self._shards):
+            shard._fns = {} if p is None else {key: p}
+            ready.append(shard._program_ready(key))
+        return all(ready)
 
     def aot_lower(self, method="gls", maxiter=None, threshold=1e-12,
                   ecorr_mode="auto", precision="f64", fused=None,
@@ -173,3 +210,70 @@ class ShardedBatch(PTABatch):
         parts = [s.gw_arrays(x[sl])
                  for sl, s in zip(self._shard_slices, self._shards)]
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _row_batch(template, row, state):
+    """The child batch of one mesh row: an ordinary PTABatch on a row
+    of one device, a :class:`ToaRowBatch` over a row of several."""
+    if len(row) == 1:
+        return PTABatch.from_packed(template, state, device=row[0])
+    return ToaRowBatch.from_packed(template, state,
+                                   mesh=Mesh(row, axis_names=("toa",)))
+
+
+class ToaRowBatch(PTABatch):
+    """One pulsar shard of a 2-D mesh: its TOA axis split over the
+    devices of ``self.mesh`` (a 1-D "toa" mesh, the row; module
+    docstring). The stacked host data stays on the CPU (``pack_state``,
+    ``shape_signature``, the cost counts); ``_parts`` holds each block's
+    (params, tensor prep, TOA fields) on its device, the programs'
+    arguments (``_leaves``: three lists, one entry per block). Start
+    vectors and results live on the row's first device."""
+
+    def _to_device(self, params, prep, fields, device=None):
+        super()._to_device(params, prep, fields, device=torch.device("cpu"))
+        blocks = _split(self.batch, _tensor_tree(self.prep),
+                        int(self.batch.tdb_sec.shape[1]),
+                        list(self.mesh.devices.reshape(-1)), lead=1,
+                        even=False)
+        self._parts = [({k: v.to(b.tdb_sec.device)
+                         for k, v in self.params.items()}, pr, b)
+                       for b, pr in blocks]
+
+    def _leaves(self):
+        return tuple(list(leaves) for leaves in zip(*self._parts))
+
+    def _x0(self):
+        if self._x0_cache is None:
+            self._x0_cache = super()._x0().to(self.device)
+        return self._x0_cache
+
+    @staticmethod
+    def _block_program(fit):
+        """The row's leaves are already block lists."""
+        return fit
+
+    def _resid_program(self):
+        resid = self._blocks_resid_fn()
+
+        def program(params, prep, batches):
+            rows = [r for _, r, _ in resid(None, params, prep, batches)]
+            return torch.cat([r.to(rows[0].device) for r in rows], dim=1)
+
+        return program
+
+    def _phase_program(self):
+        phase_fn = torch.func.vmap(self._phase_fn())
+
+        def program(params, prep, batches):
+            phs = [phase_fn(ps, b, pr)
+                   for ps, pr, b in zip(params, prep, batches)]
+            return torch.cat([ph.to(phs[0].device) for ph in phs], dim=1)
+
+        return program
+
+    def _gw_eval(self, x):
+        blocks = self._blocks_resid_fn()(self._pulsar_vectors(x),
+                                      *self._leaves())
+        return tuple(torch.cat([a.to(self.device) for a in parts], dim=1)
+                     for parts in zip(*[(r, s) for _, r, s in blocks]))

@@ -43,12 +43,12 @@ import os
 import pickle
 import struct
 import threading
-import time
 import warnings
 import zlib
 from collections import OrderedDict
 
 from ..durable import atomic_write_bytes
+from ..obs import clock as obs_clock
 from ..obs import trace as obs_trace
 from ..resilience import faultinject
 
@@ -279,7 +279,7 @@ class PersistentExecutableCache:
                  if pk in fns}
         if batch is None or not progs:
             return 0
-        t0 = time.perf_counter()
+        t0 = obs_clock.now()
         with obs_trace.span("excache.persist_store", key=key,
                             programs=len(progs)):
             pack, _ = encode_state(batch.pack_state(), repr(key))
@@ -298,7 +298,7 @@ class PersistentExecutableCache:
                 atomic_write_bytes(path, blob)
                 self.stores += 1
                 self.bytes_written += len(blob)
-                self.store_s += time.perf_counter() - t0
+                self.store_s += obs_clock.now() - t0
                 hit = faultinject.fire("executable_cache_corrupt",
                                        key=repr(key))
                 if hit is not None:
@@ -325,7 +325,7 @@ class PersistentExecutableCache:
         from ..parallel.pta import PTABatch
         from ..store.packstore import EntryCorrupt, EntryStale, decode_state
 
-        t0 = time.perf_counter()
+        t0 = obs_clock.now()
         try:
             state = decode_state(doc["pack"])
         except EntryStale as e:
@@ -350,7 +350,7 @@ class PersistentExecutableCache:
             return None
         with self._lock:
             self.recaptures += 1
-            self.recapture_s += time.perf_counter() - t0
+            self.recapture_s += obs_clock.now() - t0
         return batch._fns
 
     def _read(self, path):

@@ -191,8 +191,9 @@ def test_sharded_batch_matches_jax(batches):
 def test_mesh_fleet_and_from_packed(batches, tmp_path):
     """PTAFleet(mesh=) (sequential and pipelined) against the unsharded
     fleet; from_packed(mesh=) of a pack_state; a store-built mesh fleet;
-    the refusals the JAX package makes (plan + mesh) and the 2-D batch
-    that waits (ROADMAP §1 item 2)."""
+    the refusals the JAX package makes (plan + mesh); a 2-D ("pulsar",
+    "toa") mesh builds and fits (tests/test_torch_mesh2d.py holds it to
+    its tiers)."""
     from pint_tpu_torch.parallel import (PTABatch, PTAFleet, make_mesh,
                                          make_mesh2d)
     from pint_tpu_torch.store import PackStore
@@ -228,6 +229,11 @@ def test_mesh_fleet_and_from_packed(batches, tmp_path):
     with pytest.raises(ValueError, match="device mesh"):
         PTAFleet(_models(batches["noise"][0]), batches["noise"][3],
                  mesh=mesh, **plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-        PTABatch(_models(batches["spin"][0]), batches["spin"][3],
-                 mesh=make_mesh2d(2, 2, devices=["cpu"] * 4))
+    two_d = PTABatch(_models(batches["spin"][0]), batches["spin"][3],
+                     mesh=make_mesh2d(2, 2, devices=["cpu"] * 4))
+    assert [len(s._leaves()[2]) for s in two_d._shards] == [2, 2]
+    ref = PTABatch(_models(batches["spin"][0]), batches["spin"][3],
+                   device="cpu")
+    (rx, rc, _), (gx, gc, _) = ref.wls_fit(maxiter=2), two_d.wls_fit(maxiter=2)
+    np.testing.assert_allclose(gx, rx, rtol=TOL_REL, atol=0)
+    np.testing.assert_allclose(gc, rc, rtol=TOL_REL)
