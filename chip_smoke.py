@@ -184,6 +184,21 @@ on it, an interactive pintk session and binary conversions):
    sequential replay, K1 and K2 launched in every packed bucket under
    replay, relres <= 1e-8 with no f64 refit, mixed vs f64 <= 1e-6
    sigma, replay vs eager <= 1e-6 sigma;
+5g. ``[lint]``, right after ``[pipeline] main``: pintlint over the
+   port as a subprocess (``python -m pint_tpu_torch.analysis
+   pint_tpu_torch/ --format json``, timed; it starts beside the kernel
+   build and runs on the host while the card works, so the phase only
+   collects it, and logs when it ended against the start of
+   ``[host]``'s ingest), the rule count from the analyser's registry,
+   then the analyser's static model of device code
+   (``analysis.rules_retrace.device_code_index``) held to the card:
+   every synchronizing call the card reported in ``[pipeline] main``'s
+   warm eager fit of the packed bucket is classed by its port frames as
+   an eager piece (through ``graphs.eager``), device code (any port
+   frame inside a device function, so a callee in another file of a
+   program's ``fit`` counts), or host code. Checks: the analyser exits
+   0 with 21 rules and 3 suppressed findings, syncs were recorded, and
+   none lies in device code;
 6. ``[gw] fleet``: the GW stage on the main path's fleet at its warm
    mixed-fit vectors: assemble and regrid at 30 days (timed), then the
    optimal statistic with the pair products in mixed (the K3 kernel;
@@ -1779,12 +1794,17 @@ def zoo_fleet(torch, counts, device="cuda"):
 
 
 TOL_REPLAY = 1e-6  # |x_replay - x_eager| / sigma
+# the port frames of every sync in [pipeline] main's warm eager fit:
+# [[(path, line, function), ...innermost last], ...] ([lint] reads them)
+SYNC_STACKS = []
 
 
-def sync_sites(torch, fn):
+def sync_sites(torch, fn, stacks=None):
     """The synchronizing CUDA calls of ``fn()`` under
     ``torch.cuda.set_sync_debug_mode("warn")``, counted by the port's
-    innermost three frames: {"file:line function <- ...": count}."""
+    innermost three frames: {"file:line function <- ...": count}. With
+    ``stacks`` (a list), each sync's port frames, innermost last, are
+    appended to it as [(path, line, function)]."""
     import traceback
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1793,9 +1813,13 @@ def sync_sites(torch, fn):
     def show(message, category, filename, lineno, file=None, line=None):
         if "synchronizing" not in str(message):
             return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "pint_tpu_torch" in f.filename]
+        if stacks is not None:
+            stacks.append([(os.path.abspath(f.filename), f.lineno, f.name)
+                           for f in frames])
         here = [f"{os.path.relpath(f.filename, root)}:{f.lineno} {f.name}"
-                for f in traceback.extract_stack()[:-1]
-                if "pint_tpu_torch" in f.filename][-3:]
+                for f in frames][-3:]
         key = " <- ".join(reversed(here)) or "(outside the port)"
         sites[key] = sites.get(key, 0) + 1
 
@@ -1839,7 +1863,7 @@ def piece_times(torch, fn):
     return total
 
 
-def pipeline_phase(torch, tag, fleet, x64, sig, label):
+def pipeline_phase(torch, tag, fleet, x64, sig, label, stacks=None):
     """``[pipeline]``: the fleet executor on a fleet an earlier phase
     built and fitted (``label(key)`` names a bucket), in mixed,
     ``maxiter=2``, from the fleet's start vectors: the synchronizing
@@ -1856,7 +1880,9 @@ def pipeline_phase(torch, tag, fleet, x64, sig, label):
     every packed bucket under replay and the Gram kernel in the
     profile, relres <= 1e-8 and no f64 refit, mixed vs f64 <= 1e-6
     sigma, replay vs eager <= 1e-6 sigma (its bitwise flag logged).
-    ``x64`` and ``sig`` are per-pulsar lists. Frees the programs."""
+    ``x64`` and ``sig`` are per-pulsar lists; ``stacks`` (a list) takes
+    the port frames of the warm eager fit's syncs (:func:`sync_sites`).
+    Frees the programs."""
     from pint_tpu_torch.kernels import block_grams_cuda, fused_block_gls_cuda
     from pint_tpu_torch.parallel import fleet_pipeline_metrics
 
@@ -1866,7 +1892,8 @@ def pipeline_phase(torch, tag, fleet, x64, sig, label):
     b0 = fleet.batches[packed[0]]
     b0.gls_fit(maxiter=2, precision="mixed")
     for site, n in sync_sites(
-            torch, lambda: b0.gls_fit(maxiter=2, precision="mixed")).items():
+            torch, lambda: b0.gls_fit(maxiter=2, precision="mixed"),
+            stacks).items():
         log(f"{tag} sync, warm eager fit of {label(packed[0])}: {n}x {site}")
 
     def fit(pipeline):
@@ -1983,6 +2010,119 @@ def pipeline_phase(torch, tag, fleet, x64, sig, label):
     for b in fleet.batches.values():
         b._fns.clear()
     torch.cuda.empty_cache()
+
+
+LINT_RULES = 21  # the JAX package's rule ids but meta-key-unbudgeted
+LINT_SUPPRESSED = 3  # quality-signal-dropped 2, serve-unpadded-batch 1
+LINT_TAG = "[lint]"
+LINT_STACKS_OF = "[pipeline] main"  # the warm eager fit [lint] classes
+
+
+def sync_class(frames, device_spans):
+    """(class, frame) of one sync from its port frames, innermost last:
+    "eager piece" when they pass through ``graphs.eager`` (that frame);
+    else "device code" when any of them lies in a device function of
+    ``device_spans`` (``rules_retrace.device_code_index``; the innermost
+    such frame: a callee in another file of a program's ``fit`` is
+    device code through ``fit``'s frame, which the per-file index cannot
+    see statically); else "host code" (the innermost frame, None when
+    no port frame)."""
+    for f in reversed(frames):
+        if (f[0].endswith(os.path.join("pint_tpu_torch", "graphs.py"))
+                and f[2] == "eager"):
+            return "eager piece", f
+    for f in reversed(frames):
+        if any(a <= f[1] <= b for a, b, _ in device_spans.get(f[0], ())):
+            return "device code", f
+    return "host code", frames[-1] if frames else None
+
+
+def lint_start():
+    """``[lint]``'s scan, ``python -m pint_tpu_torch.analysis
+    pint_tpu_torch/ --format json`` from the checkout's root, started in
+    the background (the host is idle while the kernels build). The
+    returned thread's ``.result`` is (CompletedProcess, wall s, end
+    time on ``time.perf_counter``) once it is joined; the process is
+    killed at exit if it still runs."""
+    import atexit
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pint_tpu_torch.analysis", "pint_tpu_torch/",
+         "--format", "json"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)
+
+    def work():
+        out, err = proc.communicate(timeout=600)
+        end = time.perf_counter()
+        thread.result = (subprocess.CompletedProcess(
+            proc.args, proc.returncode, out, err), end - t0, end)
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+    return thread
+
+
+def lint_phase(scan, host_t0):
+    """``[lint]``: pintlint over the port (``scan`` from
+    :func:`lint_start`: the CLI a developer runs, in a subprocess),
+    its wall and when it ended against ``host_t0`` (the start of the
+    first timed host phase, ``[host]``'s ingest), the rule count from
+    the analyser's registry; then its device-code index against the
+    syncs the card reported in ``[pipeline] main``'s warm eager fit
+    (``SYNC_STACKS``): each sync's class logged with the frame that
+    decided it, the counts per class. Checks: exit 0, 21 rules, 3
+    suppressed findings, syncs recorded, none in device code."""
+    from pint_tpu_torch.analysis import all_rules
+    from pint_tpu_torch.analysis.rules_retrace import device_code_index
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "pint_tpu_torch")
+    scan.join()
+    proc, scan_s, end = scan.result
+    report = json.loads(proc.stdout) if proc.returncode in (0, 1) else {}
+    n_rules = len(all_rules())
+    log(f"{LINT_TAG} python -m pint_tpu_torch.analysis pint_tpu_torch/ "
+        f"--format json: rc {proc.returncode} in {scan_s:.2f} s, ended "
+        f"{end - host_t0:+.2f} s from the start of [host] ingest; "
+        f"{report.get('unsuppressed')} unsuppressed, "
+        f"{report.get('suppressed')} suppressed "
+        f"{report.get('counts_by_rule')}; {n_rules} rules registered")
+    if proc.returncode != 0:
+        log(f"{LINT_TAG} analyser stderr: {proc.stderr[-2000:]}")
+        for f in report.get("findings", []):
+            if not f["suppressed"]:
+                log(f"{LINT_TAG}   {f['path']}:{f['line']} [{f['rule']}] "
+                    f"{f['message']}")
+    t0 = time.perf_counter()
+    spans = device_code_index([pkg])
+    index_s = time.perf_counter() - t0
+    classes = {"eager piece": 0, "host code": 0, "device code": 0}
+    sites = {}
+    for frames in SYNC_STACKS:
+        cls, f = sync_class(frames, spans)
+        classes[cls] += 1
+        at = (f"{os.path.relpath(f[0], root)}:{f[1]} {f[2]}" if f
+              else "(outside the port)")
+        sites[(cls, at)] = sites.get((cls, at), 0) + 1
+    log(f"{LINT_TAG} device-code index: "
+        f"{sum(len(v) for v in spans.values())} device functions in "
+        f"{len(spans)} files, built in {index_s:.2f} s; {LINT_STACKS_OF}'s "
+        f"warm eager fit synced {len(SYNC_STACKS)} times: "
+        + ", ".join(f"{k} {v}" for k, v in classes.items()))
+    for (cls, at), n in sorted(sites.items()):
+        log(f"{LINT_TAG}   {cls}: {n}x at {at}")
+    check(LINT_TAG, {
+        "the analyser exits 0 over the port": proc.returncode == 0,
+        f"{LINT_RULES} rules registered": n_rules == LINT_RULES,
+        f"{LINT_SUPPRESSED} suppressed findings":
+            report.get("suppressed") == LINT_SUPPRESSED,
+        "syncs recorded in the warm eager fit": len(SYNC_STACKS) > 0,
+        "no sync inside device code": classes["device code"] == 0,
+    })
+    return classes
 
 
 WB_PAR = os.path.join(EXAMPLES, "wb_sim.par")
@@ -6254,6 +6394,7 @@ def run():
     log(f"[card] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; tf32 matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}")
+    lint_scan = lint_start()  # host only: read by [lint]
 
     t0 = time.perf_counter()
     host_build = []
@@ -6278,7 +6419,7 @@ def run():
                 log(f"{tag} {line.strip()}")
 
     counts = ragged_counts()
-    t0 = time.perf_counter()
+    t0 = host_t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         models, toas = ingest(counts, tmp)
     ingest_s = time.perf_counter() - t0
@@ -6394,9 +6535,12 @@ def run():
     fleet_modes(models, toas, fleet, x_start, xm2, sig_m)
     log(f"[fleet] modes took {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    pipeline_phase(torch, "[pipeline] main", fleet, x64, sig_m,
-                   lambda k: f"width {k[1][1]}")
+    pipeline_phase(torch, LINT_STACKS_OF, fleet, x64, sig_m,
+                   lambda k: f"width {k[1][1]}", SYNC_STACKS)
     log(f"[pipeline] main took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lint_phase(lint_scan, host_t0)
+    log(f"[lint] took {time.perf_counter() - t0:.2f} s; {card}")
 
     t0 = time.perf_counter()
     zoo_b1855()

@@ -1,10 +1,11 @@
 """Codebase-tuned registries the pintlint rules check against.
 
-A generic linter cannot know which classes are shared across threads,
-which module locks guard which caches, or which names are legal fault
-points — those are THIS codebase's contracts. They live here, in one
-reviewable place, so adding a shared class or a fault point is a
-one-line registry edit and the rules pick it up everywhere.
+A generic linter cannot know which functions are f64-critical, which
+classes are shared across threads, which module locks guard which
+caches, or which names are legal fault points — those are THIS
+codebase's contracts. They live here, in one reviewable place, so
+adding a shared class or a fault point is a one-line registry edit and
+the rules pick it up everywhere.
 
 The registries name the port's files and classes (``pint_tpu_torch/``).
 Tests construct ``LintConfig`` directly with fixture registries; the
@@ -13,10 +14,12 @@ registries below; the fault points are parsed from
 ``pint_tpu_torch/resilience/faultinject.py`` (``POINTS``,
 ``DEVICE_POINTS``).
 
-The rule families not ported yet (precision, precision-flow, retrace,
-signature, kernel fallback, bench timing, budget) need torch
-counterparts, not copies; their registries and ``LintConfig`` fields
-come with them.
+The precision, precision-flow, retrace, signature, kernel-fallback and
+bench-timing registries are torch counterparts of the JAX package's,
+not copies: CUDA-graph capture and ``torch.func`` stand where ``jit``
+and ``vmap`` stood, the ``*_cuda`` kernel wrappers where the Pallas
+kernels stood, ``torch.cuda.synchronize`` where ``block_until_ready``
+stood. The budget family waits for the port's benchmark.
 """
 
 from __future__ import annotations
@@ -28,6 +31,31 @@ from dataclasses import dataclass, field
 # staleness check also looks here for registered surfaces.
 _REPO_ROOT = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
+
+# -- precision ---------------------------------------------------------
+
+# Functions where introducing float32 (a float32 dtype, .float(), a
+# torch factory left at its float32 default) is a correctness bug: the
+# whitening/normal-equation chain feeding the f64-critical residual
+# solve. Keyed by path suffix; "*" marks a whole module. gls_gram and
+# seg_gls_eigh_refine are deliberately NOT listed — their f32 is the
+# sanctioned mixed-precision path, guarded at run time by
+# fitter.relres_failed.
+F64_CRITICAL = {
+    "pint_tpu_torch/fitter.py": {
+        "gls_whiten", "gls_normal", "gls_eigh_solve", "gls_eigh_refine",
+        "column_norms", "stack_noise_bases", "relres_failed",
+    },
+    "pint_tpu_torch/timescales.py": {"*"},
+    "pint_tpu_torch/residuals.py": {"*"},
+    "pint_tpu_torch/dd.py": {"*"},
+}
+
+# Names that mark a value as a NaN-signalling convergence diagnostic:
+# comparing one of these with ``>`` (False under NaN) silently
+# swallows a diverged fit; fitter.relres_failed is the sanctioned
+# guard.
+NAN_DIAG_PATTERN = r"(?:^|_)rel_?res(?:id)?(?:_|$)|relres"
 
 # -- lock discipline ---------------------------------------------------
 
@@ -130,6 +158,72 @@ LOCKED_GLOBALS = {
 # must not claim the whole registry is stale).
 REGISTRY_ANCHOR_SUFFIX = "analysis/config.py"
 
+# -- precision flow (whole-program) -----------------------------------
+
+# Function-name patterns whose RESULTS are f32 at the source: the
+# hand-written Hopper kernels' wrappers (fused_block_gls_cuda,
+# block_grams_cuda, pair_products_cuda, harmonic_sums_cuda,
+# delta_gram_cuda) compute in f32, so what they return is f32-tainted
+# until an explicit .double() / .to(torch.float64).
+F32_SOURCE_PATTERNS = (r"_cuda$",)
+
+# -- signature completeness (whole-program) ---------------------------
+
+# Classes whose program tables are keyed by a shape signature: the
+# registered method must fingerprint every attribute the captured
+# closures read, and every self attr passed as a runtime argument at a
+# self._fns[...] dispatch. "exempt" lists host-only metadata attrs
+# that cannot change a program's shapes.
+SIGNATURE_CLASSES = {
+    # preps/_free_map/static/template are structure-determining, not
+    # shape-determining: PTABatch.structure_key fingerprints them, and
+    # every path that shares a _fns table across instances composes
+    # structure_key into its key alongside shape_signature (the serve
+    # engine's slot key, the persisted tier's key).
+    "PTABatch": {"signature": "shape_signature",
+                 "exempt": {"preps", "_free_map", "static", "template"}},
+    "ShapePlan": {"signature": "signature", "exempt": set()},
+}
+
+# -- retrace / sync hazards -------------------------------------------
+
+# Callables whose function argument becomes device code: a fit program
+# (captured into CUDA graphs, where host code runs once at capture and
+# a host value derived there is baked into every replay), a torch.func
+# transform, or the port's jacfwd. Matched on the callee's last name.
+TRACING_WRAPPERS = frozenset({
+    "Program", "GraphProgram", "aot_backend_compile", "vmap", "jacfwd",
+    "jacrev", "grad", "hessian", "functional_call",
+})
+
+# The sanctioned escape from a graph: graphs.eager(fn, *args) runs fn
+# eagerly between two graphs, so its arguments and fn's body may sync.
+EAGER_CALLS = frozenset({"eager", "graphs.eager"})
+
+# Attributes holding a program table: a function stored there
+# (self._fns[key] = f, self._fns.setdefault(key, f)) is device code,
+# and a call through it dispatches device work.
+PROGRAM_TABLE_ATTRS = frozenset({"_fns"})
+
+# Host-sync callables forbidden inside device code (any ``time.*``
+# call too).
+HOST_SYNC_CALLS = frozenset({
+    "float", "int", "bool", "np.asarray", "np.array", "numpy.asarray",
+    "numpy.array", "torch.nonzero", "torch.unique",
+    "torch.cuda.synchronize",
+})
+
+# Methods whose call on a device tensor forces a device->host sync.
+HOST_SYNC_METHODS = frozenset({
+    "item", "tolist", "cpu", "numpy", "nonzero", "synchronize",
+})
+
+# Modules (path substrings) where building a PTABatch without
+# pad_toas= breaks the serve path's zero-recapture contract: every
+# flush of a slot must present identical shapes to the executable
+# cache.
+SERVE_PAD_MODULES = ("pint_tpu_torch/serve/",)
+
 # -- bucket shapes -----------------------------------------------------
 
 # Call names that pick a legacy pow2 bucket width directly.
@@ -163,6 +257,24 @@ FAULT_REGISTRY_SUFFIX = "resilience/faultinject.py"
 # only when test files are in the scan, so linting the package alone
 # stays quiet.
 TEST_PATH_MARKERS = ("/tests/", "/test_")
+
+# -- bench hygiene -----------------------------------------------------
+
+# Calls that synchronize with the card: one inside a timing window
+# makes the measurement honest (a CUDA launch, a graph replay and a
+# program-table call all return before the device work ends).
+SYNC_CALLS = frozenset({
+    "torch.cuda.synchronize", "synchronize", "elapsed_time", "item",
+    "cpu", "tolist", "numpy", "np.asarray", "np.array", "float",
+})
+
+TIMER_CALLS = frozenset({
+    "time.perf_counter", "time.monotonic", "time.time",
+    "perf_counter", "monotonic", "self.clock", "clock",
+    # the obs clock (pint_tpu_torch.obs.clock) opens timing windows
+    # too — instrumented modules import it as obs_clock
+    "obs_clock.now", "obs_clock.walltime",
+})
 
 # -- observability -----------------------------------------------------
 
@@ -210,6 +322,19 @@ DURABLE_ARTIFACT_MODULES = (
     "/serve/excache.py", "/store/packstore.py", "/store/deltas.py",
 )
 
+# -- kernel dispatch ---------------------------------------------------
+
+# Path markers identifying kernel dispatch modules. A kernel wrapper
+# given a CUDA tensor launches its kernel or raises: the port has no
+# fallback, so a handler around a launch that does not re-raise, or a
+# plain/reference branch a CUDA tensor can take on any test but its
+# device or a named size constant, hides a kernel that did not run.
+KERNEL_DISPATCH_MODULES = ("/kernels/", "/gw/")
+
+# Call names that launch a hand-written kernel (besides the symbols of
+# a library that kernels/build.py's load() returns).
+KERNEL_LAUNCH_PATTERN = r"_cuda$|^launch_gram$"
+
 # -- fit-quality signal coverage --------------------------------------
 
 # Modules (normalized "/"-prefixed path suffixes) on the fit path
@@ -252,18 +377,22 @@ SERVE_STATE_RECORD_PATTERN = (
 
 @dataclass
 class LintConfig:
+    f64_critical: dict = field(default_factory=dict)
     locked_classes: dict = field(default_factory=dict)
     locked_class_exempt_attrs: frozenset = LOCKED_CLASS_EXEMPT_ATTRS
     locked_globals: dict = field(default_factory=dict)
     bucket_allowed_modules: tuple = ()
+    serve_pad_modules: tuple = ()
     fault_points: tuple = None  # None -> parse from the registry file
     device_fault_points: tuple = None  # None -> parse DEVICE_POINTS
     fault_registry_suffix: str = FAULT_REGISTRY_SUFFIX
     test_path_markers: tuple = TEST_PATH_MARKERS
+    nan_diag_pattern: str = NAN_DIAG_PATTERN
     obs_instrumented_modules: tuple = ()
     obs_raw_timer_calls: frozenset = OBS_RAW_TIMER_CALLS
     obs_allowed_path_markers: tuple = OBS_ALLOWED_PATH_MARKERS
     durable_artifact_modules: tuple = ()
+    kernel_dispatch_modules: tuple = ()
     quality_signal_modules: tuple = ()
     quality_signal_pattern: str = QUALITY_SIGNAL_PATTERN
     quality_record_pattern: str = QUALITY_RECORD_PATTERN
@@ -273,15 +402,22 @@ class LintConfig:
     # fixture configs built for per-file rules stay quiet)
     registry_anchor_suffix: str = ""
     registry_tree_roots: tuple = ()
+    f32_source_patterns: tuple = ()
+    signature_classes: dict = field(default_factory=dict)
 
     @classmethod
     def default(cls):
-        return cls(locked_classes=dict(LOCKED_CLASSES),
+        return cls(f64_critical=dict(F64_CRITICAL),
+                   locked_classes=dict(LOCKED_CLASSES),
                    locked_globals=dict(LOCKED_GLOBALS),
                    bucket_allowed_modules=BUCKET_ALLOWED_MODULES,
+                   serve_pad_modules=SERVE_PAD_MODULES,
                    obs_instrumented_modules=OBS_INSTRUMENTED_MODULES,
                    durable_artifact_modules=DURABLE_ARTIFACT_MODULES,
+                   kernel_dispatch_modules=KERNEL_DISPATCH_MODULES,
                    quality_signal_modules=QUALITY_SIGNAL_MODULES,
                    serve_state_modules=SERVE_STATE_MODULES,
                    registry_anchor_suffix=REGISTRY_ANCHOR_SUFFIX,
-                   registry_tree_roots=(_REPO_ROOT,))
+                   registry_tree_roots=(_REPO_ROOT,),
+                   f32_source_patterns=F32_SOURCE_PATTERNS,
+                   signature_classes=dict(SIGNATURE_CLASSES))

@@ -162,8 +162,10 @@ class ProjectIndex:
         self._ret_cache = {}
         self._ret_inflight = set()
         self._locals_inflight = set()
+        self._module_lookups = None  # dotted -> ModuleInfo, once indexed
         for ctx in project.files:
             self._index_module(ctx)
+        self._module_lookups = {}
         # attr harvesting and the type-inference passes need the full
         # symbol table, so they run after every module is indexed
         for cls in self.classes.values():
@@ -482,12 +484,19 @@ class ProjectIndex:
     def _lookup_module(self, dotted):
         if dotted in self.modules:
             return self.modules[dotted]
+        memo = self._module_lookups
+        if memo is not None and dotted in memo:
+            return memo[dotted]
         # scans rooted below the package (rel "serve/engine.py" vs
         # absolute import "pint_tpu.serve.engine") meet on suffixes
+        found = None
         for name, mod in self.modules.items():
             if (dotted.endswith("." + name) or name.endswith("." + dotted)):
-                return mod
-        return None
+                found = mod
+                break
+        if memo is not None:
+            memo[dotted] = found
+        return found
 
     def _resolve_dotted(self, mod, dotted):
         """Resolve a dotted name used in ``mod`` to a FuncInfo /

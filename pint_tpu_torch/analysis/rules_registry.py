@@ -2,7 +2,7 @@
 
 pintlint's power comes from codebase-tuned registries
 (analysis/config.py): LOCKED_CLASSES names the shared classes, the
-module tuples name the instrumented / durable / serve-state
+module tuples name the instrumented / durable / kernel / serve-state
 surfaces. Registries rot silently in both directions — a new class
 grows an RLock and nobody registers it (its lock discipline is simply
 never checked), or a file is renamed and its stale registry entry
@@ -13,8 +13,8 @@ directions are findings:
   not in ``LOCKED_CLASSES`` (checked whenever the scan's config has a
   non-empty registry — fixture configs with an empty one stay inert);
 - registry entries in ``DURABLE_ARTIFACT_MODULES`` /
-  ``SERVE_STATE_MODULES`` / ``OBS_INSTRUMENTED_MODULES`` matching no
-  file, and
+  ``KERNEL_DISPATCH_MODULES`` / ``SERVE_STATE_MODULES`` /
+  ``OBS_INSTRUMENTED_MODULES`` matching no file, and
   ``LOCKED_CLASSES`` names with no class definition in the tree
   (checked only when the registry module itself is in the scan, so
   linting one file never claims the whole registry is stale). Paths
@@ -98,13 +98,22 @@ class RegistryDriftRule(Rule):
         config = project.config
         paths = self._known_paths(project)
         registries = (
-            ("DURABLE_ARTIFACT_MODULES", config.durable_artifact_modules),
-            ("SERVE_STATE_MODULES", config.serve_state_modules),
-            ("OBS_INSTRUMENTED_MODULES", config.obs_instrumented_modules),
+            ("DURABLE_ARTIFACT_MODULES",
+             config.durable_artifact_modules, "suffix"),
+            ("KERNEL_DISPATCH_MODULES",
+             config.kernel_dispatch_modules, "marker"),
+            ("SERVE_STATE_MODULES",
+             config.serve_state_modules, "suffix"),
+            ("OBS_INSTRUMENTED_MODULES",
+             config.obs_instrumented_modules, "suffix"),
         )
-        for reg_name, entries in registries:
+        for reg_name, entries, kind in registries:
             for entry in entries:
-                if not any(p.endswith(entry) for p in paths):
+                if kind == "suffix":
+                    hit = any(p.endswith(entry) for p in paths)
+                else:
+                    hit = any(entry in p for p in paths)
+                if not hit:
                     anchor.report(
                         self.id, 1,
                         f"stale registry entry: {reg_name} lists "

@@ -474,13 +474,22 @@ def _tensor_tree(tree):
     return {k: v for k, v in tree.items() if isinstance(v, torch.Tensor)}
 
 
+def _slot_pack(pack):
+    """The host scalars of a pack's layout that :func:`_slot_machinery`
+    reads, as Python ints: resolved before a program is built, so the
+    program itself converts nothing."""
+    return {"n_slots": int(pack["n_slots"]), "quantum": int(pack["quantum"]),
+            "slot_keys": frozenset(pack["slot_keys"])}
+
+
 def _slot_machinery(pack, shape, params, prep):
     """The packed layout's slot machinery (:meth:`PTABatch._slots`) of
-    a batch of (R, W) = ``shape`` rows with pack metadata ``pack``, on
-    the given params and prep (their device)."""
-    S = int(pack["n_slots"])
-    Q = int(pack["quantum"])
-    slot_keys = frozenset(pack["slot_keys"])
+    a batch of (R, W) = ``shape`` rows with layout ``pack``
+    (:func:`_slot_pack`), on the given params and prep (their
+    device)."""
+    S = pack["n_slots"]
+    Q = pack["quantum"]
+    slot_keys = pack["slot_keys"]
     R, W = shape
     RS = R * S
     block_slot = prep["_pack_block_slot"]  # (R, W/Q)
@@ -856,8 +865,8 @@ class PTABatch:
         called with (:func:`_slot_machinery`)."""
         if self._slot_cache is None:
             self._slot_cache = _slot_machinery(
-                self._pack, tuple(self.batch.tdb_sec.shape), self.params,
-                _tensor_tree(self.prep))
+                _slot_pack(self._pack), tuple(self.batch.tdb_sec.shape),
+                self.params, _tensor_tree(self.prep))
         return self._slot_cache
 
     def _noise_bw_fn(self, exclude_ecorr=False):
@@ -1333,8 +1342,7 @@ class PTABatch:
         Qe = int(self._pack["e_quantum"])
         static = self.static
         overlay = self._overlay_fn()
-        pack = {k: self._pack[k] for k in ("n_slots", "quantum",
-                                           "slot_keys")}
+        pack = _slot_pack(self._pack)
 
         def combine_noise(x, sl, batch):
             slot_env, combine = sl.slot_env, sl.combine

@@ -1,7 +1,9 @@
 """pintlint retargeted at the port (pint_tpu_torch/analysis): the rule
 families that carry over, held finding for finding to the JAX
 package's on tests/test_pintlint.py's fixtures, then the gate over the
-port's tree.
+port's tree. The torch counterparts of the precision, retrace,
+signature, kernel-fallback and bench families are held to the JAX rules
+on translated fixtures in tests/test_torch_lint_counterparts.py.
 
 Parity: every fixture goes through both packages' ``run`` under the
 same fixture ``LintConfig``; the JAX package's findings are filtered to
@@ -32,7 +34,15 @@ PORTED = ("lock-discipline", "locked-helper-call", "lock-order-cycle",
           "registry-drift", "durable-write-unatomic", "fault-point-unknown",
           "fault-point-unfired", "fault-point-untested",
           "request-state-leak", "timing-untraced", "quality-signal-dropped",
-          "bucket-hardcoded")
+          "bucket-hardcoded", "nan-guard", "serve-unpadded-batch")
+
+# The torch counterparts of the JAX package's precision, retrace,
+# signature, kernel-fallback and bench rules: the same ids and families,
+# held to the JAX rules on torch translations of their fixtures
+# (tests/test_torch_lint_counterparts.py).
+COUNTERPARTS = ("f32-in-f64", "precision-flow", "host-sync-in-jit",
+                "static-unhashable", "signature-incomplete",
+                "kernel-silent-fallback", "timing-no-block")
 
 
 def _pkg(name):
@@ -214,7 +224,57 @@ TWO_LOCKS = """
             pass
 """
 
+SERVE_CFG = dict(serve_pad_modules=("serve/",))
+
 CASES = {
+    "nan_gt_on_diagnostic": ({}, {"m.py": """
+        import numpy as np
+
+        def finalize(relres):
+            if np.max(relres) > 1e-8:  # the pta.py:937 bug
+                return "fallback"
+            return "ok"
+    """}, {"nan-guard": 1}),
+    "nan_float_cast_gt": ({}, {"m.py": """
+        def check(rel_resid):
+            return float(rel_resid) > 1e-8  # the fitter.py bug
+    """}, {"nan-guard": 1}),
+    "nan_builtin_max_fold": ({}, {"m.py": """
+        def worst_of(rels):
+            worst = 0.0
+            for rel in rels:
+                worst = max(worst, float(rel.relres))
+            return worst
+    """}, {"nan-guard": 1}),
+    "nan_sanctioned_forms": ({}, {"m.py": """
+        import numpy as np
+
+        from pint_tpu.fitter import relres_failed
+
+        def finalize(relres):
+            if relres_failed(relres, tol=1e-8):
+                return "fallback"
+            return "ok"
+
+        def check(rel_resid):
+            return not np.all(rel_resid <= 1e-8)
+
+        def worst_of(rels):
+            worst = 0.0
+            for rel in rels:
+                worst = float(np.maximum(worst, rel.relres))
+            return worst
+    """}, {}),
+    "serve_unpadded_missing_pad": (SERVE_CFG, {"serve/eng.py": """
+        def flush(models, toas_list, bucket):
+            pta = PTABatch(models, toas_list)
+            return pta
+    """}, {"serve-unpadded-batch": 1}),
+    "serve_unpadded_with_pad": (SERVE_CFG, {"serve/eng.py": """
+        def flush(models, toas_list, bucket):
+            pta = PTABatch(models, toas_list, pad_toas=bucket)
+            return pta
+    """}, {}),
     "bucket_direct_call": (BUCKET_CFG, {"parallel/grouping.py": """
         from pint_tpu.serve.batcher import pow2_bucket
 
@@ -656,8 +716,9 @@ def _main(pkg, capsys, *argv):
 
 def test_cli_exit_codes_list_rules_and_lock_dag(tmp_path, capsys):
     """Exit 1 on a finding (--format json, as the JAX CLI reports it),
-    0 on a clean file, 2 on a usage error; --list-rules prints each
-    ported rule as the JAX CLI does; --lock-dag writes the graph; and
+    0 on a clean file, 2 on a usage error; --list-rules prints the JAX
+    CLI's rule ids but meta-key-unbudgeted, each carried-over rule as
+    the JAX CLI does; --lock-dag writes the graph; and
     ``python -m pint_tpu_torch.analysis`` exits 1 from a process."""
     bad = tmp_path / "checkpoint.py"
     bad.write_text('def f(p):\n    return open(p, "w")\n')
@@ -678,9 +739,22 @@ def test_cli_exit_codes_list_rules_and_lock_dag(tmp_path, capsys):
     rc, out = _main("pint_tpu_torch", capsys, "--list-rules")
     jr = _main("pint_tpu", capsys, "--list-rules")[1].splitlines()
     lines = norm(out).splitlines()
-    assert rc == 0 and len(lines) == len(PORTED)
-    assert all(ln in jr for ln in lines)
-    assert sorted(ln.split()[0] for ln in lines) == sorted(PORTED)
+    # the JAX package's 22 ids less meta-key-unbudgeted (the budget
+    # family waits for the port's benchmark)
+    assert rc == 0 and len(lines) == 21
+    assert sorted(ln.split()[0] for ln in lines) == sorted(
+        ln.split()[0] for ln in jr if not ln.startswith("meta-key-unbudgeted"))
+    assert sorted(PORTED + COUNTERPARTS) == sorted(ln.split()[0] for ln in lines)
+    # rules carried over print the JAX line; counterparts its id, family
+    # and whole-program tag, with their own rationale
+    head = {ln.split()[0]: ln.split()[1:3] for ln in jr}
+    for ln in lines:
+        rid = ln.split()[0]
+        if rid in PORTED:
+            assert ln in jr
+        else:
+            assert ln.split()[1] == head[rid][0], ln
+            assert ("(whole-program)" in ln) == ("(whole-program)" in head[rid])
     src = tmp_path / "src"
     _write(src, {"m.py": TWO_LOCKS})
     out_path = tmp_path / "dag.json"
@@ -745,6 +819,23 @@ def test_tree_has_zero_unsuppressed_findings():
     assert unsuppressed(findings) == [], text_report(findings)
 
 
+def test_tree_counterparts_quiet_at_the_port_idioms():
+    """The JAX package's rules copied onto the port's tree (only their
+    registries swapped) flag five sites of parallel/pta.py that are the
+    port's idioms: precision-flow twice in the packed program's mixed
+    branch (K1's f32 Gram, cast back by ``.to(torch.float64)`` in
+    kernels/fusedgls.py and kernels/seggram.py), signature-incomplete
+    at ``time_residuals`` and ``phases`` (``*self._leaves()`` passes the
+    method's value), host-sync-in-jit in ``PTAFleet.fit`` (a host method
+    named like the builders' ``fit`` closures). The counterparts flag
+    none of pta.py, suppressed or not."""
+    findings, _ = tree_scan()
+    assert [f for f in findings
+            if f.path.replace(os.sep, "/") == "parallel/pta.py"
+            and f.rule in ("precision-flow", "signature-incomplete",
+                           "host-sync-in-jit")] == []
+
+
 def test_tree_device_faults_are_armed_by_port_tests():
     """Every device fault point of the port's registry is armed by one
     of the port's tests (tests/test_torch_*.py)."""
@@ -760,10 +851,12 @@ def test_tree_device_faults_are_armed_by_port_tests():
 
 
 def test_tree_suppressions_stay_bounded():
-    """The port's suppressions, pinned: the two quality-signal-dropped
-    ones the JAX package also carries (the precision-auto probe in
+    """The port's suppressions, pinned: the JAX package's set — the two
+    quality-signal-dropped ones (the precision-auto probe in
     ``PTABatch._resolve_precision``, the single-pulsar
-    ``toa_shard.sharded_gls_fit``), each justified in place."""
+    ``toa_shard.sharded_gls_fit``) and the serve-unpadded-batch one of
+    the engine's oversize spill path (``ServeEngine._execute_solo``),
+    each justified in place."""
     from pint_tpu_torch.analysis import text_report
 
     findings, _ = tree_scan()
@@ -771,10 +864,13 @@ def test_tree_suppressions_stay_bounded():
     for f in findings:
         if f.suppressed:
             by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
-    assert by_rule == {"quality-signal-dropped": 2}, text_report(
+    assert by_rule == {"quality-signal-dropped": 2,
+                       "serve-unpadded-batch": 1}, text_report(
         findings, show_suppressed=True)
-    assert sorted(f.path for f in findings if f.suppressed) == [
-        "parallel/pta.py", "parallel/toa_shard.py"]
+    assert sorted((f.path, f.rule) for f in findings if f.suppressed) == [
+        ("parallel/pta.py", "quality-signal-dropped"),
+        ("parallel/toa_shard.py", "quality-signal-dropped"),
+        ("serve/engine.py", "serve-unpadded-batch")]
 
 
 def test_tree_index_builds_cleanly():
