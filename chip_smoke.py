@@ -197,7 +197,7 @@ on it, an interactive pintk session and binary conversions):
    an eager piece (through ``graphs.eager``), device code (any port
    frame inside a device function, so a callee in another file of a
    program's ``fit`` counts), or host code. Checks: the analyser exits
-   0 with 21 rules and 3 suppressed findings, syncs were recorded, and
+   0 with 22 rules and 3 suppressed findings, syncs were recorded, and
    none lies in device code;
 6. ``[gw] fleet``: the GW stage on the main path's fleet at its warm
    mixed-fit vectors: assemble and regrid at 30 days (timed), then the
@@ -447,7 +447,24 @@ on it, an interactive pintk session and binary conversions):
    most TOAs (30,000; its correlated noise dropped for WLS) on its
    fleet TOAs: the minimum at a corner of the cell holding the fit, and
    three points within 1e-6 of a WLSFitter fit with M2/SINI frozen
-   there; wall, points/s, chunk size and peak memory.
+   there; wall, points/s, chunk size and peak memory;
+21. ``[regress]``: the card's own benchmark round, built from this
+   run's phases under bench.py's definitions (``[main]``'s warm refit
+   walls, padding and buckets, ``[lint]``'s counts, ``[durable]
+   chaos`` and ``kill``; the keys whose scope differs, bench.py's
+   fit-quality stage among them, carry a reason in ``null_reasons``)
+   with ``platform:
+   "gpu"`` and the card's name and power limit, written as
+   ``BENCH_r01.json`` into a temporary directory, through the port's
+   gate (``obs/baseline.py`` with the port's ``budgets.json``):
+   its budget violations equal an independent recomputation, each
+   printed on a ``[regress] BUDGET`` line (they do not fail the
+   phase); copies of the round with a planted 1.25x refit wall are
+   flagged and with 0.8x are not; a ``"tpu"`` round and the repo's own
+   rounds are not loaded; ``python -m pint_tpu_torch.obs regress`` and
+   ``doctor`` in process exit 0 exactly when the report is ok;
+   pintlint's ``meta-key-unbudgeted`` finds nothing in this file; the
+   phase under 5 s (:func:`regress_phase`).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line (each record, and each per-shape record in it, with ``bound_share``
@@ -2012,7 +2029,7 @@ def pipeline_phase(torch, tag, fleet, x64, sig, label, stacks=None):
     torch.cuda.empty_cache()
 
 
-LINT_RULES = 21  # the JAX package's rule ids but meta-key-unbudgeted
+LINT_RULES = 22  # the JAX package's rule ids
 LINT_SUPPRESSED = 3  # quality-signal-dropped 2, serve-unpadded-batch 1
 LINT_TAG = "[lint]"
 LINT_STACKS_OF = "[pipeline] main"  # the warm eager fit [lint] classes
@@ -2073,7 +2090,7 @@ def lint_phase(scan, host_t0):
     the analyser's registry; then its device-code index against the
     syncs the card reported in ``[pipeline] main``'s warm eager fit
     (``SYNC_STACKS``): each sync's class logged with the frame that
-    decided it, the counts per class. Checks: exit 0, 21 rules, 3
+    decided it, the counts per class. Checks: exit 0, 22 rules, 3
     suppressed findings, syncs recorded, none in device code."""
     from pint_tpu_torch.analysis import all_rules
     from pint_tpu_torch.analysis.rules_retrace import device_code_index
@@ -2122,7 +2139,8 @@ def lint_phase(scan, host_t0):
         "syncs recorded in the warm eager fit": len(SYNC_STACKS) > 0,
         "no sync inside device code": classes["device code"] == 0,
     })
-    return classes
+    return {"classes": classes, "unsuppressed": report.get("unsuppressed"),
+            "suppressed": report.get("suppressed")}
 
 
 WB_PAR = os.path.join(EXAMPLES, "wb_sim.par")
@@ -5386,6 +5404,7 @@ def durable_chaos(torch, serve, device="cuda"):
         "no unexpected recompile": rep["unexpected_recompiles"] == 0,
         "the stream finished": rep["all_done"],
     })
+    return rep
 
 
 # [durable] kill's sites: the two with checks of their own, and one
@@ -5939,7 +5958,7 @@ def mesh_fleet(torch, models, toas, tmp, device="cuda"):
             and snap_r["lost_lanes"] == [],
     })
     return {"healthy": k_healthy, "steal": k_chaos}, {
-        "cold_s": cold_s, "warm_s": warm_s, "chaos_s": chaos_s,
+        "cold_s": cold_s, "warm_s": warm_s, "device_loss_s": chaos_s,
         "rebuild_s": rebuild_s, "timeout_s": hung_s, "resume_s": resume_s}
 
 
@@ -6375,6 +6394,205 @@ def mesh_2d(torch, models, toas, x_start, device="cuda"):
     return walls
 
 
+REGRESS_TAG = "[regress]"
+REGRESS_KEY = "measured_670k_gls_refit_s"  # the planted regressions' key
+REGRESS_PLANTED = {1.25: True, 0.8: False}  # r04's factor: flagged?
+REGRESS_PHASE_S = 5.0  # the phase's wall limit
+# the JAX package's round of the full kill matrix has 8 sites
+KILL_SUBSET = f"kill_sites_subset:{len(KILL_SMOKE_SITES)}_of_8"
+# bench.py's fit-quality stage and its fleet, which [fitq] does not run
+FITQ_KEYS = tuple("measured_670k_fitq_" + k for k in (
+    "overhead_pct", "probe_wall_s", "bitwise", "fits", "fallbacks",
+    "diverged", "max_abs_chi2_z", "max_condition"))
+FITQ_DIFFERS = "definition_differs:bench_fleet_18x48_pow2_auto_maxiter3"
+
+
+def card_round(card, main, lint, chaos, kill):
+    """The card's own benchmark round, in the JAX package's round format
+    (``BENCH_r*.json``: ``parsed.detail`` with flat keys and
+    ``null_reasons``), holding the keys of the port's ``budgets.json``
+    that a phase of this run measures under bench.py's definition:
+
+    - ``[main]``: ``measured_670k_gls_refit_s`` (the warm f64 GLS refit,
+      maxiter 2, of the 68-pulsar plan fleet, bench.py:355-369) and
+      the mixed one, TOAs, buckets, padding (bench.py:538-541,749-753);
+    - ``[lint]``: ``pintlint_unsuppressed`` / ``_suppressed`` (the
+      port's tree, bench.py:1401-1417's counts);
+    - ``[durable] chaos``: ``chaos_*`` of ``run_chaos_stream`` at
+      bench.py:1128's parameters, on the ``[serve]`` fleet's sizes;
+    - ``[durable] kill``: ``chaos_kill_*`` of ``run_kill_chaos`` at its
+      defaults over ``KILL_SMOKE_SITES``: the per-site contracts (0
+      lost, 0 duplicated, 0 digest mismatches, the worst cold/warm
+      ratio) and the site count.
+
+    A key whose scope differs from bench.py's is left out with a
+    reason in ``null_reasons``: the headline rate (bench.py:1852
+    refits 68 x 1,000 equal-count TOAs in one batch), the fit-quality
+    stage's keys (bench.py:1572-1612 probes an 18-pulsar, 48-TOA pow2
+    fleet at method auto, maxiter 3; ``[fitq] main`` probes the 670k
+    plan fleet and logs its own overhead), and the kill matrix's
+    totals and walls over 4 of its 8 sites. ``card`` is the
+    ``nvidia-smi --query-gpu=name,power.limit`` line."""
+    kind, _, power = card.rpartition(", ")
+    detail = {
+        "platform": "gpu",
+        "device_kind": kind or card,
+        "power_limit_w": power,
+        "measured_670k_gls_refit_s": main["f64_s"],
+        "measured_670k_mixed_refit_s": main["mixed_s"],
+        "measured_670k_mixed_fell_back_f64": main["refit"],
+        "measured_670k_total_toas": main["n_toa"],
+        "measured_670k_buckets": main["buckets"],
+        "measured_670k_bucket_mode": "plan",
+        "measured_670k_padding_ratio": main["padding"],
+        "measured_670k_plan_padding_ratio": main["padding"],
+        "measured_670k_plan_n_programs": main["buckets"],
+        "pintlint_unsuppressed": lint["unsuppressed"],
+        "pintlint_suppressed": lint["suppressed"],
+        "chaos_ok": chaos["ok"],
+        "chaos_injected": chaos["injected"],
+        "chaos_healthy_failures": chaos["healthy_failures"],
+        "chaos_unexpected_recompiles": chaos["unexpected_recompiles"],
+        "chaos_kill_sites": kill["n_sites"],
+        "chaos_kill_lost": kill["lost"],
+        "chaos_kill_duplicated": kill["duplicated"],
+        "chaos_kill_digest_mismatches": kill["digest_mismatches"],
+        "chaos_kill_cold_vs_warm_ratio": kill["cold_vs_warm_ratio"],
+        "null_reasons": {
+            "pta_gls_refit_toas_per_sec":
+                "definition_differs:68x1000_equal_counts_in_bench",
+            "chaos_kill_ok": KILL_SUBSET,
+            "chaos_kill_replayed": KILL_SUBSET,
+            "cold_start_recovered_s": KILL_SUBSET,
+            **{key: FITQ_DIFFERS for key in FITQ_KEYS},
+        },
+    }
+    return {"n": 1, "cmd": "python3 chip_smoke.py", "rc": 0, "parsed": {
+        "metric": "pta_gls_refit_toas_per_sec", "value": None,
+        "unit": "TOA/s", "detail": detail}}
+
+
+def budget_breaches(detail, budgets):
+    """The budget keys a round's ``detail`` breaks, recomputed without
+    ``obs/baseline.py``: each key held as a number against its max and
+    min."""
+    out = set()
+    for key, bound in budgets.items():
+        v = detail.get(key)
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            continue
+        if v > bound.get("max", np.inf) or v < bound.get("min", -np.inf):
+            out.add(key)
+    return out
+
+
+def write_round(root, n, doc, **detail):
+    """``doc`` as ``root/BENCH_r<n>.json``, its detail updated."""
+    doc = copy.deepcopy(doc)
+    doc["n"] = n
+    doc["parsed"]["detail"].update(detail)
+    with open(os.path.join(root, "BENCH_r%02d.json" % n), "w") as fh:
+        json.dump(doc, fh)
+
+
+def regress_phase(round_doc):
+    """``[regress]``: the port's gate (``obs/baseline.py``,
+    ``python -m pint_tpu_torch.obs regress``/``doctor``) on the card's
+    own round (:func:`card_round`), written as ``BENCH_r01.json`` into a
+    temporary directory. Checks: the gate's budget violations are the
+    keys :func:`budget_breaches` finds; over copies of the round as
+    r01-r03 and an r04 with ``measured_670k_gls_refit_s`` at 1.25x the
+    gate names it, at 0.8x it does not; an r05 with ``platform: "tpu"``
+    is not loaded, nor are the repo's own (the JAX package's) rounds;
+    ``regress`` and ``doctor`` run in process exit 0 exactly when the
+    report is ok; pintlint's ``meta-key-unbudgeted`` finds nothing in
+    this file; the phase under 5 s. A budget the card's round breaks
+    is printed on a ``[regress] BUDGET`` line and does not fail the
+    phase."""
+    from pint_tpu_torch.analysis import LintConfig, all_rules
+    from pint_tpu_torch.analysis import run as lint_run
+    from pint_tpu_torch.obs import baseline
+    from pint_tpu_torch.obs.__main__ import main as obs_main
+
+    t0 = time.perf_counter()
+    spec = baseline.load_budgets()
+    detail = round_doc["parsed"]["detail"]
+    want = budget_breaches(detail, spec["budgets"])
+    planted = {}
+    codes = {}
+    with tempfile.TemporaryDirectory() as own, \
+            tempfile.TemporaryDirectory() as trail:
+        write_round(own, 1, round_doc)
+        report = baseline.run_regress(root=own)
+        for cmd in ("regress", "doctor"):
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                codes[cmd] = obs_main([cmd, "--root", own])
+            log(f"{REGRESS_TAG} python -m pint_tpu_torch.obs {cmd}: exit "
+                f"{codes[cmd]}; {out.getvalue().splitlines()[0]}")
+        for factor in REGRESS_PLANTED:
+            for n in (1, 2, 3):
+                write_round(trail, n, round_doc)
+            write_round(trail, 4, round_doc,
+                        **{REGRESS_KEY: detail[REGRESS_KEY] * factor})
+            rep = baseline.run_regress(root=trail)
+            planted[factor] = [r["key"] for r in rep["regressions"]]
+            log(f"{REGRESS_TAG} r01-r03 the card's round, r04 with "
+                f"{REGRESS_KEY} x{factor}: regressions {planted[factor]}, "
+                f"checked {len(rep['checked'])} keys")
+        write_round(trail, 5, round_doc, platform="tpu",
+                    **{REGRESS_KEY: detail[REGRESS_KEY] * 10})
+        tpu = baseline.run_regress(root=trail)
+    repo = baseline.run_regress(root=os.path.dirname(
+        os.path.abspath(__file__)))
+    rule = [r for r in all_rules() if r.id == "meta-key-unbudgeted"]
+    config = LintConfig.default()
+    findings = lint_run([os.path.abspath(__file__)], config=config,
+                        rules=rule, whole_program=False)
+    wall = time.perf_counter() - t0
+    got = {v["key"] for v in report["budget_violations"]}
+    numbers = sum(1 for v in detail.values()
+                  if isinstance(v, (int, float)) and not isinstance(v, bool))
+    log(f"{REGRESS_TAG} the card's round ({detail['device_kind']}, "
+        f"{detail['power_limit_w']}): {numbers} numbers, "
+        f"{len(detail['null_reasons'])} reason-coded nulls; gate ok "
+        f"{report['ok']}, {len(got)} budget violations (recomputed: "
+        f"{len(want)}), checked {report['checked']}, skipped "
+        f"{len(report['skipped'])}")
+    for v in report["budget_violations"]:
+        log(f"{REGRESS_TAG} BUDGET {v['detail']} ({v['source']})")
+    log(f"{REGRESS_TAG} with a tpu r05: rounds {tpu['rounds']}, latest "
+        f"{tpu['latest']}; the repo's own rounds: {repo.get('error')}; "
+        f"meta-key-unbudgeted over chip_smoke.py: {len(findings)} "
+        f"findings; {wall:.2f} s")
+    for f in findings:
+        log(f"{REGRESS_TAG}   {f.path}:{f.line} {f.message}")
+    check(REGRESS_TAG, {
+        "the gate's budget violations are the recomputed ones": got == want,
+        "the card's round is the one round": report["rounds"] == ["r01"],
+        "a 1.25x refit wall is flagged, 0.8x is not": all(
+            (REGRESS_KEY in planted[f]) == flag
+            for f, flag in REGRESS_PLANTED.items()),
+        "no other key flagged on equal rounds": all(
+            set(planted[f]) <= {REGRESS_KEY} for f in REGRESS_PLANTED),
+        "a tpu round is not loaded": tpu["rounds"] == [
+            "r01", "r02", "r03", "r04"] and tpu["regressions"] == [],
+        "the repo's JAX-package rounds are not loaded":
+            repo["n_rounds"] == 0 and not repo["ok"],
+        "regress exits 0 exactly when the report is ok":
+            codes["regress"] == (0 if report["ok"] else 1),
+        "doctor exits 0 exactly when the report is ok":
+            codes["doctor"] == (0 if report["ok"] else 1),
+        "meta-key-unbudgeted is bound to the budget file":
+            config.budgeted_meta_keys is not None,
+        "meta-key-unbudgeted finds nothing in chip_smoke.py":
+            findings == [],
+        "the phase under 5 s": wall < REGRESS_PHASE_S,
+    })
+    return report
+
+
 def run():
     import torch
 
@@ -6486,6 +6704,10 @@ def run():
         "finite chi2": bool(np.all(np.isfinite(cm)) and np.all(np.isfinite(c64))),
     }
     check("main path", checks)
+    main_round = {"f64_s": wall64, "mixed_s": warm, "n_toa": n_toa,
+                  "refit": bool(refit or refit_warm),
+                  "buckets": len(fleet.batches),
+                  "padding": fleet.padding_ratio}
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -6539,7 +6761,7 @@ def run():
                    lambda k: f"width {k[1][1]}", SYNC_STACKS)
     log(f"[pipeline] main took {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    lint_phase(lint_scan, host_t0)
+    lint = lint_phase(lint_scan, host_t0)
     log(f"[lint] took {time.perf_counter() - t0:.2f} s; {card}")
 
     t0 = time.perf_counter()
@@ -6587,7 +6809,7 @@ def run():
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         k1p_restart = durable_restart(torch, serve, tmp)
-        durable_chaos(torch, serve)
+        chaos = durable_chaos(torch, serve)
         log(f"[durable] restart and chaos took "
             f"{time.perf_counter() - t0:.2f} s")
     entries[-1]["launches_new_paths"] = {"serve append": serve["k1p"],
@@ -6621,7 +6843,7 @@ def run():
     log(f"[mesh] 2d took {time.perf_counter() - t0:.2f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        durable_kill(torch, tmp)
+        kill = durable_kill(torch, tmp)
         log(f"[durable] kill took {time.perf_counter() - t0:.2f} s")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -6654,6 +6876,9 @@ def run():
     t0 = time.perf_counter()
     grid_phase(torch, counts)
     log(f"[grid] took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    regress_phase(card_round(card, main_round, lint, chaos, kill))
+    log(f"[regress] took {time.perf_counter() - t0:.2f} s")
     log(json.dumps({"kernels": [add_bound_share(e) for e in entries]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,14 +9,15 @@ on the process-wide module locks (``graphs._LOCK``, ``autodiff.LOCK``,
 ``kernels/build.py``'s), a lock order without cycles, fault-registry
 coverage, atomic writes of durable artifacts, one clock on the
 instrumented surface, recorded quality signals and request outcomes,
-bucket shapes through the planner — are enforced here as AST lint
+bucket shapes through the planner, every round key in the budget
+file — are enforced here as AST lint
 rules instead of being remembered in code review. Its modules are pure
 ``ast``: none imports torch or the JAX package.
 ``python -m pint_tpu_torch.analysis pint_tpu_torch/`` (or
 ``pint_tpu_torch/scripts/pintlint.py``) exits nonzero on any
 unsuppressed finding; tests/test_torch_pintlint.py gates the tree.
 
-Rule catalogue, 21 ids (``--list-rules`` prints it; the registries are
+Rule catalogue, 22 ids (``--list-rules`` prints it; the registries are
 in ``config.py``):
 
 - ``nan-guard`` (precision): ``diag > tol`` or builtin ``max()`` on a
@@ -63,7 +64,11 @@ in ``config.py``):
 - ``quality-signal-dropped`` (quality): a computed fit-quality signal
   never recorded;
 - ``bucket-hardcoded`` (bucket): a pow2 bucket width picked outside the
-  shape planner.
+  shape planner;
+- ``meta-key-unbudgeted`` (budget): a ``measured_*``/``serve_*``/
+  ``chaos_*``/``cold_start_*``/``gw_*``/``incremental_*`` dict-literal
+  key in a round writer (``BUDGET_META_MODULES``: ``chip_smoke.py``)
+  missing from ``pint_tpu_torch/obs/budgets.json``.
 
 What the torch counterparts mean by their terms:
 
@@ -89,18 +94,18 @@ What the torch counterparts mean by their terms:
   ``np.float64(...)``.
 
 Suppress a finding inline with ``# pintlint: disable=<rule>`` and its
-reason. The budget family (``meta-key-unbudgeted``) waits for the
-port's own benchmark and its budget file.
+reason.
 """
 
 from .config import LintConfig
 from .core import (Finding, Rule, RULES, all_rules, counts_by_rule,
                    register, run, run_project, unsuppressed)
 # importing the rule modules populates the registry
-from . import (rules_bench, rules_bucket, rules_durable,  # noqa: F401
-               rules_faults, rules_flow, rules_kernels, rules_locks,
-               rules_lockorder, rules_obs, rules_precision, rules_quality,
-               rules_registry, rules_retrace, rules_serve, rules_signature)
+from . import (rules_bench, rules_bucket, rules_budget,  # noqa: F401
+               rules_durable, rules_faults, rules_flow, rules_kernels,
+               rules_locks, rules_lockorder, rules_obs, rules_precision,
+               rules_quality, rules_registry, rules_retrace, rules_serve,
+               rules_signature)
 from .report import json_report, text_report
 
 __all__ = [

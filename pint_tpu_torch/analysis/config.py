@@ -19,7 +19,8 @@ bench-timing registries are torch counterparts of the JAX package's,
 not copies: CUDA-graph capture and ``torch.func`` stand where ``jit``
 and ``vmap`` stood, the ``*_cuda`` kernel wrappers where the Pallas
 kernels stood, ``torch.cuda.synchronize`` where ``block_until_ready``
-stood. The budget family waits for the port's benchmark.
+stood. The budget family binds the port's own budget file
+(``pint_tpu_torch/obs/budgets.json``) to the port's round writer.
 """
 
 from __future__ import annotations
@@ -335,6 +336,15 @@ KERNEL_DISPATCH_MODULES = ("/kernels/", "/gw/")
 # a library that kernels/build.py's load() returns).
 KERNEL_LAUNCH_PATTERN = r"_cuda$|^launch_gram$"
 
+# -- budget coverage ---------------------------------------------------
+
+# Modules (normalized "/"-prefixed path suffixes) that write benchmark
+# rounds: their measured_*/serve_*/... dict-literal keys must be
+# registered in the budget file (pint_tpu_torch/obs/budgets.json) so
+# the regression gate sees every number from the round it first
+# appears. chip_smoke.py writes the card's round (its [regress] phase).
+BUDGET_META_MODULES = ("/chip_smoke.py",)
+
 # -- fit-quality signal coverage --------------------------------------
 
 # Modules (normalized "/"-prefixed path suffixes) on the fit path
@@ -393,6 +403,8 @@ class LintConfig:
     obs_allowed_path_markers: tuple = OBS_ALLOWED_PATH_MARKERS
     durable_artifact_modules: tuple = ()
     kernel_dispatch_modules: tuple = ()
+    budget_meta_modules: tuple = ()
+    budgeted_meta_keys: frozenset = None  # None -> rule is inert
     quality_signal_modules: tuple = ()
     quality_signal_pattern: str = QUALITY_SIGNAL_PATTERN
     quality_record_pattern: str = QUALITY_RECORD_PATTERN
@@ -407,6 +419,16 @@ class LintConfig:
 
     @classmethod
     def default(cls):
+        # The budget-file key set loads lazily and tolerantly: lint
+        # must keep working when the data file is missing or unreadable
+        # (the meta-key rule goes inert rather than erroring); any other
+        # error surfaces.
+        from ..obs import baseline
+
+        try:
+            budgeted = frozenset(baseline.registered_keys())
+        except (OSError, ValueError):
+            budgeted = None
         return cls(f64_critical=dict(F64_CRITICAL),
                    locked_classes=dict(LOCKED_CLASSES),
                    locked_globals=dict(LOCKED_GLOBALS),
@@ -415,6 +437,8 @@ class LintConfig:
                    obs_instrumented_modules=OBS_INSTRUMENTED_MODULES,
                    durable_artifact_modules=DURABLE_ARTIFACT_MODULES,
                    kernel_dispatch_modules=KERNEL_DISPATCH_MODULES,
+                   budget_meta_modules=BUDGET_META_MODULES,
+                   budgeted_meta_keys=budgeted,
                    quality_signal_modules=QUALITY_SIGNAL_MODULES,
                    serve_state_modules=SERVE_STATE_MODULES,
                    registry_anchor_suffix=REGISTRY_ANCHOR_SUFFIX,

@@ -27,15 +27,18 @@ byte counts recorded when a program is built, roofline MFU on the
 card's row of its peak table), :mod:`slo` (dual-window burn-rate alerts
 over serve snapshots), :mod:`fitquality` (numerical-health probes of
 every fit), :mod:`drift` (EWMA/CUSUM sentinels over successive refits)
-and :mod:`reqlife` (the per-request lifecycle ledger). The JAX package's
-``baseline`` regression gate reads that package's TPU benchmark rounds
-and waits for the port's own benchmark.
+and :mod:`reqlife` (the per-request lifecycle ledger); :mod:`baseline`
+is the budget and regression gate over the card's own benchmark rounds
+(``BENCH_r*.json`` whose ``platform`` is ``"gpu"``; another platform's
+rounds are never gated) against the port's ``budgets.json``.
 
 CLI: ``python -m pint_tpu_torch.obs`` (traced fleet demo, flight-dump ->
-Perfetto conversion, Prometheus rendering, offline ``slo`` replay,
-``fitq`` gate and ``tail`` p99-exemplar resolution).
+Perfetto conversion, Prometheus rendering, the ``regress`` gate,
+offline ``slo`` replay, ``fitq`` gate, ``doctor`` and ``tail``
+p99-exemplar resolution).
 """
 
+from . import baseline  # noqa: F401
 from . import clock  # noqa: F401
 from . import costmodel  # noqa: F401
 from . import drift  # noqa: F401
@@ -106,7 +109,7 @@ __all__ = [
     "FlightRecorder", "Gauge", "Histogram", "LEDGER",
     "LifecycleLedger", "NOOP_SPAN", "ProgramLedger", "RECORDER",
     "REGISTRY", "REQLIFE", "Registry", "SLOSpec", "Span", "TRACER",
-    "Tracer", "attribute", "chrome_trace", "clock",
+    "Tracer", "attribute", "baseline", "chrome_trace", "clock",
     "configure", "costmodel", "current_trace_id", "device_spec",
     "disable", "drift", "enable", "enabled", "executable_cost",
     "fit_quality_slos", "fitquality", "flight_spans", "mfu_pct",

@@ -13,10 +13,11 @@ default):
   into a Chrome trace-event file.
 - ``prom``    — render a metrics snapshot JSON (or the dump's embedded
   metrics block) as Prometheus text exposition format.
-- ``regress`` — the perf-observatory gate. It waits for the port's own
-  benchmark: the JAX package's gate reads that package's TPU rounds
-  (BENCH_r*.json), and a gate of the port held to them would judge the
-  card by the TPU's numbers. Exits 2 saying so.
+- ``regress`` — the perf-observatory gate: check the latest of the
+  card's own BENCH_r0*.json rounds (``platform`` "gpu"; another
+  platform's rounds are never read) against the port's budgets.json
+  and the robust median+MAD regression tolerances (exit 1 on any
+  violation, and on a root holding no round of the card).
 - ``slo``     — replay serve snapshot JSON files through the
   dual-window burn-rate monitor and report per-SLO burn / alert state
   (exit 1 when any SLO is alerting at the end of the replay).
@@ -24,8 +25,8 @@ default):
   engine snapshot JSON against the probe limits, or (with no file)
   run a probed fleet refit and report the live ledger (exit 1 on any
   probe violation).
-- ``doctor``  — regress + slo replay + fitq check in one gate; it runs
-  ``regress`` first, so it waits with it (exit 2).
+- ``doctor``  — one CI entry point: regress + (optional) slo replay +
+  (optional) fitq snapshot check; exit non-zero on ANY violation.
 - ``tail``    — "why was this request slow" in one command: resolve a
   p99 tail-latency exemplar from a serve run (a ``--tail-out``
   artifact of pint_serve_bench, or a live mini serve stream when no
@@ -38,13 +39,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-BENCHMARK_WAITS = ("waits for the port's own benchmark: the JAX "
-                   "package's gate reads its TPU rounds "
-                   "(BENCH_r*.json, budgets.json), and a gate of the "
-                   "port held to them would judge the card by the "
-                   "TPU's numbers")
-
 
 def _cmd_fleet(args):
     import numpy as np
@@ -116,9 +110,31 @@ def _cmd_prom(args):
     return 0
 
 
-def _cmd_waits(args):
-    print(f"{args.cmd} {BENCHMARK_WAITS}", file=sys.stderr)
-    return 2
+def _cmd_regress(args):
+    from . import baseline
+
+    report = baseline.run_regress(root=args.root,
+                                  budgets_path=args.budgets)
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        print("regress: %s over %d rounds (latest %s)"
+              % ("OK" if report["ok"] else "FAIL",
+                 report["n_rounds"], report.get("latest")))
+        for v in report.get("budget_violations", []):
+            print("  BUDGET  %s" % v["detail"], file=sys.stderr)
+        for r in report.get("regressions", []):
+            print("  REGRESS %s" % r["detail"], file=sys.stderr)
+        if report.get("error"):
+            print("  ERROR   %s" % report["error"], file=sys.stderr)
+        checked = report.get("checked", [])
+        skipped = report.get("skipped", {})
+        print("  checked: %s" % (", ".join(checked) or "(none)"))
+        if skipped:
+            print("  skipped: %s"
+                  % ", ".join("%s [%s]" % kv
+                              for kv in sorted(skipped.items())))
+    return 0 if report["ok"] else 1
 
 
 def _cmd_slo(args):
@@ -175,6 +191,58 @@ def _cmd_fitq(args):
     print(json.dumps({"report": report, "ledger": ledger}, indent=1,
                      default=float))
     return 0 if report["ok"] else 1
+
+
+def _cmd_doctor(args):
+    from . import baseline, fitquality, slo
+
+    failures = []
+    sections = {}
+    regress = baseline.run_regress(root=args.root,
+                                   budgets_path=args.budgets)
+    sections["regress"] = regress
+    if not regress["ok"]:
+        failures.append("regress")
+    if args.slo_snapshots:
+        mon = slo.BurnRateMonitor(specs=slo.serve_slos())
+        for i, path in enumerate(args.slo_snapshots):
+            with open(path) as fh:
+                doc = json.load(fh)
+            if isinstance(doc, dict) and "snapshot" in doc:
+                doc = doc["snapshot"]
+            t = doc.get("walltime") if isinstance(doc, dict) else None
+            mon.ingest(doc, t=t if t is not None else float(i * 60.0))
+        alerting = mon.alerting()
+        sections["slo"] = {"ok": not alerting, "alerting": alerting}
+        if alerting:
+            failures.append("slo")
+    if args.fitq_snapshot:
+        with open(args.fitq_snapshot) as fh:
+            doc = json.load(fh)
+        fitq = fitquality.check_report(doc)
+        sections["fitq"] = fitq
+        if not fitq["ok"]:
+            failures.append("fitq")
+    out = {"ok": not failures, "failures": failures,
+           "sections": sections}
+    if args.json:
+        print(json.dumps(out, indent=1, default=float))
+    else:
+        print("doctor: %s" % ("OK" if out["ok"] else
+                              "FAIL (%s)" % ", ".join(failures)))
+        for name, sect in sections.items():
+            ok = sect.get("ok", True)
+            print("  %-8s %s" % (name, "ok" if ok else "FAIL"))
+            for v in sect.get("violations", []):
+                print("    FITQ    %s" % json.dumps(v),
+                      file=sys.stderr)
+            for v in sect.get("budget_violations", []):
+                print("    BUDGET  %s" % v["detail"], file=sys.stderr)
+            for r in sect.get("regressions", []):
+                print("    REGRESS %s" % r["detail"], file=sys.stderr)
+            for a in sect.get("alerting", []) or []:
+                print("    SLO     %s alerting" % a, file=sys.stderr)
+    return 0 if out["ok"] else 1
 
 
 def _cmd_tail(args):
@@ -261,13 +329,18 @@ def main(argv=None):
     m.add_argument("snapshot")
     m.set_defaults(fn=_cmd_prom)
 
-    r = sub.add_parser("regress", help="bench-trajectory gate: waits "
-                                       "for the port's own benchmark "
-                                       "(exit 2)")
-    r.add_argument("--root", default=None)
-    r.add_argument("--budgets", default=None)
-    r.add_argument("--json", action="store_true")
-    r.set_defaults(fn=_cmd_waits)
+    r = sub.add_parser("regress", help="bench-trajectory budget + "
+                                       "regression gate over the "
+                                       "card's rounds (CI exit code)")
+    r.add_argument("--root", default=None,
+                   help="directory holding BENCH_r*.json "
+                        "(default: cwd, else the repo root)")
+    r.add_argument("--budgets", default=None,
+                   help="budget spec path (default: the packaged "
+                        "pint_tpu_torch/obs/budgets.json)")
+    r.add_argument("--json", action="store_true",
+                   help="emit the full machine-readable report")
+    r.set_defaults(fn=_cmd_regress)
 
     s = sub.add_parser("slo", help="replay serve snapshots through "
                                    "the burn-rate monitor")
@@ -297,14 +370,22 @@ def main(argv=None):
                    help="where the live refit runs (default: the card)")
     q.set_defaults(fn=_cmd_fitq)
 
-    d = sub.add_parser("doctor", help="regress + slo + fitq gate: "
-                                      "waits with regress (exit 2)")
-    d.add_argument("--root", default=None)
-    d.add_argument("--budgets", default=None)
-    d.add_argument("--slo-snapshots", nargs="*", default=None)
-    d.add_argument("--fitq-snapshot", default=None)
-    d.add_argument("--json", action="store_true")
-    d.set_defaults(fn=_cmd_waits)
+    d = sub.add_parser("doctor", help="regress + slo + fitq in one "
+                                      "CI gate (exit !=0 on any "
+                                      "violation)")
+    d.add_argument("--root", default=None,
+                   help="directory holding BENCH_r*.json")
+    d.add_argument("--budgets", default=None,
+                   help="budget spec path (default packaged)")
+    d.add_argument("--slo-snapshots", nargs="*", default=None,
+                   help="serve snapshot JSONs to replay through the "
+                        "burn-rate monitor")
+    d.add_argument("--fitq-snapshot", default=None,
+                   help="fit-quality ledger / engine snapshot JSON "
+                        "to gate")
+    d.add_argument("--json", action="store_true",
+                   help="emit the machine-readable report")
+    d.set_defaults(fn=_cmd_doctor)
 
     t = sub.add_parser("tail", help="resolve a p99 tail exemplar to "
                                     "its request-lifecycle record")

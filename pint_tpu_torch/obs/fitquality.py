@@ -346,10 +346,11 @@ def record_fit_batch(labels, chi2, dof, covn=None, relres=None,
     summary dict (worst |chi2 z|, worst condition, counts) that
     ``PTAFleet.fit_quality`` keeps per bucket.
 
-    ``diverged`` lanes additionally dump a ``reason="fit_anomaly"``
-    flight record naming the pulsar, the failing probe
-    (``chi2_whitened``), and the baseline the observation violated
-    (the dof — the expectation of a healthy whitened chi2).
+    ``fell_back`` is one flag for the batch or one per lane (the lanes
+    a mixed fit refit in f64). ``diverged`` lanes additionally dump a
+    ``reason="fit_anomaly"`` flight record naming the pulsar, the
+    failing probe (``chi2_whitened``), and the baseline the observation
+    violated (the dof — the expectation of a healthy whitened chi2).
 
     Pure host numpy over arrays the finalize already materialized:
     no device interaction, so the fit stays bitwise identical. Its
@@ -379,7 +380,10 @@ def record_fit_batch(labels, chi2, dof, covn=None, relres=None,
     cond_l = _finite_list(cond, n)
     rel_l = (_finite_list(relres, n) if relres is not None
              else [None] * n)
-    fell = bool(fell_back)
+    # one flag for the batch, or one per lane (the lanes a mixed fit
+    # refit in f64)
+    fell = np.broadcast_to(np.asarray(fell_back, dtype=bool).reshape(-1),
+                           (n,))
     records = []
     for i in range(n):
         records.append({
@@ -389,7 +393,7 @@ def record_fit_batch(labels, chi2, dof, covn=None, relres=None,
             "chi2_z": z_l[i],
             "condition": cond_l[i],
             "relres": rel_l[i],
-            "fell_back": fell,
+            "fell_back": bool(fell[i]),
             "diverged": i in div,
             "method": method,
             "precision": precision,
@@ -412,7 +416,7 @@ def record_fit_batch(labels, chi2, dof, covn=None, relres=None,
         "fitq_max_condition": (float(np.max(finite_c))
                                if finite_c.size else None),
         "fitq_diverged": len(div),
-        "fitq_fell_back": bool(fell_back),
+        "fitq_fell_back": bool(np.any(fell_back)),
     }
     ledger.note_probe_wall(obs_clock.now() - t0)
     return summary

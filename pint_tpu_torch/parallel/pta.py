@@ -752,13 +752,14 @@ class PTABatch:
         return [getattr(m, "PSR", None) and m.PSR.value or f"#{off + i}"
                 for i, m in enumerate(self.models)]
 
-    def _record_quality(self, method, handle, x, chi2, covn,
+    def _record_quality(self, method, handle, x, chi2, covn, fell_back,
                         relres=None):
         """Fit-quality probes over the finalize's already-pulled host
         arrays (no device interaction: the fit stays bitwise
         identical). dof is the design-matrix count: TOAs minus free
         params minus the offset column; noise amplitudes are
-        marginalized, not subtracted."""
+        marginalized, not subtracted. ``fell_back`` flags the lanes a
+        mixed fit refit in f64 (per pulsar, in batch order)."""
         n_free = int(np.asarray(x).shape[1])
         # a distributed batch probes only the rows its rank owns
         off = getattr(self, "_pulsar_offset", 0)
@@ -770,7 +771,7 @@ class PTABatch:
             relres=None if relres is None else np.asarray(relres)[sl],
             method=method, precision=handle.get("precision", "f64"),
             maxiter=handle["maxiter"],
-            fell_back=self.__dict__.pop("_fitq_fell_back", False),
+            fell_back=np.asarray(fell_back, bool)[sl],
             diverged=[i - off for i in self.diverged
                       if 0 <= i - off < len(labels)],
             source="pta." + method)
@@ -1045,7 +1046,8 @@ class PTABatch:
         x, chi2 = self._isolate_diverged(x0, x, chi2)
         self._record_metrics(handle)
         if obs_fitq.enabled():
-            self._record_quality("wls", handle, x, chi2, covn)
+            self._record_quality("wls", handle, x, chi2, covn,
+                                 np.zeros(len(chi2), bool))
         else:
             self.quality = None
         return x, chi2, cov
@@ -1493,10 +1495,11 @@ class PTABatch:
         """Multi-pulsar GLS fit of the whole batch (see _build_gls /
         _build_gls_packed). ``precision="mixed"`` runs the Gram products
         in f32 — the hand-written kernels on a packed batch on the card —
-        and recovers f64 accuracy by refinement; if any pulsar's
-        refinement fails to contract the batch is refit in f64 with a
-        warning. ``precision="auto"`` takes the measured faster mode of
-        this bucket structure (:meth:`_resolve_precision`).
+        and recovers f64 accuracy by refinement; a pulsar whose
+        refinement fails to contract takes its row of an f64 refit of the
+        batch, with a warning, and the others keep their mixed rows.
+        ``precision="auto"`` takes the measured faster mode of this
+        bucket structure (:meth:`_resolve_precision`).
 
         Returns numpy (x_fit (n_psr, n_free), chi2 (n_psr,), cov
         (n_psr, k, k)); diverged pulsars are reported via self.diverged
@@ -1519,36 +1522,51 @@ class PTABatch:
 
     def _finalize_gls(self, handle):
         """Blocking half of the GLS fit: one pull, the mixed->f64 guard,
-        divergence isolation, metrics."""
+        divergence isolation, metrics.
+
+        The guard is per pulsar: a pulsar whose mixed refinement did not
+        contract (``relres_failed`` of its own relres) takes its row of
+        the batch's f64 refit — x, chi2, cov and relres — and every
+        other pulsar keeps its mixed row. So a pulsar's result never
+        depends on which neighbours share its batch.
+        ``metrics["fell_back"]`` lists the refit pulsars (batch order)."""
         x, chi2, covn, norm, relres, x0 = self._pull_rows(handle)
-        if handle["precision"] == "mixed" and relres_failed(relres):
-            # the f32 preconditioner failed to contract for >= 1 pulsar:
-            # redo the batch in f64 — correctness first
+        relres_max = float(np.max(relres)) if len(relres) else 0.0
+        mixed = handle["precision"] == "mixed"
+        # relres_failed per pulsar: NaN fails the <= of its tolerance
+        failed = mixed & ~(relres <= 1e-8)
+        if failed.any():
+            # the f32 preconditioner failed to contract for these
+            # pulsars: their rows come from an f64 refit of the batch —
+            # correctness first
             warnings.warn(
-                f"mixed-precision GLS refinement did not converge "
-                f"(max rel resid {float(np.max(relres)):.2e}); "
-                "refitting in f64")
+                f"mixed-precision GLS refinement did not converge for "
+                f"{int(failed.sum())}/{len(failed)} pulsars (max rel "
+                f"resid {relres_max:.2e}); refitting in f64 for those "
+                "pulsars")
             if obs_fitq.enabled():
-                # count the fallback at the decision; flag the f64
-                # re-run's probes so the ledger shows both
-                obs_fitq.FITQ.note_fallback(self._pulsar_labels())
-                self._fitq_fell_back = True
-            out = self.gls_fit(maxiter=handle["maxiter"],
-                               threshold=handle["threshold"],
-                               ecorr_mode=handle["ecorr_mode"],
-                               precision="f64", fused=handle["fused"])
-            self.metrics["refit_f64"] = True
-            self.metrics["relres_max"] = float(np.max(relres))
-            return out
+                # count the fallback at the decision, for the failed
+                # pulsars this rank owns
+                off = getattr(self, "_pulsar_offset", 0)
+                labels = self._pulsar_labels()
+                obs_fitq.FITQ.note_fallback(
+                    [labels[i - off] for i in np.flatnonzero(failed)
+                     if 0 <= i - off < len(labels)])
+            out64 = self._pull_rows(self._dispatch_gls(
+                maxiter=handle["maxiter"], threshold=handle["threshold"],
+                ecorr_mode=handle["ecorr_mode"], precision="f64",
+                fused=handle["fused"]))
+            for a, b in zip((x, chi2, covn, norm, relres), out64):
+                a[failed] = b[failed]
         cov = covn / (norm[:, :, None] * norm[:, None, :])
         chi2 = self._maybe_inject_divergence(chi2, "gls")
         x, chi2 = self._isolate_diverged(x0, x, chi2)
-        self._record_metrics(
-            handle, precision=handle["precision"],
-            relres_max=float(np.max(relres)) if len(relres) else 0.0,
-            refit_f64=False)
+        self._record_metrics(handle, precision=handle["precision"],
+                             relres_max=relres_max,
+                             refit_f64=bool(failed.any()),
+                             fell_back=np.flatnonzero(failed).tolist())
         if obs_fitq.enabled():
-            self._record_quality("gls", handle, x, chi2, covn,
+            self._record_quality("gls", handle, x, chi2, covn, failed,
                                  relres=relres)
         else:
             self.quality = None

@@ -73,7 +73,6 @@ import copy
 import os
 import threading
 import time
-import warnings
 import zlib
 
 import numpy as np
@@ -1177,7 +1176,7 @@ class ServeEngine:
         if fault:
             self._sleep(float(fault.get("delay_s", 0.25)))
 
-        degraded = False
+        fell = set()
         t0 = self.clock()
         if self.reqlife is not None:
             for req, _, _, _ in live:
@@ -1185,23 +1184,16 @@ class ServeEngine:
         with obs_trace.span("serve.run", kind=kind,
                             bucket=bucket, cold=cold):
             if kind == "fit":
-                # the mixed->f64 fallback warns in the finalize, on the
-                # host after the one pull, so a replayed program's
-                # fallback is caught here too
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    if method == "gls":
-                        x, chi2, cov = pta.gls_fit(maxiter=maxiter,
-                                                   precision=precision)
-                    else:
-                        x, chi2, cov = pta.wls_fit(maxiter=maxiter)
-                degraded = policy.mixed_fell_back(caught)
-                # the fallback is accounted as degradation; everything
-                # else (divergence reports etc.) is re-emitted
-                for w in caught:
-                    if policy.MIXED_FALLBACK_MARK not in str(w.message):
-                        warnings.warn_explicit(w.message, w.category,
-                                               w.filename, w.lineno)
+                if method == "gls":
+                    x, chi2, cov = pta.gls_fit(maxiter=maxiter,
+                                               precision=precision)
+                else:
+                    x, chi2, cov = pta.wls_fit(maxiter=maxiter)
+                # the live lanes whose mixed refinement fell back to f64:
+                # the finalize decides per pulsar, so a request is
+                # degraded by its own fit alone (padding lanes are none)
+                fell = {i for i in pta.metrics.get("fell_back", ())
+                        if i < n_live}
                 x, chi2, cov = (np.asarray(x), np.asarray(chi2),
                                 np.asarray(cov))
                 names = [n for n, _, _ in pta.free_map()]
@@ -1235,8 +1227,8 @@ class ServeEngine:
         execute_s = self.clock() - t0
         if poisoned:
             return poisoned
-        if degraded:
-            self.telemetry.incr("degraded_mixed", n_live)
+        if fell:
+            self.telemetry.incr("degraded_mixed", len(fell))
         if kind == "fit" and self._fitq_board is not None:
             # drift sentinels over the lanes being COMMITTED (poisoned
             # attempts return above — a diverged lane is the
@@ -1273,7 +1265,7 @@ class ServeEngine:
                    "pack_s": pack_s, "compile_s": compile_s,
                    "execute_s": execute_s, "total_s": done - t_sub,
                    "lanes": lanes, "bucket": bucket, "cold": cold,
-                   "degraded": degraded, "spilled": False,
+                   "degraded": i in fell, "spilled": False,
                    "tenant": getattr(req, "tenant", "anon"),
                    "trace": tr}
             res.telemetry = rec
@@ -1327,14 +1319,12 @@ class ServeEngine:
             t0 = self.clock()
             self._lc(request, "executing", t=t0)
             if kind == "fit":
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    if method == "gls":
-                        x, chi2, cov = pta.gls_fit(maxiter=maxiter,
-                                                   precision=precision)
-                    else:
-                        x, chi2, cov = pta.wls_fit(maxiter=maxiter)
-                degraded = policy.mixed_fell_back(caught)
+                if method == "gls":
+                    x, chi2, cov = pta.gls_fit(maxiter=maxiter,
+                                               precision=precision)
+                else:
+                    x, chi2, cov = pta.wls_fit(maxiter=maxiter)
+                degraded = bool(pta.metrics.get("fell_back"))
                 value = {"x": np.asarray(x)[0],
                          "chi2": float(np.asarray(chi2)[0]),
                          "cov": np.asarray(cov)[0],

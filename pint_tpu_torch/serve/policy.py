@@ -2,13 +2,13 @@
 available (the JAX package's ``serve/policy.py``). Three pressure
 valves, all visible in telemetry rather than silent:
 
-- mixed -> f64 fallback: PTABatch.gls_fit (and gls_solve) already
-  refit in f64 with a warning when gls_eigh_refine's rel_resid
-  contract says the f32 preconditioner failed; the engine detects
-  that warning and counts the request as degraded instead of hiding
-  the retry. The warning is raised by the finalize on the host, after
-  the program's one pull, so a replayed CUDA graph (which calls no
-  Python) still raises it.
+- mixed -> f64 fallback: PTABatch.gls_fit (per pulsar) and gls_solve
+  already refit in f64 with a warning when gls_eigh_refine's rel_resid
+  contract says the f32 preconditioner failed. PTABatch's finalize
+  lists the lanes it refit in ``metrics["fell_back"]``; the engine
+  counts exactly those requests as degraded instead of hiding the
+  retry. The finalize runs on the host, after the program's one pull,
+  so a replayed CUDA graph (which calls no Python) still reports it.
 - oversize spill: requests too large for the bucketed batch path run
   solo (unbatched, padded to their own length) so one monster request
   can't blow up a shared executable's shape budget.
@@ -86,7 +86,6 @@ def rejection(reason, **detail):
 
 def mixed_fell_back(caught_warnings):
     """True when a recorded-warnings list contains the mixed-precision
-    f64-fallback marker — the engine counts these as degraded
-    requests."""
+    f64-fallback marker (a single fit's fallback, e.g. gls_solve's)."""
     return any(MIXED_FALLBACK_MARK in str(w.message)
                for w in caught_warnings)

@@ -44,6 +44,10 @@ COUNTERPARTS = ("f32-in-f64", "precision-flow", "host-sync-in-jit",
                 "static-unhashable", "signature-incomplete",
                 "kernel-silent-fallback", "timing-no-block")
 
+# The budget rule: the JAX package's id and family over the port's own
+# budget file (tests/test_torch_baseline.py holds it to the JAX rule).
+BUDGET = ("meta-key-unbudgeted",)
+
 
 def _pkg(name):
     import importlib
@@ -717,8 +721,8 @@ def _main(pkg, capsys, *argv):
 def test_cli_exit_codes_list_rules_and_lock_dag(tmp_path, capsys):
     """Exit 1 on a finding (--format json, as the JAX CLI reports it),
     0 on a clean file, 2 on a usage error; --list-rules prints the JAX
-    CLI's rule ids but meta-key-unbudgeted, each carried-over rule as
-    the JAX CLI does; --lock-dag writes the graph; and
+    CLI's rule ids, each carried-over rule as the JAX CLI does; --lock-dag
+    writes the graph; and
     ``python -m pint_tpu_torch.analysis`` exits 1 from a process."""
     bad = tmp_path / "checkpoint.py"
     bad.write_text('def f(p):\n    return open(p, "w")\n')
@@ -739,14 +743,14 @@ def test_cli_exit_codes_list_rules_and_lock_dag(tmp_path, capsys):
     rc, out = _main("pint_tpu_torch", capsys, "--list-rules")
     jr = _main("pint_tpu", capsys, "--list-rules")[1].splitlines()
     lines = norm(out).splitlines()
-    # the JAX package's 22 ids less meta-key-unbudgeted (the budget
-    # family waits for the port's benchmark)
-    assert rc == 0 and len(lines) == 21
+    # the JAX package's 22 ids
+    assert rc == 0 and len(lines) == 22
     assert sorted(ln.split()[0] for ln in lines) == sorted(
-        ln.split()[0] for ln in jr if not ln.startswith("meta-key-unbudgeted"))
-    assert sorted(PORTED + COUNTERPARTS) == sorted(ln.split()[0] for ln in lines)
-    # rules carried over print the JAX line; counterparts its id, family
-    # and whole-program tag, with their own rationale
+        ln.split()[0] for ln in jr)
+    assert sorted(PORTED + COUNTERPARTS + BUDGET) == sorted(
+        ln.split()[0] for ln in lines)
+    # rules carried over print the JAX line; counterparts and the budget
+    # rule its id, family and whole-program tag, with their own rationale
     head = {ln.split()[0]: ln.split()[1:3] for ln in jr}
     for ln in lines:
         rid = ln.split()[0]

@@ -249,3 +249,96 @@ def test_solve_core_matches_jax():
     assert np.abs(dt.numpy() - np.asarray(dj)).max() <= 1e-9 * np.abs(np.asarray(dj)).max()
     assert tf.relres_failed(np.array([1e-12, np.nan]))
     assert not tf.relres_failed(rt.numpy())
+
+
+@pytest.fixture(scope="module")
+def three_pulsars():
+    """(models, TOAs): 3 pulsars of the BASE template (96, 80, 64 TOAs)
+    made by the port's simulator on the CPU."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    rng = np.random.default_rng(3)
+    models, toas = [], []
+    for i, n in enumerate((96, 80, 64)):
+        m = get_model(par(i))
+        days = np.sort(rng.uniform(54000, 57000, n // 4))
+        mjds = (days[:, None] + np.arange(4) * 0.5 / 86400.0).reshape(-1)
+        freqs = np.where(np.arange(len(mjds)) % 2, 1400.0, 800.0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            toas.append(make_fake_toas_fromMJDs(
+                mjds, m, error_us=1.0, freq_mhz=freqs, obs="gbt",
+                add_noise=True, seed=i, iterations=0,
+                flags={"f": "L-wide"}, device="cpu"))
+        models.append(m)
+    return models, toas
+
+
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+def test_mixed_fallback_is_per_pulsar(three_pulsars, monkeypatch, layout):
+    """A pulsar whose mixed refinement fails (its relres forced through
+    ``_pull_rows``) takes its row of the batch's f64 fit, bitwise; the
+    other pulsars keep their mixed rows, bitwise, so no pulsar's
+    precision depends on its neighbours. The fallback is counted and
+    flagged for that pulsar only. In the packed layout relres is per
+    pulsar after ``_pull_rows`` (three pulsars share one row)."""
+    import copy
+
+    from pint_tpu_torch.obs import fitquality
+    from pint_tpu_torch.parallel import PTAFleet
+    from pint_tpu_torch.parallel.pta import PTABatch
+    from pint_tpu_torch.serve.policy import MIXED_FALLBACK_MARK
+
+    models, toas = three_pulsars
+    fleet = PTAFleet(copy.deepcopy(models), toas, device="cpu",
+                     **(PLAN if layout == "packed" else {}))
+    (batch,) = fleet.batches.values()
+    assert bool(batch._pack) == (layout == "packed")
+    if batch._pack:
+        assert batch._pack["n_rows"] == 1
+    mixed = batch.gls_fit(precision="mixed")
+    f64 = batch.gls_fit(precision="f64")
+
+    def rows(out, i):
+        return [np.asarray(a)[i] for a in out]
+
+    def same(a, b):
+        return all(np.array_equal(u, v) for u, v in zip(a, b))
+
+    # the test means something: each pulsar's mixed row is not its f64 row
+    assert not any(same(rows(mixed, i), rows(f64, i)) for i in range(3))
+    pull = PTABatch._pull_rows
+
+    def failing_lane_1(self, handle):
+        out = pull(self, handle)
+        if handle["precision"] == "mixed":
+            out[4][1] = np.nan
+        return out
+
+    noted = []
+    monkeypatch.setattr(PTABatch, "_pull_rows", failing_lane_1)
+    monkeypatch.setattr(fitquality.FITQ, "note_fallback", noted.append)
+    fitquality.reset()
+    fitquality.enable()
+    try:
+        with pytest.warns(UserWarning, match="refitting") as caught:
+            got = batch.gls_fit(precision="mixed")
+        rec = {n: fitquality.FITQ.get(n) for n in ("T0", "T1", "T2")}
+    finally:
+        fitquality.disable()
+        fitquality.reset()
+    for i in (0, 2):
+        assert same(rows(got, i), rows(mixed, i)), i
+    assert same(rows(got, 1), rows(f64, 1))
+    # the serve engine's degradation marker stays in the warning
+    assert any("for 1/3 pulsars" in str(w.message)
+               and MIXED_FALLBACK_MARK in str(w.message) for w in caught)
+    assert noted == [["T1"]]
+    assert [rec[n]["fell_back"] for n in ("T0", "T1", "T2")] == [
+        False, True, False]
+    assert batch.metrics["refit_f64"] is True
+    assert batch.metrics["fell_back"] == [1]
+    assert np.isnan(batch.metrics["relres_max"])
+    assert batch.metrics["precision"] == "mixed"
+    assert list(batch.diverged) == []

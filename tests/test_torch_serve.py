@@ -441,6 +441,35 @@ def test_mixed_degrades_to_f64(monkeypatch, noisy):
                                atol=0)
 
 
+def test_fallback_degrades_only_its_own_request(monkeypatch):
+    """A flush of 3 live requests in 4 lanes where lane 1's and the
+    padding lane 3's mixed refinement fail (relres forced to NaN
+    through ``_pull_rows``): only request 1 reports ``degraded`` and
+    ``degraded_mixed`` counts 1 — a request's status never depends on
+    its neighbours or on padding."""
+    from pint_tpu_torch.parallel.pta import PTABatch
+    from pint_tpu_torch.serve import FitRequest
+
+    pull = PTABatch._pull_rows
+
+    def failing_lanes(self, handle):
+        out = pull(self, handle)
+        if handle["precision"] == "mixed":
+            out[4][[1, 3]] = np.nan
+        return out
+
+    monkeypatch.setattr(PTABatch, "_pull_rows", failing_lanes)
+    eng = engine("torch", max_batch=4)
+    out = [eng.submit(FitRequest(p[3], p[4], method="gls", maxiter=2,
+                                 precision="mixed"))
+           for p in _slot_pulsars()[:3]]
+    with pytest.warns(UserWarning, match="for 2/4 pulsars"):
+        eng.drain()
+    assert [r.status for r in out] == ["ok"] * 3
+    assert [r.telemetry["degraded"] for r in out] == [False, True, False]
+    assert eng.telemetry.counters["degraded_mixed"] == 1
+
+
 def test_single_fitter_fallback_carries_the_marker(monkeypatch):
     from pint_tpu_torch import fitter
     from pint_tpu_torch.serve import policy
