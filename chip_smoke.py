@@ -868,6 +868,56 @@ def timed_fit(fleet, torch, method="gls", **kw):
     return np.array(xs), np.asarray(chi2), covs, wall, refit
 
 
+TOL_FREQ = 1e-12  # spin frequency at emission vs longdouble (f64 tier)
+
+
+def main_freq(models, toas, device="cuda"):
+    """``[main] freq``: ``Spindown.d_phase_d_toa_freq`` on the card for
+    each pulsar of the main path, at its params0 with the card's
+    ``delay()``, held to a host evaluation of sum_i F_i (T - d)^i / i!
+    in longdouble (T from the prep's longdouble copy, d the same delay
+    pulled to the host). Returns the phase's wall."""
+    import torch
+
+    from pint_tpu_torch.mjd import LD
+
+    t0 = time.perf_counter()
+    prep_s, worst, where, n, ok = 0.0, 0.0, None, 0, True
+    for m, t in zip(models, toas):
+        t1 = time.perf_counter()
+        p = m.prepare(t, device=device)
+        prep_s += time.perf_counter() - t1
+        d = p.delay()
+        f = m.components["Spindown"].d_phase_d_toa_freq(
+            p.params0, p.batch, p.prep, d)
+        ok &= (f.dtype == torch.float64 and f.device == d.device
+               and tuple(f.shape) == (len(t),))
+        f = f.cpu().numpy()
+        T = p.prep["T_ld"] - LD(1.0) * d.cpu().numpy()
+        ref, fact, Tp = np.zeros_like(T), LD(1.0), np.ones_like(T)
+        for i, fi in enumerate(p.params0["F"].cpu().numpy()):
+            fact = fact * LD(max(i, 1))
+            ref = ref + LD(fi) * Tp / fact
+            Tp = Tp * T
+        gap = float(np.max(np.abs(f - ref) / np.abs(ref)))
+        ok &= bool(np.all(np.isfinite(f)))
+        n += len(f)
+        if gap >= worst:
+            worst, where = gap, f"{m.PSR.value} ({len(t)} TOAs)"
+        del p, d
+    wall = time.perf_counter() - t0
+    log(f"[main] freq: d_phase_d_toa_freq on {device} for {len(models)} "
+        f"pulsars, {n} TOAs, in {wall:.3f} s (of which prepare "
+        f"{prep_s:.3f} s; host clock); worst |f - f_longdouble|/f "
+        f"{worst!r} at {where}")
+    check("[main] freq", {
+        "float64 on the card, one value per TOA": ok,
+        f"<= {TOL_FREQ} relative on every TOA": worst <= TOL_FREQ,
+        "every TOA of the main path": n == sum(len(t) for t in toas),
+    })
+    return wall
+
+
 def cuda_ms(torch, fn, reps=20, warmup=3):
     """Mean time of fn() in ms by CUDA events, after warm-up."""
     for _ in range(warmup):
@@ -2882,10 +2932,31 @@ def stream_lanes(main_models, toas, tmp, device="cuda"):
         f"{time.perf_counter() - t0:.3f} s, {sr2.counters()['replayed']} "
         f"links replayed; max |x - x_first|, |chi2 - chi2_first| "
         f"{max(g[0] for g in gaps)!r}, {max(g[1] for g in gaps)!r}")
+    # the chain tips on disk, read by the second process's store, against
+    # the first process's lanes; a fresh lane with no delta gives its base
+    t0 = time.perf_counter()
+    tips = [(sr2.deltas.tip(sr2.lane(models[i]).key,
+                            sr2.lane(models[i]).base_signature),
+             sr.lane(models[i]).tip) for i in pick]
+    fresh_model = get_model(lane_par_text(order[0]).replace(
+        "PSR BEN", "PSR FRESH"))
+    sr2.register(fresh_model, toas[order[0]], precision="mixed")
+    fresh_lane = sr2.lane(fresh_model)
+    fresh_tip = sr2.deltas.tip(fresh_lane.key, fresh_lane.base_signature)
+    tip_s = time.perf_counter() - t0
+    log(f"[stream] restart: DeltaStore.tip of the 4 lanes == the first "
+        f"process's lane.tip: {[a == b for a, b in tips]}; a fresh lane "
+        f"({len(toas[order[0]])} TOAs, registered) gives its base "
+        f"signature: {fresh_tip == fresh_lane.base_signature}; "
+        f"{tip_s:.3f} s")
     check("[stream] restart", {
         "16 links replayed": sr2.counters()["replayed"] == 4 * STREAM_ROUNDS,
         "x and chi2 bitwise the first process's":
             all(g == (0.0, 0.0) for g in gaps),
+        "tips bitwise the first process's lane.tip":
+            all(a == b for a, b in tips),
+        "a lane with no delta: its base signature":
+            fresh_tip == fresh_lane.base_signature == fresh_lane.tip,
     })
 
     # -- [stream] escalation: a fifth append diverges --
@@ -2934,7 +3005,7 @@ def stream_lanes(main_models, toas, tmp, device="cuda"):
     })
     arrays = sr.deltas.load_chain(sr.lane(models[pick[-1]]).key,
                                   sr.lane(models[pick[-1]]).base_signature)
-    return launches, arrays[-1][1]
+    return launches, arrays[-1][1], tip_s
 
 
 def chol_update_eager(torch, L, V):
@@ -6708,6 +6779,8 @@ def run():
                   "refit": bool(refit or refit_warm),
                   "buckets": len(fleet.batches),
                   "padding": fleet.padding_ratio}
+    freq_s = main_freq(models, toas)
+    log(f"[main] freq took {freq_s:.2f} s; {card}")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -6799,9 +6872,10 @@ def run():
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        k1p_launches, lane_arrays = stream_lanes(models, toas, tmp)
+        k1p_launches, lane_arrays, tip_s = stream_lanes(models, toas, tmp)
         log(f"[stream] lanes, restart, escalation and correlated phases "
             f"took {time.perf_counter() - t0:.2f} s")
+    log(f"[stream] restart tips took {tip_s:.2f} s; {card}")
     scenario_rows = stream_kernel(torch)
     entries.append(delta_record(torch, lane_arrays, scenario_rows,
                                 k1p_launches))

@@ -30,6 +30,9 @@ class Spindown(PhaseComponent):
         self.add_param(MJDParameter("PEPOCH", units="MJD",
                                     description="Epoch of spin parameters"))
 
+    def setup(self):
+        pass
+
     def validate(self):
         if self.F0.value is None:
             raise MissingParameter("Spindown", "F0")
@@ -102,3 +105,18 @@ class Spindown(PhaseComponent):
                 Tmj = Tmj * Tm
             B = B + F[i] / fact * s
         return ph - d * B
+
+    def d_phase_d_toa_freq(self, params, batch, prep, delay_total):
+        """Instantaneous spin frequency at emission [Hz] (for resid->time):
+        sum_i F_i T^i / i! at T = T_hi + T_lo - delay_total."""
+        F = params["F"]
+        T = prep["T_hi"] + prep["T_lo"] - delay_total
+        freq = 0.0 * T
+        fact = 1.0
+        Tp = 1.0
+        for i in range(prep["F_ref"].shape[0]):
+            if i > 0:
+                fact *= i
+            freq = freq + F[i] * Tp / fact
+            Tp = Tp * T
+        return freq

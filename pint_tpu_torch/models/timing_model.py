@@ -190,13 +190,16 @@ class TimingModel:
                 return comp
         raise KeyError(name)
 
-    def prepare(self, toas, device="cuda") -> "PreparedTiming":
-        return PreparedTiming(self, toas, device=device)
+    def prepare(self, toas, subtract_mean=True,
+                device="cuda") -> "PreparedTiming":
+        return PreparedTiming(self, toas, subtract_mean=subtract_mean,
+                              device=device)
 
-    def phase(self, toas, device="cuda"):
+    def phase(self, toas, abs_phase=False, device="cuda"):
         """The model's pulse phase at ``toas`` as a
         :class:`~pint_tpu_torch.phase.Phase` of tensors on ``device``
-        (reference: TimingModel.phase)."""
+        (reference: TimingModel.phase; ``abs_phase`` is accepted and
+        ignored, as there)."""
         return self.prepare(toas, device=device).phase()
 
     def delay(self, toas, device="cuda"):
@@ -480,11 +483,12 @@ class PreparedTiming:
     dict, the initial params dict (all float64 tensors on ``device``)
     and the residual/design functions of the free-parameter vector."""
 
-    def __init__(self, model, toas, device="cuda"):
+    def __init__(self, model, toas, subtract_mean=True, device="cuda"):
         dev = resolve_device(device)
         toas.ensure_posvels()
         self.model = model
         self.toas = toas
+        self.subtract_mean = subtract_mean
         self.device = dev
         prep: dict = {}
         params0: dict = {}
@@ -523,6 +527,7 @@ class PreparedTiming:
         self = cls.__new__(cls)
         self.model = model
         self.toas = None
+        self.subtract_mean = True
         self.device = dev
         self.prep = host_to_device(
             {k: v for k, v in prep.items() if k != "T_ld"}, dev)

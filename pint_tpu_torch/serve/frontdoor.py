@@ -74,7 +74,8 @@ from .request import ServeResult
 class IntakeQueue:
     """Bounded thread-safe handoff queue between submitter threads and
     the flusher worker, with the bookkeeping the watchdog and drain
-    logic need: a heartbeat, a flusher generation counter, and an
+    logic need: a heartbeat (with the flusher's working mark), a
+    flusher generation counter, and an
     in-flight count (incremented atomically WITH the dequeue, so
     ``idle()`` never reports idle while an item is in the flusher's
     hands). Every mutation holds ``_lock``."""
@@ -88,6 +89,7 @@ class IntakeQueue:
         self._items = deque()
         self.running = True
         self.heartbeat = 0.0
+        self.working = False
         self.generation = 0
         self.inflight = 0
 
@@ -131,8 +133,27 @@ class IntakeQueue:
 
     def beat(self, t):
         """Flusher liveness heartbeat (engine clock seconds)."""
+        self._beat(t)
+
+    def _beat(self, t, gen=None, working=False):
+        """The flusher's heartbeat. ``gen`` is the beating flusher's
+        generation: a superseded flusher's beat is dropped, so it cannot
+        mask its replacement's stall. ``working`` marks the flusher as
+        inside its work section (or waiting for the work mutex) until
+        its next beat."""
         with self._lock:
+            if gen is not None and gen != self.generation:
+                return
             self.heartbeat = float(t)
+            self.working = bool(working)
+
+    def _stalled(self, now, timeout):
+        """True when the flusher is outside its work section and has
+        not beaten for more than ``timeout`` seconds. A flusher inside
+        it is never stalled: its replacement would only queue behind it
+        on the work mutex."""
+        with self._lock:
+            return not self.working and now - self.heartbeat > timeout
 
     def last_beat(self):
         with self._lock:
@@ -216,6 +237,10 @@ class AsyncServeEngine(ServeEngine):
         # old one's current operation finishes, so a stall that wakes up
         # can never double-flush
         self._stop_watchdog = threading.Event()
+        # held across a restart's supersede + replacement start, and by
+        # snapshot(): a superseded flusher may exit before its
+        # replacement is published
+        self._restart_lock = threading.Lock()
         self._flusher = None
         self.intake.beat(self.clock())
         self._start_flusher(self.intake.generation_now())
@@ -354,8 +379,13 @@ class AsyncServeEngine(ServeEngine):
                 # goes stale and the watchdog supersedes us
                 self._sleep(float(stall.get("hang_s", 0.05)))
                 continue
-            intake.beat(self.clock())
+            intake._beat(self.clock(), gen)
             item = intake.take(timeout=self.flusher_poll_s)
+            # a flush holds the work mutex longer than stall_timeout_s
+            # on a loaded host: the heartbeat marks the flusher working
+            # from before the mutex wait until it leaves, so only a
+            # flusher wedged outside its work is superseded
+            intake._beat(self.clock(), gen, working=True)
             if item is not None:
                 try:
                     with self._work_mutex:
@@ -369,9 +399,13 @@ class AsyncServeEngine(ServeEngine):
                     self._handle_crashed(item, exc)
                 finally:
                     intake.done_one()
+                    intake._beat(self.clock(), gen)
                 continue
-            with self._work_mutex:
-                self._idle_tick()
+            try:
+                with self._work_mutex:
+                    self._idle_tick()
+            finally:
+                intake._beat(self.clock(), gen)
             if not intake.is_running() and intake.idle() \
                     and not self.batcher.pending_keys():
                 if self.journal is not None:
@@ -445,16 +479,20 @@ class AsyncServeEngine(ServeEngine):
                     and self.intake.idle() \
                     and not self.batcher.pending_keys():
                 continue  # clean shutdown; nothing left to tend
-            stalled = (self.clock() - self.intake.last_beat()
-                       > self.stall_timeout_s)
+            stalled = self.intake._stalled(self.clock(),
+                                          self.stall_timeout_s)
             if dead or stalled:
-                gen = self.intake.supersede()
+                with self._restart_lock:
+                    gen = self.intake.supersede()
+                    # the replacement's first beat is its own: give it
+                    # a full stall_timeout_s to start
+                    self.intake._beat(self.clock(), gen)
+                    self._start_flusher(gen)
                 self.telemetry.incr("flusher_restarts")
                 _flight.note("flusher_restart",
                              generation=gen, dead=dead,
                              stalled=stalled,
                              intake_depth=self.intake.depth())
-                self._start_flusher(gen)
 
     # -- SLO / snapshot ----------------------------------------------
 
@@ -469,13 +507,15 @@ class AsyncServeEngine(ServeEngine):
     def snapshot(self):
         snap = super().snapshot()
         snap["admission"] = self.admission.snapshot()
-        flusher = self._flusher
+        with self._restart_lock:
+            flusher = self._flusher
+            alive = flusher is not None and flusher.is_alive()
+            generation = self.intake.generation_now()
         snap["intake"] = {
             "depth": self.intake.depth(),
             "capacity": self.intake.capacity,
             "running": self.intake.is_running(),
-            "generation": self.intake.generation_now(),
-            "flusher_alive": bool(flusher is not None
-                                  and flusher.is_alive()),
+            "generation": generation,
+            "flusher_alive": bool(alive),
         }
         return snap

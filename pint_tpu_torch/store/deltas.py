@@ -278,6 +278,12 @@ class DeltaStore:
             self.loads += 1
         return chain
 
+    def tip(self, lane, base_signature):
+        """The lane's current chain tip signature (the base signature
+        when no deltas are persisted)."""
+        chain = self.load_chain(lane, base_signature)
+        return chain[-1][0] if chain else base_signature
+
     def _load_chain_verified(self, lane, base_signature):
         out = []
         parent = base_signature

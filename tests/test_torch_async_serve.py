@@ -167,25 +167,73 @@ def test_concurrent_stress_lock_discipline(two):
 
 
 def test_flusher_stall_watchdog_restarts(two):
+    """The injected stall is held on an event from the moment it fires
+    at the loop top until the test has seen the watchdog's restart, so
+    neither the firing nor the restart races the test's clock."""
     from pint_tpu_torch.resilience.faultinject import FaultPoint, inject
+
+    hang_s = 1.0
+    fired, released = threading.Event(), threading.Event()
+
+    def sleep(s):
+        if s == hang_s:  # the stalled flusher's one sleep
+            fired.set()
+            released.wait(10.0)
+        else:
+            time.sleep(s)
 
     led = ledger("torch")
     eng = async_engine("torch", reqlife=led, stall_timeout_s=0.1,
-                       watchdog_poll_s=0.02)
+                       watchdog_poll_s=0.02, sleep=sleep)
     eng.prewarm(reqs("torch", two, 2))
     try:
         with inject(FaultPoint("flusher_stall", count=1,
-                               payload={"hang_s": 1.0})):
-            time.sleep(0.01)  # let the stall fire at the loop top
+                               payload={"hang_s": hang_s})):
+            wait_for(fired.is_set, "the stall never fired at the loop top")
             handles = [eng.submit(r) for r in reqs("torch", two, 4)]
             wait_for(lambda: eng.telemetry.counters.get(
                 "flusher_restarts", 0) >= 1,
                 "watchdog never restarted the stalled flusher")
+            released.set()
             eng.drain()
         assert all(h.status == "ok" for h in handles)
         assert led.nonterminal_ids() == []
         snap = eng.snapshot()
         assert snap["intake"]["generation"] >= 1
+        assert snap["intake"]["flusher_alive"]
+    finally:
+        released.set()
+        eng.close()
+
+
+@pytest.mark.parametrize("where", ["handle", "idle_tick", "mutex_wait"])
+def test_working_flusher_is_not_superseded(two, where):
+    """A flusher busy for longer than stall_timeout_s (a slow _handle, a
+    slow idle-tick flush, or a wait for the work mutex that another
+    thread holds) is working, not stalled: the watchdog restarts
+    nothing, and the one flusher serves every request."""
+    slow_s = 0.5
+    eng = async_engine("torch", stall_timeout_s=0.1, watchdog_poll_s=0.02)
+    eng.prewarm(reqs("torch", two, 2))
+    try:
+        if where == "mutex_wait":
+            with eng._work_mutex:  # the flusher's next tick waits on it
+                handles = [eng.submit(r) for r in reqs("torch", two, 2)]
+                time.sleep(slow_s)
+        else:
+            inner = getattr(eng, f"_{where}")
+
+            def slow(*args):
+                time.sleep(slow_s)
+                return inner(*args)
+
+            setattr(eng, f"_{where}", slow)
+            handles = [eng.submit(r) for r in reqs("torch", two, 2)]
+        eng.drain()
+        assert all(h.status == "ok" for h in handles)
+        assert eng.telemetry.counters.get("flusher_restarts", 0) == 0
+        snap = eng.snapshot()
+        assert snap["intake"]["generation"] == 0
         assert snap["intake"]["flusher_alive"]
     finally:
         eng.close()

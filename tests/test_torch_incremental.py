@@ -318,6 +318,62 @@ def test_delta_store_prewarm_reset_and_identity(tmp_path):
     assert ds.scan()["segments"] == 0
 
 
+def test_delta_store_tip_matches_jax(tmp_path):
+    """DeltaStore.tip in both packages on the same appends: bitwise equal
+    tips, the base signature for an empty lane, the same verified prefix
+    after a flipped byte in the second segment, and a prewarmed lane's
+    staged entry consumed with the same loads / prewarm_hits."""
+    from pint_tpu.store import DeltaStore as JDeltaStore
+    from pint_tpu_torch.store import DeltaStore
+
+    rng = np.random.default_rng(21)
+    batches = [_arrays(rng, n=8 + 4 * k) for k in range(3)]
+    stores = (JDeltaStore(tmp_path / "jax"), DeltaStore(tmp_path / "torch"))
+
+    def tips(lane, base="base"):
+        return [ds.tip(lane, base) for ds in stores]
+
+    def counts():
+        return [(ds.loads, ds.prewarm_hits) for ds in stores]
+
+    chain = []
+    for ds in stores:
+        parent, links = "base", []
+        for k, a in enumerate(batches):
+            parent, _ = ds.append("J4", parent, a, rid=f"r{k}")
+            links.append(parent)
+        chain.append(links)
+    assert chain[0] == chain[1]
+    assert tips("J4") == [chain[0][-1]] * 2
+    assert tips("J5", "sig-of-J5") == ["sig-of-J5"] * 2
+
+    for ds in stores:  # stage, then consume: one hit each
+        ds.prewarm([("J4", "base")], background=False)
+    before = counts()
+    assert tips("J4") == [chain[0][-1]] * 2
+    assert counts()[0] == counts()[1]
+    assert [(lo - lb, ho - hb) for (lo, ho), (lb, hb)
+            in zip(counts(), before)] == [(1, 1)] * 2
+    assert tips("J4") == [chain[0][-1]] * 2  # from disk again: no hit
+    assert [h for _, h in counts()] == [h + 1 for _, h in before]
+
+    for ds in stores:
+        with open(ds._chain_paths("J4")[1], "r+b") as fh:
+            fh.seek(-1, os.SEEK_END)
+            last = fh.read(1)
+            fh.seek(-1, os.SEEK_END)
+            fh.write(bytes([last[0] ^ 0xFF]))
+    with pytest.warns(UserWarning, match="delta chain broken"):
+        assert tips("J4") == [chain[0][0]] * 2
+    # a stale base: the whole chain is dropped and the base comes back
+    with pytest.warns(UserWarning, match="delta chain broken"):
+        assert tips("J4", "another-base") == ["another-base"] * 2
+    jc, tc = (ds.counters() for ds in stores)
+    # bytes_written differs: each package's manifest names its own stack
+    assert {k: v for k, v in jc.items() if k != "bytes_written"} \
+        == {k: v for k, v in tc.items() if k != "bytes_written"}
+
+
 # -- fault injection, drift, signatures, merge ------------------------------
 
 

@@ -147,6 +147,105 @@ def test_from_numpy_matches_prepare(pair):
                                   tp.designmatrix()[0].numpy())
 
 
+def test_phase_keywords_match_the_jax_package(pair):
+    """prepare(subtract_mean=...), phase(abs_phase=...) and
+    PreparedTiming(subtract_mean=...) are accepted as in the JAX package,
+    which stores the first and ignores the second: the same phase."""
+    from pint_tpu_torch.models.timing_model import PreparedTiming
+
+    jm, jp, tm, tp = pair
+    tq = tm.prepare(tp.toas, subtract_mean=False, device="cpu")
+    assert (tq.subtract_mean, tp.subtract_mean) == (False, True) \
+        == (jm.prepare(jp.toas, subtract_mean=False).subtract_mean,
+            jp.subtract_mean)
+    assert PreparedTiming(tm, tp.toas, subtract_mean=False,
+                          device="cpu").subtract_mean is False
+    np.testing.assert_array_equal(tq.phase_frac_and_int()[0].numpy(),
+                                  tp.phase_frac_and_int()[0].numpy())
+    pj = jm.phase(jp.toas, abs_phase=True)
+    pt = tm.phase(tp.toas, abs_phase=True, device="cpu")
+    np.testing.assert_array_equal(pt.int_.numpy(), np.asarray(pj.int_))
+    assert np.abs(pt.frac.numpy() - np.asarray(pj.frac)).max() <= 1e-9
+    np.testing.assert_array_equal(
+        pt.frac.numpy(), tm.phase(tp.toas, device="cpu").frac.numpy())
+
+
+NGC_JAX_PAR = ROOT / "pint_tpu" / "data" / "examples" / "NGC6440E.par"
+NGC_JAX_TIM = ROOT / "pint_tpu" / "data" / "examples" / "NGC6440E.tim"
+NGC_PORT_PAR = ROOT / "pint_tpu_torch" / "data" / "examples" / "NGC6440E.par"
+SPIN_F3 = EQUATORIAL.replace("F1 -3e-16 1\n",
+                             "F1 -3e-16 1\nF2 1e-24 1\nF3 -1e-32\n")
+
+
+@pytest.fixture(scope="module", params=["ngc6440e", "f0-f3"])
+def spin(request):
+    """(JAX model, its PreparedTiming, port model, its PreparedTiming):
+    the NGC6440E example (F0, F1) through the JAX package's get_TOAs, and
+    a seeded fake pulsar with F0-F3."""
+    from pint_tpu_torch.models import get_model
+
+    if request.param == "ngc6440e":
+        from pint_tpu.models import get_model as jget_model
+        from pint_tpu.toa import get_TOAs as jget_TOAs
+
+        jm = jget_model(str(NGC_JAX_PAR))
+        jt = jget_TOAs(str(NGC_JAX_TIM), model=jm)
+        tm = get_model(str(NGC_PORT_PAR))
+    else:
+        jm, jt = jax_toas(SPIN_F3, seed=21)
+        tm = get_model(SPIN_F3)
+    return jm, jm.prepare(jt), tm, tm.prepare(port_toas(jt), device="cpu")
+
+
+def _freq_ld(F, T_ld, delay):
+    """sum_i F_i (T - d)^i / i! in np.longdouble."""
+    from pint_tpu_torch.mjd import LD
+
+    T = T_ld - LD(1.0) * np.asarray(delay, np.float64)
+    out, fact, Tp = np.zeros_like(T), LD(1.0), np.ones_like(T)
+    for i, f in enumerate(np.asarray(F, np.float64)):
+        fact = fact * LD(max(i, 1))
+        out = out + LD(f) * Tp / fact
+        Tp = Tp * T
+    return out
+
+
+def test_spin_frequency_at_emission_matches_jax(spin):
+    """Spindown.d_phase_d_toa_freq: the port vs the JAX package at 1e-12
+    relative (the same f64 expressions), both vs a longdouble evaluation
+    of sum F_i (T - d)^i / i! at 1e-12, and at the barycentre with zero
+    delay F0 + F1 T + F2 T^2/2 + F3 T^3/6."""
+    from pint_tpu_torch.models.spindown import Spindown
+
+    jm, jp, tm, tp = spin
+    sj, st = jm.components["Spindown"], tm.components["Spindown"]
+    assert Spindown().setup() is None and st.setup() is None
+    n_f = len(tp.prep["F_ref"])
+    assert n_f == (2 if "TZRMJD" in tm.params else 4)
+    dj, dt = jp.delay(), tp.delay()
+    fj = np.asarray(sj.d_phase_d_toa_freq(jp.params0, jp.batch, jp.prep, dj))
+    ft = st.d_phase_d_toa_freq(tp.params0, tp.batch, tp.prep, dt)
+    assert isinstance(ft, torch.Tensor) and ft.dtype == torch.float64
+    assert ft.shape == (tp.batch.n_toas,)
+    assert _rel(ft, fj) <= 1e-12
+    ref = _freq_ld(tp.params0["F"].numpy(), tp.prep["T_ld"], dt.numpy())
+    for got in (ft.numpy(), fj):
+        assert np.max(np.abs(got - ref) / np.abs(ref)) <= 1e-12
+    # the host prep before host_to_device: numpy in, numpy out, bitwise
+    host = {k: tp.prep[k].numpy() for k in ("T_hi", "T_lo", "F_ref")}
+    fh = st.d_phase_d_toa_freq({"F": tp.params0["F"].numpy()}, None, host,
+                               dt.numpy())
+    np.testing.assert_array_equal(fh, ft.numpy())
+    zero = torch.zeros_like(dt)
+    f0 = st.d_phase_d_toa_freq(tp.params0, tp.batch, tp.prep, zero).numpy()
+    F = tp.params0["F"].numpy()
+    T = (tp.prep["T_hi"] + tp.prep["T_lo"]).numpy()
+    want = F[0] + F[1] * T
+    if n_f == 4:
+        want = want + F[2] * T ** 2 / 2 + F[3] * T ** 3 / 6
+    np.testing.assert_allclose(f0, want, rtol=1e-15, atol=0)
+
+
 @pytest.mark.parametrize("overlap", [False, True])
 def test_vectorised_ecorr_pack_is_identical(overlap):
     """The port's one-sort EcorrNoise.pack against the JAX package's
